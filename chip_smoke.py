@@ -25,13 +25,40 @@ then runs, in order, failing on the first phase that fails:
    steps, each with a finite loss and the kernel launch counts a step
    must make (2 forwards per layer with remat, one dQ and one dK/dV);
    then one more step under torch.profiler for the device time by phase
-   and by kernel family, and the device's busy share.
+   and by kernel family, and the device's busy share;
+5. ring kernels vs plain versions: the fused quantize (int8, int4) and
+   dequant-accumulate (int8, int4, also in place) of the ring_pallas_q
+   grad sync against their plain PyTorch versions, torch.equal (tolerance
+   zero) on edge inputs: zero blocks, exact .5 ties, codes saturating at
+   +-127 / +-7, negative nibbles, blocks of 256 and 512, one fused
+   multiply-add rounding;
+6. the dp leg: 4 rank processes on the one card over a gloo group (the
+   exchange is host-staged), Llama-2-1B at full width with its depth cut
+   to 4 layers, B=1 per rank, S=2048, bf16 grads on fp32 masters, bucket
+   4 MB, transport ring_pallas_q: int8_sharded (1 warm-up and 3 timed
+   steps), int4_sharded, blockwise_sharded and exact_sharded (3 steps
+   each), all from the same seeded weights.  It fails on a non-finite
+   loss, a step-0 loss that differs between modes, a quantized mode's
+   loss further from exact_sharded's than its stated tolerance (int8 1e-4
+   relative, int4 and blockwise 1e-2), params that are not
+   bit-identical across ranks after a step, or a step whose encode
+   launches differ from the bucket count or whose accumulate launches
+   differ from buckets x 3, or whose flash launches differ from 2 forwards,
+   one dQ and one dK/dV per layer;
+7. the ring kernels at the dp leg's largest and smallest bucket shapes:
+   torch.equal against the plain versions (the JSON line's max_abs_err is
+   the largest |kernel - plain| over phases 5 and 7), then time per
+   launch with CUDA events beside the bound (bytes over 3.35 TB/s) and
+   the plain version;
+   torch.add at the largest bucket row as the yardstick of the exact
+   ring's per-hop add (a later slice's kernel).
 
 The last three lines are the kernels' JSON record, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
 prints no result.
 """
 
+import gc
 import json
 import math
 import re
@@ -58,6 +85,29 @@ REPLACES = {
     "flash_bwd_dq": "dlrover_tpu/ops/pallas/flash_attention.py:195",
     "flash_bwd_dkv": "dlrover_tpu/ops/pallas/flash_attention.py:239",
 }
+RING_SOURCE = "dlrover_tpu_torch/csrc/ring_reduce_scatter.cu"
+RING_REPLACES = {
+    "q8_encode": "dlrover_tpu/ops/pallas/ring_reduce_scatter.py:113",
+    "q4_encode": "dlrover_tpu/ops/pallas/ring_reduce_scatter.py:123",
+    "q8_accum": "dlrover_tpu/ops/pallas/ring_reduce_scatter.py:141",
+    "q4_accum": "dlrover_tpu/ops/pallas/ring_reduce_scatter.py:145",
+}
+DP_WORLD, DP_LAYERS, DP_BUCKET_MB = 4, 4, 4.0
+# (mode, steps): the schedule's lr is 0 at step 0, so a loss from step 2 on
+# is the first to see an update
+DP_RUNS = (("int8_sharded", 4), ("int4_sharded", 3),
+           ("blockwise_sharded", 3), ("exact_sharded", 3))
+# a quantized mode's loss against exact_sharded's, relative, after one
+# update of lr 3e-5 from the same weights.  int4 (and the blockwise mix,
+# whose base codes are int4) zeroes every element below max/14 of its
+# 256-element block, and Adam turns a changed gradient element into a
+# whole-lr step: a first run of this leg measured int8 5.7e-6 and int4
+# 2.2e-3 (H100, 700 W)
+DP_LOSS_RTOL = {"int8": 1e-4, "int4": 1e-2, "blockwise": 1e-2}
+# step 0's loss, before any update, across modes: the same forward on the
+# same card, so only a nondeterministic reduction could move it
+DP_STEP0_RTOL = 1e-6
+DP_TIMEOUT_S = 480.0
 
 
 def card_line() -> str:
@@ -368,6 +418,270 @@ def profile_step(trainer, state, batch, fa, per_step, step_s):
     return state
 
 
+def ring_edge_rows(block: int, rows: int = 64, seed: int = 0):
+    """(rows, block) fp32 on the card: a zero block, exact .5 ties at
+    scale 1 for int8 (max 127) and int4 (max 7), values all at +-max,
+    a negative-only block, a block of one nonzero value, and seeded blocks
+    over six decades of magnitude."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((rows, block))
+         * 10.0 ** rng.uniform(-4, 2, (rows, 1))).astype(np.float32)
+    x[0] = 0.0
+    x[1] = np.arange(block) % 127 - 63 + 0.5
+    x[1, 0] = 127.0
+    x[2] = np.arange(block) % 14 - 7 + 0.5
+    x[2, :2] = (7.0, -7.0)
+    x[3] = np.where(np.arange(block) % 2, 3.0, -3.0)
+    x[4] = -np.abs(x[4])
+    x[5] = 0.0
+    x[5, 7] = -2.5e-3
+    return torch.from_numpy(x).cuda()
+
+
+def ring_accum_inputs(fmt: str, nblk: int, block: int, seed: int = 1):
+    """acc, codes and scales on the card for one arriving chunk; codes over
+    their whole range (every nibble for int4), a zero scale, a zero acc
+    row, and an int8 element whose sum needs one fused rounding."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    acc = rng.standard_normal((nblk, block)).astype(np.float32)
+    qcols = block if fmt == "int8" else block // 2
+    q = rng.integers(-127 if fmt == "int8" else -128, 128,
+                     (nblk, qcols)).astype(np.int8)
+    s = rng.uniform(1e-4, 1.0, (nblk, 1)).astype(np.float32)
+    s[min(1, nblk - 1)] = 0.0
+    acc[0, 1:] = 0.0
+    if fmt == "int8":
+        # 1 + 59 * 9099507 * 2**-53 = 1 + 2**-24 + 2**-53: just above a
+        # midpoint, which a sum rounded twice would miss
+        acc[0, 0], q[0, 0], s[0] = 1.0, 59, np.float32(9099507 * 2.0 ** -53)
+    return (torch.from_numpy(acc).cuda(), torch.from_numpy(q).cuda(),
+            torch.from_numpy(s).cuda())
+
+
+def check_ring_kernels(rrs, shapes, errors):
+    """Each ring kernel against its plain version on the same tensors,
+    torch.equal (raises on any difference); ``shapes`` are (world, nblk,
+    block) encode inputs, and the accumulate takes one chunk of nblk
+    rows.  ``errors[name]`` keeps the largest |kernel - plain| over every
+    output compared."""
+    import torch
+
+    def max_abs(got, want):
+        return (got.double() - want.double()).abs().max().item()
+
+    for world, nblk, block in shapes:
+        for fmt in ("int8", "int4"):
+            if nblk * world <= 64:
+                x = ring_edge_rows(block, world * nblk).reshape(world, nblk,
+                                                                 block)
+            else:
+                g = torch.Generator(device="cuda").manual_seed(nblk)
+                x = torch.randn(world, nblk, block, device="cuda",
+                                generator=g) * 1e-3
+            got = rrs.fused_quantize(x, fmt)
+            want = rrs.encode_plain(x.reshape(-1, block), fmt)
+            name = "q8_encode" if fmt == "int8" else "q4_encode"
+            for part, g_, w_ in zip(("codes", "scales", "dequant"), got,
+                                    want):
+                w_ = w_.reshape(g_.shape)
+                diff = max_abs(g_, w_)
+                errors[name] = max(errors.get(name, 0.0), diff)
+                if not torch.equal(g_, w_):
+                    raise AssertionError(
+                        f"{name} {part} differ from the plain version at "
+                        f"{(world, nblk, block)}: max abs {diff}")
+            acc, q, s = ring_accum_inputs(fmt, nblk, block)
+            name = "q8_accum" if fmt == "int8" else "q4_accum"
+            want = rrs.accum_plain(acc, q, s, fmt)
+            got = rrs.fused_dequant_add(acc, q, s, fmt)
+            inplace = acc.clone()
+            rrs.fused_dequant_add(inplace, q, s, fmt, out=inplace)
+            torch.cuda.synchronize()
+            for variant, g_ in (("out", got), ("in place", inplace)):
+                diff = max_abs(g_, want)
+                errors[name] = max(errors.get(name, 0.0), diff)
+                if not torch.equal(g_, want):
+                    raise AssertionError(
+                        f"{name} ({variant}) differs from the plain version "
+                        f"at nblk={nblk} block={block}: max abs {diff}")
+            print(f"  (world, nblk, block)={(world, nblk, block)} {fmt}: "
+                  f"encode and accumulate (out, in place) equal to plain")
+
+
+def ring_bytes(name: str, world: int, nblk: int, block: int) -> int:
+    """Bytes one launch must move: each input read once, each output
+    written once (encode over (world, nblk, block), accumulate over one
+    (nblk, block) chunk)."""
+    code_bytes = 1.0 if name.startswith("q8") else 0.5
+    if name.endswith("encode"):
+        n, rows = world * nblk * block, world * nblk
+        return int(n * (4 + code_bytes + 4) + 4 * rows)
+    n = nblk * block
+    return int(n * (4 + code_bytes + 4) + 4 * nblk)
+
+
+def time_ring_kernels(rrs, world: int, nblk: int, block: int):
+    """Per-launch time of each ring kernel and its plain version at one
+    bucket shape, beside the bound."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(world, nblk, block, device="cuda", generator=g)
+    q8, s8, _ = rrs.fused_quantize(x, "int8")
+    q4, s4, _ = rrs.fused_quantize(x, "int4")
+    acc = torch.randn(nblk, block, device="cuda", generator=g)
+    runs = {
+        "q8_encode": (lambda: rrs.fused_quantize(x, "int8"),
+                      lambda: rrs.encode_plain(x.reshape(-1, block), "int8")),
+        "q4_encode": (lambda: rrs.fused_quantize(x, "int4"),
+                      lambda: rrs.encode_plain(x.reshape(-1, block), "int4")),
+        "q8_accum": (lambda: rrs.fused_dequant_add(acc, q8[0], s8[0], "int8",
+                                                   out=acc),
+                     lambda: rrs.accum_plain(acc, q8[0], s8[0], "int8")),
+        "q4_accum": (lambda: rrs.fused_dequant_add(acc, q4[0], s4[0], "int4",
+                                                   out=acc),
+                     lambda: rrs.accum_plain(acc, q4[0], s4[0], "int4")),
+    }
+    timings = {}
+    for name, (kernel, plain) in runs.items():
+        ms = cuda_time_ms(kernel, iters=20)
+        plain_ms = cuda_time_ms(plain, iters=3, warmup=1)
+        nbytes = ring_bytes(name, world, nblk, block)
+        b_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        timings[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                             bound_by="bytes", library_ms=None)
+        print(f"  {name} at (world, nblk, block)={(world, nblk, block)}: "
+              f"{ms:.4f} ms  bound {b_ms:.4f} ms (bytes, "
+              f"{nbytes / 1e6:.2f} MB)  plain {plain_ms:.4f} ms")
+    return timings
+
+
+def time_exact_hop_add(width: int):
+    """torch.add of two fp32 bucket rows: the yardstick of the exact ring's
+    per-hop add (_add_kernel, ported in a later slice)."""
+    import torch
+
+    a = torch.randn(width, device="cuda")
+    b = torch.randn(width, device="cuda")
+    ms = cuda_time_ms(lambda: torch.add(a, b), iters=20)
+    b_ms = 12 * width / PEAK_BYTES_PER_S * 1e3
+    print(f"  torch.add at width {width} (the exact ring's hop add): "
+          f"{ms:.4f} ms  bound {b_ms:.4f} ms (bytes)")
+    return ms
+
+
+def dp_leg():
+    """The 4-rank data-parallel leg on the one card (phase 6)."""
+    import numpy as np
+    import torch
+
+    from dlrover_tpu_torch.parallel import dp_workers, process_group
+
+    ids = np.random.default_rng(0).integers(0, 32000,
+                                            size=(DP_WORLD, TRAIN_S + 1))
+    spec = dict(
+        preset="llama2_1b",
+        model=dict(num_layers=DP_LAYERS, attention_impl="flash",
+                   max_seq_len=TRAIN_S),
+        state_dict=None, seed=0,
+        batch={"input_ids": ids[:, :-1].astype(np.int32),
+               "labels": ids[:, 1:].astype(np.int32)},
+        optimizer=dict(peak_lr=3e-4, warmup_steps=10, total_steps=10_000,
+                       grad_clip_norm=None, moment_dtype=torch.bfloat16),
+        grads_dtype=torch.bfloat16,
+        # exact_sharded takes the stock reduce-scatter: its ring tiers
+        # (the exact ring kernels) are a later slice
+        runs=[dict(name=mode, steps=steps,
+                   policy=dict(mode=mode, bucket_mb=DP_BUCKET_MB,
+                               clip_norm=1.0,
+                               transport=("auto" if mode == "exact_sharded"
+                                          else "ring_pallas_q")))
+              for mode, steps in DP_RUNS],
+    )
+    print(f"  {DP_WORLD} rank processes share the one card over a gloo "
+          f"group: every exchange is host-staged (device -> host -> "
+          f"device); llama2_1b at full width, {DP_LAYERS} layers, B=1 per "
+          f"rank, S={TRAIN_S}, bucket {DP_BUCKET_MB} MB, ring_pallas_q "
+          "(exact_sharded: the stock reduce-scatter)",
+          flush=True)
+    t0 = time.perf_counter()
+    ranks = process_group.spawn(dp_workers.train_worker, DP_WORLD, (spec,),
+                                backend="gloo", device="cuda",
+                                timeout_s=DP_TIMEOUT_S)
+    print(f"  the leg took {time.perf_counter() - t0:.1f} s with spawn and "
+          "model set-up", flush=True)
+    records = {mode: [r["runs"][mode] for r in ranks] for mode, _ in DP_RUNS}
+    summary = records["int8_sharded"][0]["summary"]
+    n_buckets = summary["n_buckets"]
+    widths = summary["bucket_widths"]
+    print(f"  buckets: {n_buckets}, signature {summary['signature']}, row "
+          f"widths {min(widths)}..{max(widths)}, transports "
+          f"{summary['transport_resolved']}")
+    launches = {name: 0 for name in RING_REPLACES}
+    flash_per_step = {"flash_fwd": 2 * DP_LAYERS, "flash_bwd_dq": DP_LAYERS,
+                      "flash_bwd_dkv": DP_LAYERS}
+    exact_loss = records["exact_sharded"][0]["loss"]
+    for mode, steps in DP_RUNS:
+        recs = records[mode]
+        enc, acc = (("q8_encode", "q8_accum") if mode.startswith("int8")
+                    else ("q4_encode", "q4_accum"))
+        for rec in recs:
+            if rec["summary"]["signature"] != summary["signature"]:
+                raise AssertionError(f"{mode}: ranks derived different "
+                                     "bucket layouts")
+            if rec["params_agree"] != [True] * steps:
+                raise AssertionError(f"{mode}: params not bit-identical "
+                                     f"across ranks: {rec['params_agree']}")
+            for step, counts in enumerate(rec["launches"]):
+                want = {name: 0 for name in RING_REPLACES}
+                if mode != "exact_sharded":
+                    want[enc], want[acc] = n_buckets, n_buckets * (DP_WORLD - 1)
+                if counts != want:
+                    raise AssertionError(f"{mode} step {step} launched "
+                                         f"{counts}, expected {want}")
+                for name in launches:
+                    launches[name] += counts[name]
+            for step, counts in enumerate(rec["flash_launches"]):
+                if counts != flash_per_step:
+                    raise AssertionError(f"{mode} step {step} launched the "
+                                         f"flash kernels {counts}, expected "
+                                         f"{flash_per_step}")
+        loss = recs[0]["loss"]
+        if not all(math.isfinite(v) for v in loss + recs[0]["grad_norm"]):
+            raise AssertionError(f"{mode}: non-finite loss or grad norm")
+        if abs(loss[0] - exact_loss[0]) > DP_STEP0_RTOL * abs(exact_loss[0]):
+            raise AssertionError(f"{mode}: step-0 loss {loss[0]} differs "
+                                 f"from exact_sharded's {exact_loss[0]}")
+        n = min(len(loss), len(exact_loss))
+        rel = max(abs(a - b) / abs(b) for a, b in zip(loss[:n],
+                                                      exact_loss[:n]))
+        tol = DP_LOSS_RTOL.get(mode.split("_")[0], 0.0)
+        if rel > tol:
+            raise AssertionError(f"{mode}: loss {loss} is {rel:.2e} "
+                                 f"relative from exact_sharded's "
+                                 f"{exact_loss} (tol {tol})")
+        timed = recs[0]["step_s"][1:] if mode == "int8_sharded" else []
+        peaks = [r["peak_mem_bytes"] / 2**30 for r in recs]
+        print(f"  {mode}: losses {[round(v, 5) for v in loss]} grad norms "
+              f"{[round(v, 4) for v in recs[0]['grad_norm']]}; step s "
+              f"{[round(v, 3) for v in recs[0]['step_s']]}"
+              + (f" (timed mean {sum(timed) / len(timed):.3f})"
+                 if timed else "")
+              + f"; max rel loss vs exact {rel:.2e}; per-rank peak GiB "
+              f"{[round(p, 2) for p in peaks]}; launches per step "
+              f"{recs[0]['launches'][-1]} {recs[0]['flash_launches'][-1]}")
+    print("  params bit-identical across ranks after every step; step "
+          "times are for the record only (4 processes time-slice the card, "
+          "the exchange goes through the host)")
+    return launches, widths
+
+
 def main() -> int:
     import torch
 
@@ -383,12 +697,14 @@ def main() -> int:
     _build.build()
     print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
     kernel = None
-    for line in _build.build_log(fa.KERNEL_SOURCE).splitlines():
-        found = re.search(r"(fa_\w+?_kernel)ILi(\d+)E", line)
-        if "Compiling entry function" in line and found:
-            kernel = f"{found.group(1)}<{found.group(2)}>"
-        elif kernel and ("registers" in line or "spill" in line):
-            print(f"  {kernel}: {line.split(':', 1)[-1].strip()}")
+    for source in _build.SOURCES:
+        for line in _build.build_log(source).splitlines():
+            found = re.search(r"((?:fa_\w+?|encode|accum)_kernel)IL[ib](\d+)E",
+                              line)
+            if "Compiling entry function" in line and found:
+                kernel = f"{found.group(1)}<{found.group(2)}>"
+            elif kernel and ("registers" in line or "spill" in line):
+                print(f"  {kernel}: {line.split(':', 1)[-1].strip()}")
 
     print("[kernels vs plain versions]", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -405,6 +721,31 @@ def main() -> int:
     print("[training]", flush=True)
     launches = train(fa)
 
+    from dlrover_tpu_torch.ops.cuda import ring_reduce_scatter as rrs
+
+    print("[ring kernels vs plain versions, edge inputs]", flush=True)
+    ring_errors = {}
+    check_ring_kernels(rrs, [(2, 32, 256), (2, 16, 512), (1, 8, 1024)],
+                       ring_errors)
+
+    # the ranks need the card's memory: release what the single-device
+    # training phase left in this process's caching allocator
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[dp leg: {DP_WORLD} ranks on one card] (this process holds "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB)", flush=True)
+    ring_launches, widths = dp_leg()
+
+    block = 256
+    largest, smallest = max(widths), min(widths)
+    shapes = [(DP_WORLD, -(-w // block), block) for w in (largest, smallest)]
+    print(f"[ring kernels at the dp leg's bucket shapes: rows of {largest} "
+          f"and {smallest}]", flush=True)
+    check_ring_kernels(rrs, shapes, ring_errors)
+    ring_timings = time_ring_kernels(rrs, *shapes[0])
+    time_ring_kernels(rrs, *shapes[1])
+    time_exact_hop_add(largest)
+
     record = [
         dict(name=name, route="cuda", source=SOURCE,
              replaces=REPLACES[name], launches=launches[name],
@@ -412,6 +753,12 @@ def main() -> int:
              rel_err=errors[name][2], rel_tol=REL_TOL,
              **timings[name])
         for name in REPLACES
+    ] + [
+        dict(name=name, route="cuda", source=RING_SOURCE,
+             replaces=RING_REPLACES[name], launches=ring_launches[name],
+             max_abs_err=ring_errors[name], atol=0.0,
+             **ring_timings[name])
+        for name in RING_REPLACES
     ]
     print(json.dumps({"kernels": record}))
     print(card_line())

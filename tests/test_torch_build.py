@@ -77,7 +77,9 @@ def test_missing_compiler_raises(workdir, monkeypatch):
 
 
 def test_repo_sources_are_the_ones_built():
-    assert (_build.CSRC_DIR / "flash_attention.cu").exists()
+    for name in ("flash_attention", "ring_reduce_scatter"):
+        assert (_build.CSRC_DIR / f"{name}.cu").exists()
+        assert name in _build.SOURCES
     assert set(_build.SOURCES) == {
         p.stem for p in _build.CSRC_DIR.glob("*.cu")}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS

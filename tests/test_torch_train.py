@@ -182,10 +182,58 @@ def test_accumulation_needs_a_divisible_batch():
 
 
 def test_other_grad_sync_modes_are_a_later_slice():
+    """What the dp grad sync leaves to later slices raises: stochastic
+    rounding, the hierarchical two-level sync and the exact ring tiers
+    (the exact ring kernels).  The ring tiers are refused when the trainer
+    resolves its buckets, so a stand-in group of 4 ranks is enough."""
+    from types import SimpleNamespace
+
+    from dlrover_tpu_torch.parallel.collectives import GradSyncPolicy
+
     model = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        Trainer(model, toptim.create_optimizer(**OPT), grad_sync="int8",
-                device="cpu")
+    optimizer = toptim.create_optimizer(grad_clip_norm=None, **OPT)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        Trainer(model, optimizer, device="cpu", grad_sync=GradSyncPolicy(
+            mode="int8_sharded", rounding="stochastic"))
+    with pytest.raises(NotImplementedError, match="later slice"):
+        Trainer(model, optimizer, device="cpu", grad_sync=GradSyncPolicy(
+            mode="int8_sharded", hierarchical=True))
+    four = SimpleNamespace(world=4, rank=0)
+    for transport in ("ring", "ring_pallas", "ring_pallas_q", "ring_rdma"):
+        with pytest.raises(NotImplementedError, match="later slice"):
+            Trainer(model, optimizer, device="cpu", dp_group=four,
+                    grad_sync=GradSyncPolicy(mode="exact_sharded",
+                                             transport=transport))
+    # a quantized mode resolves ring_pallas_q to the fused ring: ported
+    trainer = Trainer(model, optimizer, device="cpu", dp_group=four,
+                      grad_sync=GradSyncPolicy(mode="int8_sharded",
+                                               transport="ring_pallas_q"))
+    assert trainer.grad_sync_summary()["transport_resolved"] == [
+        "ring_pallas_q"]
+
+
+def test_world_of_one_demotes_to_exact_and_keeps_the_clip():
+    from dlrover_tpu_torch.parallel.collectives import GradSyncPolicy
+
+    cfg = LlamaConfig.tiny(dtype=torch.float32)
+    trainer = Trainer(LlamaForCausalLM(cfg, device="cpu"),
+                      toptim.create_optimizer(grad_clip_norm=None, **OPT),
+                      device="cpu", grad_sync=GradSyncPolicy(
+                          mode="int8_sharded", clip_norm=0.5))
+    assert trainer.grad_sync.mode == "exact"
+    assert trainer.grad_sync.clip_norm == 0.5
+    in_chain = Trainer(LlamaForCausalLM(cfg, device="cpu"),
+                       toptim.create_optimizer(grad_clip_norm=0.5, **OPT),
+                       device="cpu")
+    state, want = trainer.create_state(), in_chain.create_state()
+    assert state.ef_residual is None
+    for _ in range(3):
+        state, metrics = trainer.train_step(state, _batch())
+        want, _ = in_chain.train_step(want, _batch())
+    assert metrics["grad_norm"].item() > 0.5  # the clip was active
+    # the same clip, computed as g * (c / n) against (g / n) * c
+    for n, p in state.params.items():
+        torch.testing.assert_close(p, want.params[n], rtol=0, atol=1e-4)
 
 
 def test_default_device_without_cuda_raises():
