@@ -32,30 +32,58 @@ then runs, in order, failing on the first phase that fails:
    zero) on edge inputs: zero blocks, exact .5 ties, codes saturating at
    +-127 / +-7, negative nibbles, blocks of 256 and 512, one fused
    multiply-add rounding;
-6. the dp leg: 4 rank processes on the one card over a gloo group (the
+6. ring add vs plain: the exact ring_pallas hop's add kernel against its
+   plain version, torch.equal, out of place and in place, at widths 1, 3,
+   1000, 1024, 4097 and the dp leg's largest row (16,384,000);
+7. rdma ring on one card vs plain: the one-kernel ring with W ranks as W
+   groups of CTAs of one cooperative launch over OneCardWindows
+   (rdma_ring_one_card).  First two calls whose peers never arrive (the
+   windows skip generations, so no entry barrier completes) with a 2 s
+   wait limit: the windows' check() must raise within 1.75 limits, naming
+   the stage (the second call leaves at once on the broken windows), and
+   a call on fresh windows must be right again; then W in {2, 4, 8} and
+   widths {128, 4096, 1,048,576}, and W=4 at 16,384,000, each torch.equal
+   to its plain version; then the kernel's one-card path:
+   50 calls back to back at W=4, width 1,048,576, cycling through three
+   inputs (so that a read of a slot left by the previous call would show),
+   with the launch count read around them and every output equal to plain;
+   then its time at W=4, width 16,384,000 beside its bound (the bytes the
+   function needs: each rank's buffer read once, each row written once)
+   and torch.sum(xs, 0);
+8. peer window across processes: 4 gloo ranks on the card build a
+   PeerWindow (cudaMalloc windows, IPC handles exchanged with all_gather)
+   and each copies a seeded row into its right neighbour's slot through
+   the opened handle (copies only: no kernel waits on another process);
+   each slot must hold its left neighbour's row exactly;
+9. the dp leg: 4 rank processes on the one card over a gloo group (the
    exchange is host-staged), Llama-2-1B at full width with its depth cut
    to 4 layers, B=1 per rank, S=2048, bf16 grads on fp32 masters, bucket
    4 MB, transport ring_pallas_q: int8_sharded (1 warm-up and 3 timed
    steps), int4_sharded, blockwise_sharded and exact_sharded (3 steps
-   each), all from the same seeded weights.  It fails on a non-finite
-   loss, a step-0 loss that differs between modes, a quantized mode's
-   loss further from exact_sharded's than its stated tolerance (int8 1e-4
-   relative, int4 and blockwise 1e-2), params that are not
-   bit-identical across ranks after a step, or a step whose encode
-   launches differ from the bucket count or whose accumulate launches
-   differ from buckets x 3, or whose flash launches differ from 2 forwards,
-   one dQ and one dK/dV per layer;
-7. the ring kernels at the dp leg's largest and smallest bucket shapes:
+   each), then exact_sharded over the ring_pallas tier (3 steps), all
+   from the same seeded weights.  It fails on a non-finite loss, a step-0
+   loss that differs between runs, a quantized mode's loss further from
+   exact_sharded's than its stated tolerance (int8 1e-4 relative, int4
+   and blockwise 1e-2; the exact ring 1e-5), params that are not
+   bit-identical across ranks after a step, the exact ring's resolved
+   tiers other than ring and ring_pallas, or a step whose ring kernel
+   launches differ from what its buckets need (a quantized step: encode =
+   buckets, accumulate = buckets x 3; the exact ring: add = 3 per bucket
+   whose width is a multiple of 1024; no other ring kernel, and never the
+   rdma ring, which needs a card per rank) or whose flash launches differ
+   from 2 forwards, one dQ and one dK/dV per layer;
+10. the ring kernels at the dp leg's largest and smallest bucket shapes:
    torch.equal against the plain versions (the JSON line's max_abs_err is
-   the largest |kernel - plain| over phases 5 and 7), then time per
+   the largest |kernel - plain| over every comparison), then time per
    launch with CUDA events beside the bound (bytes over 3.35 TB/s) and
-   the plain version;
-   torch.add at the largest bucket row as the yardstick of the exact
-   ring's per-hop add (a later slice's kernel).
+   the plain version; the hop add at the largest row beside torch.add.
 
 The last three lines are the kernels' JSON record, the nvidia-smi line and
-``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
-prints no result.
+``{"ok": true, "device": {...}}``.  A kernel's ``launches`` is its count
+over the path that runs it here: the single-device training (flash), the
+dp leg (the ring_pallas_q and ring_pallas kernels), and for the rdma ring
+its one-card path (``launches_dp_leg`` beside it: 0, as the dp leg's ranks
+share the card).  Without a CUDA device it exits 1 and prints no result.
 """
 
 import gc
@@ -92,11 +120,26 @@ RING_REPLACES = {
     "q8_accum": "dlrover_tpu/ops/pallas/ring_reduce_scatter.py:141",
     "q4_accum": "dlrover_tpu/ops/pallas/ring_reduce_scatter.py:145",
 }
+ADD_REPLACES = "dlrover_tpu/ops/pallas/ring_reduce_scatter.py:81"
+RDMA_SOURCE = "dlrover_tpu_torch/csrc/rdma_ring.cu"
+RDMA_REPLACES = "dlrover_tpu/ops/pallas/ring_reduce_scatter.py:257"
+# the dp leg's largest bucket row: the embedding's (32000 x 2048) / 4
+DP_LARGEST_ROW = 16_384_000
+ADD_WIDTHS = (1, 3, 1000, 1024, 4097, DP_LARGEST_ROW)
+RDMA_SHAPES = tuple((w, n) for w in (2, 4, 8)
+                    for n in (128, 4096, 1_048_576)) + ((4, DP_LARGEST_ROW),)
+RDMA_REUSE_CALLS, RDMA_REUSE_SHAPE = 50, (4, 1_048_576)
+# the stuck-peer check's wait limit (the windows' default is a minute)
+RDMA_TIMEOUT_S = 2.0
+PEER_WINDOW_WIDTH = 1_048_576
 DP_WORLD, DP_LAYERS, DP_BUCKET_MB = 4, 4, 4.0
-# (mode, steps): the schedule's lr is 0 at step 0, so a loss from step 2 on
-# is the first to see an update
-DP_RUNS = (("int8_sharded", 4), ("int4_sharded", 3),
-           ("blockwise_sharded", 3), ("exact_sharded", 3))
+# (run, mode, transport, steps): the schedule's lr is 0 at step 0, so a
+# loss from step 2 on is the first to see an update
+DP_RUNS = (("int8_sharded", "int8_sharded", "ring_pallas_q", 4),
+           ("int4_sharded", "int4_sharded", "ring_pallas_q", 3),
+           ("blockwise_sharded", "blockwise_sharded", "ring_pallas_q", 3),
+           ("exact_sharded", "exact_sharded", "auto", 3),
+           ("exact_sharded/ring_pallas", "exact_sharded", "ring_pallas", 3))
 # a quantized mode's loss against exact_sharded's, relative, after one
 # update of lr 3e-5 from the same weights.  int4 (and the blockwise mix,
 # whose base codes are int4) zeroes every element below max/14 of its
@@ -104,6 +147,9 @@ DP_RUNS = (("int8_sharded", 4), ("int4_sharded", 3),
 # whole-lr step: a first run of this leg measured int8 5.7e-6 and int4
 # 2.2e-3 (H100, 700 W)
 DP_LOSS_RTOL = {"int8": 1e-4, "int4": 1e-2, "blockwise": 1e-2}
+# the exact ring against the stock reduce-scatter: the same sum in another
+# order (the reference's own tolerance, tests/test_grad_overlap.py)
+EXACT_RING_RTOL = 1e-5
 # step 0's loss, before any update, across modes: the same forward on the
 # same card, so only a nondeterministic reduction could move it
 DP_STEP0_RTOL = 1e-6
@@ -464,6 +510,10 @@ def ring_accum_inputs(fmt: str, nblk: int, block: int, seed: int = 1):
             torch.from_numpy(s).cuda())
 
 
+def max_abs(got, want) -> float:
+    return (got.double() - want.double()).abs().max().item()
+
+
 def check_ring_kernels(rrs, shapes, errors):
     """Each ring kernel against its plain version on the same tensors,
     torch.equal (raises on any difference); ``shapes`` are (world, nblk,
@@ -471,9 +521,6 @@ def check_ring_kernels(rrs, shapes, errors):
     rows.  ``errors[name]`` keeps the largest |kernel - plain| over every
     output compared."""
     import torch
-
-    def max_abs(got, want):
-        return (got.double() - want.double()).abs().max().item()
 
     for world, nblk, block in shapes:
         for fmt in ("int8", "int4"):
@@ -562,22 +609,205 @@ def time_ring_kernels(rrs, world: int, nblk: int, block: int):
     return timings
 
 
-def time_exact_hop_add(width: int):
-    """torch.add of two fp32 bucket rows: the yardstick of the exact ring's
-    per-hop add (_add_kernel, ported in a later slice)."""
+def check_ring_add(rrs, errors):
+    """The ring_pallas hop's add kernel against its plain version, out of
+    place and in place, torch.equal at every width."""
+    import torch
+
+    for width in ADD_WIDTHS:
+        g = torch.Generator(device="cuda").manual_seed(width)
+        a = torch.randn(width, device="cuda", generator=g)
+        b = torch.randn(width, device="cuda", generator=g) * 1e3
+        want = rrs.add_plain(a, b)
+        got = rrs.ring_add(a, b)
+        inplace = a.clone()
+        rrs.ring_add(inplace, b, out=inplace)
+        torch.cuda.synchronize()
+        for variant, g_ in (("out", got), ("in place", inplace)):
+            diff = max_abs(g_, want)
+            errors["ring_add"] = max(errors.get("ring_add", 0.0), diff)
+            if not torch.equal(g_, want):
+                raise AssertionError(f"ring_add ({variant}) differs from the "
+                                     f"plain version at width {width}: max "
+                                     f"abs {diff}")
+    print(f"  widths {ADD_WIDTHS}: out of place and in place equal to plain")
+
+
+def rdma_inputs(world: int, width: int, seed: int):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(world, world, width, device="cuda", generator=g)
+
+
+def check_rdma_ring(rdma, errors):
+    """The one-kernel ring with W ranks on the card against its plain
+    version at every shape; then its one-card path, counted; returns that
+    path's launch count."""
+    import torch
+
+    for world, width in RDMA_SHAPES:
+        xs = rdma_inputs(world, width, seed=world * 7 + width)
+        want = rdma.rdma_ring_plain(xs)
+        with rdma.OneCardWindows(xs.device, world, width) as windows:
+            got = rdma.rdma_ring_one_card(xs, windows)
+            windows.check()
+        diff = max_abs(got, want)
+        errors["rdma_ring"] = max(errors.get("rdma_ring", 0.0), diff)
+        if not torch.equal(got, want):
+            raise AssertionError(f"rdma_ring differs from the plain version "
+                                 f"at W={world} width={width}: max abs {diff}")
+        print(f"  W={world} width={width}: equal to plain")
+        del xs, want, got
+    world, width = RDMA_REUSE_SHAPE
+    inputs = [rdma_inputs(world, width, seed=100 + k) for k in range(3)]
+    wants = [rdma.rdma_ring_plain(xs) for xs in inputs]
+    with rdma.OneCardWindows(inputs[0].device, world, width) as windows:
+        torch.cuda.synchronize()
+        rdma.reset_launches()
+        outs = [rdma.rdma_ring_one_card(inputs[k % 3], windows)
+                for k in range(RDMA_REUSE_CALLS)]
+        launches = rdma.launches["rdma_ring"]
+        windows.check()
+    for k, got in enumerate(outs):
+        diff = max_abs(got, wants[k % 3])
+        errors["rdma_ring"] = max(errors["rdma_ring"], diff)
+        if not torch.equal(got, wants[k % 3]):
+            raise AssertionError(f"rdma_ring call {k} of {RDMA_REUSE_CALLS} "
+                                 f"back to back differs from plain: max abs "
+                                 f"{diff}")
+    if launches != RDMA_REUSE_CALLS:
+        raise AssertionError(f"{RDMA_REUSE_CALLS} calls launched the rdma "
+                             f"ring {launches} times")
+    print(f"  one-card path: {RDMA_REUSE_CALLS} calls back to back at "
+          f"W={world} width={width} (three inputs in turn), launches "
+          f"{launches}, every output equal to plain")
+    return launches
+
+
+def check_rdma_timeout(rdma):
+    """A stuck peer gives an error, never a hang: skipping generations on
+    the one-card windows leaves every CTA's entry barrier short of its
+    count, so each wait runs out and check() raises.  A second call queued
+    on the broken windows leaves at once: both take one timeout."""
+    import torch
+
+    xs = rdma_inputs(2, 128, seed=9)
+    with rdma.OneCardWindows(xs.device, 2, 128,
+                             timeout_s=RDMA_TIMEOUT_S) as windows:
+        rdma.rdma_ring_one_card(xs, windows)
+        windows.check()
+        windows.generation += 5
+        t0 = time.perf_counter()
+        rdma.rdma_ring_one_card(xs, windows)
+        rdma.rdma_ring_one_card(xs, windows)
+        try:
+            windows.check()
+        except RuntimeError as e:
+            took = time.perf_counter() - t0
+            if "entry barrier" not in str(e) or took > 1.75 * RDMA_TIMEOUT_S:
+                raise AssertionError(f"unexpected timeout report after "
+                                     f"{took:.2f} s: {e}")
+            print(f"  peers that never arrive (two calls queued, timeout "
+                  f"{RDMA_TIMEOUT_S} s): raised after {took:.2f} s: "
+                  f"{str(e)[:160]}")
+        else:
+            raise AssertionError("a call whose peers never arrive passed")
+    with rdma.OneCardWindows(xs.device, 2, 128) as windows:
+        got = rdma.rdma_ring_one_card(xs, windows)
+        windows.check()
+    if not torch.equal(got, rdma.rdma_ring_plain(xs)):
+        raise AssertionError("the call on fresh windows is wrong")
+    print("  a call on fresh windows equals plain")
+
+
+def time_rdma_ring(rdma):
+    """The one-card ring's time at W=4 and the dp leg's largest row (the
+    kernel alone: the wrapper only launches), beside its bound, its plain
+    version and torch.sum over the ranks."""
+    import torch
+
+    world, width = 4, DP_LARGEST_ROW
+    xs = rdma_inputs(world, width, seed=5)
+    with rdma.OneCardWindows(xs.device, world, width) as windows:
+        ms = cuda_time_ms(lambda: rdma.rdma_ring_one_card(xs, windows),
+                          iters=10)
+        windows.check()
+    plain_ms = cuda_time_ms(lambda: rdma.rdma_ring_plain(xs), iters=3,
+                            warmup=1)
+    library_ms = cuda_time_ms(lambda: torch.sum(xs, 0), iters=10)
+    # the function reads every rank's (W, width) buffer once and writes
+    # every rank's row once
+    nbytes = (world + 1) * world * width * 4
+    b_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    # the ring itself also writes each hop's packet and reads it back
+    traffic = (3 * world - 1) * world * width * 4
+    print(f"  rdma_ring_one_card at W={world} width={width}: {ms:.4f} ms  "
+          f"bound {b_ms:.4f} ms (bytes, {nbytes / 1e9:.2f} GB)  plain "
+          f"{plain_ms:.4f} ms  torch.sum(xs, 0) {library_ms:.4f} ms; the "
+          f"ring's own traffic {traffic / 1e9:.2f} GB, "
+          f"{traffic / PEAK_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by="bytes",
+                library_ms=library_ms)
+
+
+def time_hop_add(rrs, width: int):
+    """The ring_pallas hop's add at one bucket row, in place as the ring
+    runs it, beside its bound, its plain version and torch.add."""
     import torch
 
     a = torch.randn(width, device="cuda")
     b = torch.randn(width, device="cuda")
-    ms = cuda_time_ms(lambda: torch.add(a, b), iters=20)
+    ms = cuda_time_ms(lambda: rrs.ring_add(a, b, out=a), iters=20)
+    plain_ms = cuda_time_ms(lambda: rrs.add_plain(a, b), iters=20)
+    library_ms = cuda_time_ms(lambda: torch.add(a, b), iters=20)
     b_ms = 12 * width / PEAK_BYTES_PER_S * 1e3
-    print(f"  torch.add at width {width} (the exact ring's hop add): "
-          f"{ms:.4f} ms  bound {b_ms:.4f} ms (bytes)")
-    return ms
+    print(f"  ring_add at width {width} (in place): {ms:.4f} ms  bound "
+          f"{b_ms:.4f} ms (bytes)  plain {plain_ms:.4f} ms  torch.add "
+          f"{library_ms:.4f} ms")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by="bytes",
+                library_ms=library_ms)
+
+
+def peer_window_leg():
+    """4 gloo ranks on the card build a PeerWindow and move one row to each
+    right neighbour through it (phase 8)."""
+    from dlrover_tpu_torch.parallel import dp_workers, process_group
+
+    t0 = time.perf_counter()
+    ranks = process_group.spawn(
+        dp_workers.peer_window_worker, DP_WORLD,
+        (dict(width=PEER_WINDOW_WIDTH, seed=7),), backend="gloo",
+        device="cuda", timeout_s=120.0)
+    for r in ranks:
+        print(f"  rank {r['rank']}: window {r['window_bytes']} B, "
+              f"{r['ctas']} CTAs; slot 0 equal to the left neighbour's row: "
+              f"{r['equal']} (max abs {r['max_abs_err']})")
+        if not r["equal"]:
+            raise AssertionError(f"rank {r['rank']}'s slot does not hold its "
+                                 "left neighbour's row")
+    print(f"  {DP_WORLD} processes, IPC-opened windows, "
+          f"{time.perf_counter() - t0:.1f} s with spawn")
+
+
+def expected_ring_launches(mode: str, transport: str, widths,
+                           names) -> dict:
+    """The ring kernels' launches one dp step must make on each rank."""
+    want = {name: 0 for name in names}
+    n_buckets = len(widths)
+    if mode.startswith(("int8", "int4", "blockwise")):
+        enc, acc = (("q8_encode", "q8_accum") if mode.startswith("int8")
+                    else ("q4_encode", "q4_accum"))
+        want[enc], want[acc] = n_buckets, n_buckets * (DP_WORLD - 1)
+    elif transport == "ring_pallas":
+        # the hop add runs where the width meets the tier's tiling rule;
+        # the other buckets take the ring's plain add
+        want["add"] = sum(w % 1024 == 0 for w in widths) * (DP_WORLD - 1)
+    return want
 
 
 def dp_leg():
-    """The 4-rank data-parallel leg on the one card (phase 6)."""
+    """The 4-rank data-parallel leg on the one card (phase 9)."""
     import numpy as np
     import torch
 
@@ -595,20 +825,16 @@ def dp_leg():
         optimizer=dict(peak_lr=3e-4, warmup_steps=10, total_steps=10_000,
                        grad_clip_norm=None, moment_dtype=torch.bfloat16),
         grads_dtype=torch.bfloat16,
-        # exact_sharded takes the stock reduce-scatter: its ring tiers
-        # (the exact ring kernels) are a later slice
-        runs=[dict(name=mode, steps=steps,
+        runs=[dict(name=name, steps=steps,
                    policy=dict(mode=mode, bucket_mb=DP_BUCKET_MB,
-                               clip_norm=1.0,
-                               transport=("auto" if mode == "exact_sharded"
-                                          else "ring_pallas_q")))
-              for mode, steps in DP_RUNS],
+                               clip_norm=1.0, transport=transport))
+              for name, mode, transport, steps in DP_RUNS],
     )
     print(f"  {DP_WORLD} rank processes share the one card over a gloo "
           f"group: every exchange is host-staged (device -> host -> "
           f"device); llama2_1b at full width, {DP_LAYERS} layers, B=1 per "
-          f"rank, S={TRAIN_S}, bucket {DP_BUCKET_MB} MB, ring_pallas_q "
-          "(exact_sharded: the stock reduce-scatter)",
+          f"rank, S={TRAIN_S}, bucket {DP_BUCKET_MB} MB; runs "
+          f"{[(name, transport) for name, _, transport, _ in DP_RUNS]}",
           flush=True)
     t0 = time.perf_counter()
     ranks = process_group.spawn(dp_workers.train_worker, DP_WORLD, (spec,),
@@ -616,66 +842,71 @@ def dp_leg():
                                 timeout_s=DP_TIMEOUT_S)
     print(f"  the leg took {time.perf_counter() - t0:.1f} s with spawn and "
           "model set-up", flush=True)
-    records = {mode: [r["runs"][mode] for r in ranks] for mode, _ in DP_RUNS}
+    records = {name: [r["runs"][name] for r in ranks]
+               for name, _, _, _ in DP_RUNS}
     summary = records["int8_sharded"][0]["summary"]
-    n_buckets = summary["n_buckets"]
     widths = summary["bucket_widths"]
-    print(f"  buckets: {n_buckets}, signature {summary['signature']}, row "
-          f"widths {min(widths)}..{max(widths)}, transports "
-          f"{summary['transport_resolved']}")
-    launches = {name: 0 for name in RING_REPLACES}
+    print(f"  buckets: {len(widths)}, signature {summary['signature']}, row "
+          f"widths {min(widths)}..{max(widths)}")
+    names = sorted(records["int8_sharded"][0]["launches"][0])
+    launches = {name: 0 for name in names}
     flash_per_step = {"flash_fwd": 2 * DP_LAYERS, "flash_bwd_dq": DP_LAYERS,
                       "flash_bwd_dkv": DP_LAYERS}
     exact_loss = records["exact_sharded"][0]["loss"]
-    for mode, steps in DP_RUNS:
-        recs = records[mode]
-        enc, acc = (("q8_encode", "q8_accum") if mode.startswith("int8")
-                    else ("q4_encode", "q4_accum"))
+    for name, mode, transport, steps in DP_RUNS:
+        recs = records[name]
+        want = expected_ring_launches(mode, transport, widths, names)
         for rec in recs:
             if rec["summary"]["signature"] != summary["signature"]:
-                raise AssertionError(f"{mode}: ranks derived different "
+                raise AssertionError(f"{name}: ranks derived different "
                                      "bucket layouts")
             if rec["params_agree"] != [True] * steps:
-                raise AssertionError(f"{mode}: params not bit-identical "
+                raise AssertionError(f"{name}: params not bit-identical "
                                      f"across ranks: {rec['params_agree']}")
             for step, counts in enumerate(rec["launches"]):
-                want = {name: 0 for name in RING_REPLACES}
-                if mode != "exact_sharded":
-                    want[enc], want[acc] = n_buckets, n_buckets * (DP_WORLD - 1)
                 if counts != want:
-                    raise AssertionError(f"{mode} step {step} launched "
+                    raise AssertionError(f"{name} step {step} launched "
                                          f"{counts}, expected {want}")
-                for name in launches:
-                    launches[name] += counts[name]
+                for kernel in launches:
+                    launches[kernel] += counts[kernel]
             for step, counts in enumerate(rec["flash_launches"]):
                 if counts != flash_per_step:
-                    raise AssertionError(f"{mode} step {step} launched the "
+                    raise AssertionError(f"{name} step {step} launched the "
                                          f"flash kernels {counts}, expected "
                                          f"{flash_per_step}")
+        resolved = recs[0]["summary"]["transport_resolved"]
+        if transport == "ring_pallas" and resolved != ["ring", "ring_pallas"]:
+            raise AssertionError(f"{name} resolved to {resolved}, expected "
+                                 "ring_pallas for the 1024-aligned buckets "
+                                 "and ring for the others")
         loss = recs[0]["loss"]
         if not all(math.isfinite(v) for v in loss + recs[0]["grad_norm"]):
-            raise AssertionError(f"{mode}: non-finite loss or grad norm")
+            raise AssertionError(f"{name}: non-finite loss or grad norm")
         if abs(loss[0] - exact_loss[0]) > DP_STEP0_RTOL * abs(exact_loss[0]):
-            raise AssertionError(f"{mode}: step-0 loss {loss[0]} differs "
+            raise AssertionError(f"{name}: step-0 loss {loss[0]} differs "
                                  f"from exact_sharded's {exact_loss[0]}")
         n = min(len(loss), len(exact_loss))
         rel = max(abs(a - b) / abs(b) for a, b in zip(loss[:n],
                                                       exact_loss[:n]))
-        tol = DP_LOSS_RTOL.get(mode.split("_")[0], 0.0)
+        tol = (EXACT_RING_RTOL if mode == "exact_sharded"
+               else DP_LOSS_RTOL.get(mode.split("_")[0], 0.0))
         if rel > tol:
-            raise AssertionError(f"{mode}: loss {loss} is {rel:.2e} "
+            raise AssertionError(f"{name}: loss {loss} is {rel:.2e} "
                                  f"relative from exact_sharded's "
                                  f"{exact_loss} (tol {tol})")
-        timed = recs[0]["step_s"][1:] if mode == "int8_sharded" else []
+        timed = recs[0]["step_s"][1:] if name == "int8_sharded" else []
         peaks = [r["peak_mem_bytes"] / 2**30 for r in recs]
-        print(f"  {mode}: losses {[round(v, 5) for v in loss]} grad norms "
+        ring_per_step = {k: v for k, v in recs[0]["launches"][-1].items()
+                         if v}
+        print(f"  {name}: transports {resolved}; losses "
+              f"{[round(v, 5) for v in loss]} grad norms "
               f"{[round(v, 4) for v in recs[0]['grad_norm']]}; step s "
               f"{[round(v, 3) for v in recs[0]['step_s']]}"
               + (f" (timed mean {sum(timed) / len(timed):.3f})"
                  if timed else "")
               + f"; max rel loss vs exact {rel:.2e}; per-rank peak GiB "
               f"{[round(p, 2) for p in peaks]}; launches per step "
-              f"{recs[0]['launches'][-1]} {recs[0]['flash_launches'][-1]}")
+              f"{ring_per_step} {recs[0]['flash_launches'][-1]}")
     print("  params bit-identical across ranks after every step; step "
           "times are for the record only (4 processes time-slice the card, "
           "the exchange goes through the host)")
@@ -699,10 +930,11 @@ def main() -> int:
     kernel = None
     for source in _build.SOURCES:
         for line in _build.build_log(source).splitlines():
-            found = re.search(r"((?:fa_\w+?|encode|accum)_kernel)IL[ib](\d+)E",
-                              line)
+            found = re.search(r"((?:fa_\w+?|encode|accum|add|rdma_ring)_kernel)"
+                              r"(?:IL[ib](\d+)E)?", line)
             if "Compiling entry function" in line and found:
-                kernel = f"{found.group(1)}<{found.group(2)}>"
+                kernel = found.group(1) + (f"<{found.group(2)}>"
+                                           if found.group(2) else "")
             elif kernel and ("registers" in line or "spill" in line):
                 print(f"  {kernel}: {line.split(':', 1)[-1].strip()}")
 
@@ -728,10 +960,22 @@ def main() -> int:
     check_ring_kernels(rrs, [(2, 32, 256), (2, 16, 512), (1, 8, 1024)],
                        ring_errors)
 
+    from dlrover_tpu_torch.ops.cuda import rdma_ring as rdma
+
+    print("[ring add vs plain]", flush=True)
+    check_ring_add(rrs, ring_errors)
+
+    print("[rdma ring on one card vs plain]", flush=True)
+    check_rdma_timeout(rdma)
+    rdma_launches = check_rdma_ring(rdma, ring_errors)
+    rdma_timing = time_rdma_ring(rdma)
+
     # the ranks need the card's memory: release what the single-device
-    # training phase left in this process's caching allocator
+    # phases left in this process's caching allocator
     gc.collect()
     torch.cuda.empty_cache()
+    print("[peer window across processes]", flush=True)
+    peer_window_leg()
     print(f"[dp leg: {DP_WORLD} ranks on one card] (this process holds "
           f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB)", flush=True)
     ring_launches, widths = dp_leg()
@@ -744,7 +988,7 @@ def main() -> int:
     check_ring_kernels(rrs, shapes, ring_errors)
     ring_timings = time_ring_kernels(rrs, *shapes[0])
     time_ring_kernels(rrs, *shapes[1])
-    time_exact_hop_add(largest)
+    add_timing = time_hop_add(rrs, largest)
 
     record = [
         dict(name=name, route="cuda", source=SOURCE,
@@ -759,6 +1003,14 @@ def main() -> int:
              max_abs_err=ring_errors[name], atol=0.0,
              **ring_timings[name])
         for name in RING_REPLACES
+    ] + [
+        dict(name="ring_add", route="cuda", source=RING_SOURCE,
+             replaces=ADD_REPLACES, launches=ring_launches["add"],
+             max_abs_err=ring_errors["ring_add"], atol=0.0, **add_timing),
+        dict(name="rdma_ring", route="cuda", source=RDMA_SOURCE,
+             replaces=RDMA_REPLACES, launches=rdma_launches,
+             launches_dp_leg=ring_launches["rdma_ring"],
+             max_abs_err=ring_errors["rdma_ring"], atol=0.0, **rdma_timing),
     ]
     print(json.dumps({"kernels": record}))
     print(card_line())

@@ -1,8 +1,10 @@
-// Fused quantize and fused dequant-accumulate of the ring_pallas_q grad-sync
-// ring, for Hopper (sm_90a).
+// The per-hop kernels of the grad-sync rings, for Hopper (sm_90a): the
+// fused quantize and fused dequant-accumulate of the ring_pallas_q ring and
+// the plain accumulate of the exact ring_pallas ring.
 //
-// Replaces four Pallas TPU kernels of
+// Replaces five Pallas TPU kernels of
 // dlrover_tpu/ops/pallas/ring_reduce_scatter.py:
+//   add_kernel       <- _add_kernel       (:81, pallas_call :90)
 //   q8_encode_kernel <- _q8_encode_kernel (:113, pallas_call :178)
 //   q4_encode_kernel <- _q4_encode_kernel (:123, pallas_call :178)
 //   q8_accum_kernel  <- _q8_accum_kernel  (:141, pallas_call :206)
@@ -39,6 +41,15 @@
 // a grid-stride loop over groups of 8 elements (two float4 of acc, 8 or 4
 // bytes of codes).  Launch overhead dominates small buckets; a later PR
 // could fuse the buckets of a step into one launch.
+//
+// Add: out = a + b on fp32 vectors of any length n >= 1, one IEEE rounding
+// per element (__fadd_rn, the add XLA does); out may alias a, so a ring hop
+// accumulates in place.  Precondition, checked by the wrapper: a, b and out
+// contiguous fp32, each 16-byte aligned (the float4 loads and stores).  The
+// reference's width % 1024 rule is a TPU tiling rule and only picks the
+// tier; this kernel takes any n.  Bound: bytes, 12 per element (read two,
+// write one) against 3.35 TB/s and one flop per element.  Design: a
+// grid-stride loop over float4 groups, then a scalar tail of n % 4.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -164,6 +175,24 @@ accum_kernel(const float* acc, const int8_t* __restrict__ q,
   }
 }
 
+// a and out are not __restrict__: out may be a (in-place accumulate)
+__global__ void __launch_bounds__(THREADS)
+add_kernel(const float* a, const float* __restrict__ b, float* out,
+           long long n) {
+  const long long stride = (long long)gridDim.x * THREADS;
+  const long long first = (long long)blockIdx.x * THREADS + threadIdx.x;
+  const long long groups = n / 4;
+  for (long long g = first; g < groups; g += stride) {
+    const float4 x = reinterpret_cast<const float4*>(a)[g];
+    const float4 y = reinterpret_cast<const float4*>(b)[g];
+    reinterpret_cast<float4*>(out)[g] =
+        make_float4(__fadd_rn(x.x, y.x), __fadd_rn(x.y, y.y),
+                    __fadd_rn(x.z, y.z), __fadd_rn(x.w, y.w));
+  }
+  for (long long i = groups * 4 + first; i < n; i += stride)
+    out[i] = __fadd_rn(a[i], b[i]);
+}
+
 template <int QMAX>
 int launch_encode(const void* x, void* q, void* s, void* d, long long rows,
                   int block, cudaStream_t stream) {
@@ -188,9 +217,25 @@ int launch_accum(const void* acc, const void* q, const void* s, void* out,
   return (int)cudaGetLastError();
 }
 
+int launch_add(const void* a, const void* b, void* out, long long n,
+               cudaStream_t stream) {
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  long long grid = (n / 4 + THREADS - 1) / THREADS;
+  if (grid < 1) grid = 1;
+  if (grid > 132 * 8) grid = 132 * 8;  // 8 CTAs per SM, grid-stride
+  add_kernel<<<(unsigned)grid, THREADS, 0, stream>>>(
+      (const float*)a, (const float*)b, (float*)out, n);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
+
+int dlrover_rrs_add(const void* a, const void* b, void* out, long long n,
+                    void* stream) {
+  return launch_add(a, b, out, n, (cudaStream_t)stream);
+}
 
 int dlrover_rrs_q8_encode(const void* x, void* q, void* s, void* d,
                           long long rows, int block, void* stream) {

@@ -1,26 +1,24 @@
-"""Fused quantize and dequant-accumulate of the ``ring_pallas_q`` ring.
+"""The per-hop kernels of the grad-sync rings and the exact ring itself.
 
-Port of ``dlrover_tpu/ops/pallas/ring_reduce_scatter.py``, the parts that
-quantized grad sync runs: the fused encode (``fused_quantize``), the fused
-decode + accumulate of one ring hop (``fused_dequant_add``) and the
-transport selection (``select_transport``, ``resolve_transport``).  The
-four kernels live in ``dlrover_tpu_torch/csrc/ring_reduce_scatter.cu``
-(its header gives the bound and the design); beside each, this module
-holds its plain PyTorch version (``*_plain``), which a wrapper takes only
-for tensors on the CPU.  On a CUDA tensor a wrapper launches the kernel or
-raises, and adds one to ``launches[<kernel>]`` per launch.
+Port of ``dlrover_tpu/ops/pallas/ring_reduce_scatter.py`` but for its
+one-kernel RDMA ring (``ops/cuda/rdma_ring.py``): the fused encode
+(``fused_quantize``) and the fused decode + accumulate of one
+``ring_pallas_q`` hop (``fused_dequant_add``), the plain accumulate of one
+``ring_pallas`` hop (``ring_add``), the exact ring (``ring_reduce_scatter``,
+the ``ring`` and ``ring_pallas`` tiers) and the transport selection
+(``select_transport``, ``resolve_transport``).  The five kernels live in
+``dlrover_tpu_torch/csrc/ring_reduce_scatter.cu`` (its header gives the
+bound and the design); beside each, this module holds its plain PyTorch
+version (``*_plain``), which a wrapper takes only for tensors on the CPU.
+On a CUDA tensor a wrapper launches the kernel or raises, and adds one to
+``launches[<kernel>]`` per launch.
 
 The numerics are those of the reference as it runs (jit on the CPU, Pallas
 in interpret mode), bit for bit: scale = max|x| times the fp32 constant
-1/qmax, codes rint(x / safe) clipped, dequant codes * scale, and the
-accumulate one fused multiply-add (``_fma``).  The error-feedback residual
-is taken from this dequant, so the codecs of ``parallel/collectives.py``
-are built on the same functions.
-
-The exact ring tiers (``ring``, ``ring_pallas``: kernel ``_add_kernel``)
-and the one-kernel RDMA ring (``_rdma_ring_kernel``) come in a later
-slice; ``select_transport`` still names them, so that a policy resolves to
-the same tier in both packages.
+1/qmax, codes rint(x / safe) clipped, dequant codes * scale, the quantized
+accumulate one fused multiply-add (``_fma``) and the exact one an IEEE
+add.  The error-feedback residual is taken from this dequant, so the
+codecs of ``parallel/collectives.py`` are built on the same functions.
 """
 
 import ctypes
@@ -41,7 +39,8 @@ _TPU_TILE_ELEMS = 8 * 128
 _PART = 256  # a kernel row is taken in 256-wide parts
 
 # launches per kernel since the last reset_launches()
-launches = {"q8_encode": 0, "q4_encode": 0, "q8_accum": 0, "q4_accum": 0}
+launches = {"q8_encode": 0, "q4_encode": 0, "q8_accum": 0, "q4_accum": 0,
+            "add": 0}
 
 
 def reset_launches() -> None:
@@ -104,6 +103,12 @@ def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return s.float()
 
 
+def add_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a + b`` in fp32, one rounding per element: the ``_add_kernel``
+    function."""
+    return a + b
+
+
 def encode_plain(x: torch.Tensor, fmt: str):
     """``(codes, scales, dequant)`` of ``x`` (rows, block) fp32: the
     ``_q8_encode_kernel`` / ``_q4_encode_kernel`` function."""
@@ -127,12 +132,14 @@ def accum_plain(acc: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 _P = ctypes.c_void_p
-_SIGNATURE = [_P] * 4 + [ctypes.c_longlong, ctypes.c_int, _P]
+_CODEC_SIGNATURE = [_P] * 4 + [ctypes.c_longlong, ctypes.c_int, _P]
+# kernel -> (C function, argument types)
 _FUNCTIONS = {
-    "q8_encode": "dlrover_rrs_q8_encode",
-    "q4_encode": "dlrover_rrs_q4_encode",
-    "q8_accum": "dlrover_rrs_q8_accum",
-    "q4_accum": "dlrover_rrs_q4_accum",
+    "q8_encode": ("dlrover_rrs_q8_encode", _CODEC_SIGNATURE),
+    "q4_encode": ("dlrover_rrs_q4_encode", _CODEC_SIGNATURE),
+    "q8_accum": ("dlrover_rrs_q8_accum", _CODEC_SIGNATURE),
+    "q4_accum": ("dlrover_rrs_q4_accum", _CODEC_SIGNATURE),
+    "add": ("dlrover_rrs_add", [_P] * 3 + [ctypes.c_longlong, _P]),
 }
 
 _lib = None  # the loaded library, its functions typed once
@@ -142,8 +149,8 @@ def _library():
     global _lib
     if _lib is None:
         lib = _build.load(KERNEL_SOURCE)
-        for fn in _FUNCTIONS.values():
-            getattr(lib, fn).argtypes = _SIGNATURE
+        for fn, argtypes in _FUNCTIONS.values():
+            getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -163,7 +170,7 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device, align: int):
 
 def _launch(kernel: str, device: torch.device, *args) -> None:
     """Launch on ``device`` (the inputs' card) and its current stream."""
-    fn = getattr(_library(), _FUNCTIONS[kernel])
+    fn = getattr(_library(), _FUNCTIONS[kernel][0])
     with torch.cuda.device(device):
         rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
@@ -237,6 +244,60 @@ def fused_dequant_add(acc: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     return out
 
 
+def ring_add(a: torch.Tensor, b: torch.Tensor,
+             out: torch.Tensor = None) -> torch.Tensor:
+    """One exact ring hop's accumulate, ``a + b`` on fp32 vectors of any
+    length.  ``out`` (it may be ``a`` itself, for an in-place hop) receives
+    the result; by default a new tensor.  The kernel takes contiguous,
+    16-byte aligned fp32 vectors."""
+    if a.device.type == "cpu":
+        result = add_plain(a, b)
+        if out is None:
+            return result
+        return out.copy_(result)
+    n = a.numel()
+    if a.dim() != 1 or n == 0:
+        raise ValueError(f"ring_add takes non-empty vectors, got shape "
+                         f"{tuple(a.shape)}")
+    _check("a", a, torch.float32, (n,), a.device, 16)
+    _check("b", b, torch.float32, (n,), a.device, 16)
+    if out is None:
+        out = torch.empty_like(a)
+    _check("out", out, torch.float32, (n,), a.device, 16)
+    _launch("add", a.device, a.data_ptr(), b.data_ptr(), out.data_ptr(), n)
+    return out
+
+
+def ring_reduce_scatter(x: torch.Tensor, group, accum: str = "torch"
+                        ) -> torch.Tensor:
+    """Reduce-scatter ``x`` of shape ``(world, width)`` over the ranks of
+    ``group`` (a ``process_group.DpGroup``) with an explicit ring of
+    ``world - 1`` right-hops: rank ``r`` returns ``sum_j x_j[r]``, shape
+    ``(width,)``, summed in the reference's hop order, so the ``ring`` and
+    ``ring_pallas`` tiers give the reference's bits.
+
+    The packet created on rank ``s`` carries the chunk destined for rank
+    ``(s - 1) % world``; every hop sends it to the right neighbour and adds
+    the local row of the packet's destination.  ``accum="kernel"`` (the
+    ``ring_pallas`` tier) adds in place through :func:`ring_add`,
+    ``accum="torch"`` (``ring``) with a plain add; both round once per
+    element.  Which tier a bucket takes is ``select_transport``'s to
+    decide."""
+    world = group.world
+    if world <= 1:
+        return x.reshape(-1)
+    use_kernel = accum == "kernel"
+    me = group.rank
+    p = x[(me - 1) % world]
+    for t in range(world - 1):
+        # shift(d=-1) sends to rank + 1 and receives from rank - 1: the
+        # ppermute perm [(i, (i + 1) % world)]
+        p = group.shift({"p": p}, -1)["p"]
+        row = x[(me - t - 2) % world]
+        p = ring_add(p, row, out=p) if use_kernel else p + row
+    return p
+
+
 # ---------------------------------------------------------------------------
 # transport selection
 # ---------------------------------------------------------------------------
@@ -248,11 +309,20 @@ def pallas_accum_supported(width: int) -> bool:
     return width % _TPU_TILE_ELEMS == 0
 
 
-def rdma_available() -> bool:
-    """The one-kernel ring needs peer memory: at least two CUDA devices,
-    the first two with peer access (the reference asks for a TPU)."""
-    return (torch.cuda.is_available() and torch.cuda.device_count() >= 2
-            and torch.cuda.can_device_access_peer(0, 1))
+def rdma_available(world: int) -> bool:
+    """The one-kernel ring needs peer memory between the ranks' cards: at
+    least two CUDA devices, ``world`` dp ranks one per card (the port
+    places rank ``r`` on card ``r`` when the cards suffice) and peer access
+    between neighbouring cards.  The reference asks for a TPU instead.
+    Ranks that share a card never qualify: their processes time-slice the
+    card, and a kernel that waits on another process's kernel may stall
+    for whole time slices."""
+    count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if world < 2 or count < max(2, world):
+        return False
+    return all(torch.cuda.can_device_access_peer(r, (r + 1) % world)
+               and torch.cuda.can_device_access_peer((r + 1) % world, r)
+               for r in range(world))
 
 
 def select_transport(transport: str, quantized: bool, world: int,
@@ -285,7 +355,7 @@ def select_transport(transport: str, quantized: bool, world: int,
         # is ring_pallas_q's exact twin
         return "ring_pallas" if pallas_accum_supported(width) else "ring"
     if transport == "ring_rdma":
-        if rdma_enabled and rdma_available() and width % 128 == 0:
+        if rdma_enabled and rdma_available(world) and width % 128 == 0:
             return "ring_rdma"
         return "ring_pallas" if pallas_accum_supported(width) else "ring"
     return "psum_scatter"

@@ -15,6 +15,12 @@ the ``dp`` mesh axis; here each rank is a process and they take its
   each rank holds 1/world of the mean gradient, updates only that slice of
   the params against its slice of the optimizer state, and the params are
   all-gathered.
+* **Exact reduce-scatter tiers.** An exact bucket takes the stock
+  reduce-scatter or, by ``GradSyncPolicy.transport``, the ring
+  (``ring``: ``world - 1`` hops with a plain add; ``ring_pallas``: each
+  hop's add through a kernel; ``ring_rdma``: the whole ring as one kernel
+  over peer memory, behind ``DLROVER_TPU_GRAD_RING_RDMA``), resolved by
+  ``ops/cuda/ring_reduce_scatter.select_transport`` as in the reference.
 
 Layout rule: a leaf shards along its first dimension divisible by the
 world; leaves with no such dimension ride an exact all-reduce and a
@@ -24,10 +30,9 @@ rank's residual as one leaf-shaped fp32 tensor per shardable leaf (the
 reference stacks every rank's as a ``(world, *leaf)`` array sharded over
 dp).
 
-Left out of this slice, and refused with ``NotImplementedError``:
-stochastic rounding, the hierarchical (``slice``) two-level sync and its
-striping, and the exact ring tiers (``ring``, ``ring_pallas``,
-``ring_rdma``).  The reference's simulated-DCN tolls
+Left out so far, and refused with ``NotImplementedError``: stochastic
+rounding, and the hierarchical (``slice``) two-level sync and its
+striping.  The reference's simulated-DCN tolls
 (``hierarchy.toll_payload`` / ``maybe_toll``) are no-ops on a flat mesh
 and come with ``hierarchy.py``.
 """
@@ -39,6 +44,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from dlrover_tpu_torch.ops.cuda import rdma_ring
 from dlrover_tpu_torch.ops.cuda import ring_reduce_scatter as ring
 from dlrover_tpu_torch.parallel.process_group import DpGroup
 
@@ -418,16 +424,14 @@ def quantized_reduce_scatter(t: torch.Tensor, dim: int,
     return torch.movedim(shard, 0, dim), residual
 
 
-def check_transport(resolved: str) -> None:
-    if resolved in ("ring", "ring_pallas", "ring_rdma"):
-        raise _later(f"the exact {resolved!r} reduce-scatter tier (kernels "
-                     "_add_kernel and _rdma_ring_kernel)")
-
-
 def bucket_reduce_scatter(buf: torch.Tensor, policy: GradSyncPolicy,
-                          group: DpGroup, transport: Optional[str] = None):
+                          group: DpGroup, transport: Optional[str] = None,
+                          window=None):
     """Reduce-scatter ONE packed bucket buffer of shape ``(world,
-    width)``.  Exact policies take the stock reduce-scatter; quantized
+    width)``.  Exact policies move the fp32 rows through the resolved
+    tier: the stock reduce-scatter, the ``ring`` / ``ring_pallas`` ring,
+    or the one-kernel ``ring_rdma`` ring over ``window``
+    (``peer_memory.PeerWindow``, which that tier needs).  Quantized
     policies ride the codec ``all_to_all`` exchange or the
     fused-quantization ``ring_pallas_q`` ring.  ``transport`` overrides
     the policy's request for this bucket (the fallback chain still
@@ -436,8 +440,13 @@ def bucket_reduce_scatter(buf: torch.Tensor, policy: GradSyncPolicy,
     width = buf.shape[1]
     resolved = ring.resolve_transport(policy, group.world, width,
                                       request=transport)
-    check_transport(resolved)
     if not policy.quantized:
+        if resolved == "ring_rdma":
+            return rdma_ring.rdma_ring_reduce_scatter(buf, group,
+                                                      window), None
+        if resolved in ("ring", "ring_pallas"):
+            accum = "kernel" if resolved == "ring_pallas" else "torch"
+            return ring.ring_reduce_scatter(buf, group, accum), None
         return group.reduce_scatter(buf).reshape(-1), None
     if resolved == "ring_pallas_q":
         return _quantized_ring_exchange(buf, width, policy, group)
@@ -478,10 +487,12 @@ def sync_gradient_tree(grads: Tree, residuals: Optional[Tree],
 
 def sync_gradient_tree_bucketed(grads: Tree, residuals: Optional[Tree],
                                 layout: GradLayout, buckets,
-                                policy: GradSyncPolicy, group: DpGroup):
+                                policy: GradSyncPolicy, group: DpGroup,
+                                window=None):
     """Bucketed :func:`sync_gradient_tree`: the shardable leaves move
     through their bucket's ONE collective (``bucketing.BucketLayout``).
-    Same contract as the per-leaf path, residuals still per leaf."""
+    Same contract as the per-leaf path, residuals still per leaf;
+    ``window`` is the ``ring_rdma`` tier's peer window."""
     synced: Tree = {}
     new_resid: Tree = {}
     for path, g in grads.items():
@@ -496,7 +507,8 @@ def sync_gradient_tree_bucketed(grads: Tree, residuals: Optional[Tree],
 
     for b in buckets.buckets:
         buf = buckets.pack(b, contribution)
-        shard_row, resid_buf = bucket_reduce_scatter(buf, policy, group)
+        shard_row, resid_buf = bucket_reduce_scatter(buf, policy, group,
+                                                     window=window)
         synced.update(buckets.unpack_shard(b, shard_row))
         if resid_buf is not None:
             new_resid.update(buckets.unpack_full(b, resid_buf))

@@ -5,7 +5,9 @@ functions in each; they live in the package so that a rank imports torch
 and the port only.  ``train_worker`` drives ``Trainer`` through a list of
 sync modes from the same start (``chip_smoke.py`` on the card, the CPU
 tests at a tiny size); ``reduce_scatter_worker`` drives
-``collectives.bucket_reduce_scatter`` on given payloads.
+``collectives.bucket_reduce_scatter`` on given payloads;
+``peer_window_worker`` builds a ``PeerWindow`` and moves one row to each
+right neighbour through it.
 """
 
 import dataclasses
@@ -16,8 +18,10 @@ import numpy as np
 import torch
 
 from dlrover_tpu_torch.ops.cuda import flash_attention as fa
+from dlrover_tpu_torch.ops.cuda import rdma_ring
 from dlrover_tpu_torch.ops.cuda import ring_reduce_scatter as ring
 from dlrover_tpu_torch.parallel import collectives
+from dlrover_tpu_torch.parallel.peer_memory import PeerWindow
 from dlrover_tpu_torch.parallel.process_group import DpGroup
 
 
@@ -29,6 +33,17 @@ def _local_rows(batch: Dict[str, np.ndarray], group: DpGroup):
         n = v.shape[0] // group.world
         out[k] = v[group.rank * n:(group.rank + 1) * n]
     return out
+
+
+def launch_counts() -> Dict[str, int]:
+    """The ring kernels' launch counters (``ring_reduce_scatter`` and
+    ``rdma_ring``), by kernel."""
+    return {**ring.launches, **rdma_ring.launches}
+
+
+def reset_launch_counts() -> None:
+    ring.reset_launches()
+    rdma_ring.reset_launches()
 
 
 def params_checksum(params: Dict[str, torch.Tensor]) -> int:
@@ -83,7 +98,7 @@ def train_worker(group: DpGroup, spec: Dict[str, Any]) -> Dict[str, Any]:
         record = {"loss": [], "grad_norm": [], "step_s": [],
                   "launches": [], "flash_launches": [], "params_agree": []}
         for _ in range(run["steps"]):
-            ring.reset_launches()
+            reset_launch_counts()
             fa.reset_launches()
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
@@ -94,7 +109,7 @@ def train_worker(group: DpGroup, spec: Dict[str, Any]) -> Dict[str, Any]:
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             record["step_s"].append(time.perf_counter() - t0)
-            record["launches"].append(dict(ring.launches))
+            record["launches"].append(launch_counts())
             record["flash_launches"].append(dict(fa.launches))
             record["loss"].append(loss)
             record["grad_norm"].append(grad_norm)
@@ -110,6 +125,7 @@ def train_worker(group: DpGroup, spec: Dict[str, Any]) -> Dict[str, Any]:
             record["params"] = {n: p.detach().cpu().numpy().copy()
                                 for n, p in state.params.items()}
         out["runs"][run["name"]] = record
+        trainer.close()
         del trainer, state, model
     return out
 
@@ -119,15 +135,48 @@ def reduce_scatter_worker(group: DpGroup,
     """For each case (``policy`` kwargs, ``transport`` and ``payload``, a
     ``(world, world, width)`` numpy array whose row ``r`` is rank ``r``'s
     bucket buffer): this rank's shard row and residual from
-    ``bucket_reduce_scatter``."""
+    ``bucket_reduce_scatter``, the tier it resolved to and the ring
+    kernels' launches."""
     results = []
     for case in cases:
         policy = collectives.GradSyncPolicy(**case["policy"])
         buf = torch.from_numpy(case["payload"][group.rank]).to(group.device)
+        reset_launch_counts()
         shard, resid = collectives.bucket_reduce_scatter(
             buf, policy, group, case.get("transport"))
         results.append({
             "shard": shard.cpu().numpy(),
             "residual": None if resid is None else resid.cpu().numpy(),
+            "transport": ring.resolve_transport(
+                policy, group.world, buf.shape[1],
+                request=case.get("transport")),
+            "launches": launch_counts(),
         })
     return results
+
+
+def peer_window_worker(group: DpGroup, spec: Dict[str, Any]) -> Dict:
+    """Build a ``PeerWindow`` of ``spec["width"]`` over the group, copy a
+    row seeded with ``spec["seed"] + rank`` into the right neighbour's slot
+    0 through the opened handle, wait for every rank, and compare this
+    rank's slot with the left neighbour's row.  Copies only: no kernel
+    waits on another process."""
+    width = spec["width"]
+
+    def row(rank):
+        rng = np.random.default_rng(spec["seed"] + rank)
+        return torch.from_numpy(
+            rng.standard_normal(width).astype(np.float32)).to(group.device)
+
+    window = PeerWindow(group, width)
+    try:
+        window.write_right_slot(row(group.rank), 0)
+        group.all_reduce(torch.zeros(1, device=group.device))
+        got = window.read_slot(0, width)
+        want = row(window.left_rank)
+        result = {"rank": group.rank, "equal": bool(torch.equal(got, want)),
+                  "max_abs_err": (got - want).abs().max().item(),
+                  "window_bytes": window.window_bytes, "ctas": window.ctas}
+    finally:
+        window.close()
+    return result

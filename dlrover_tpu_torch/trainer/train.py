@@ -22,7 +22,10 @@ runs one rank per process, each on its own slice of the global batch, and
 ``grad_sync`` picks the sync (``parallel/collectives.GradSyncPolicy``).
 Every rank holds the full fp32 masters; with a ``*_sharded`` mode its
 optimizer state covers only its shard of each shardable leaf, and
-``TrainState.ef_residual`` holds its error-feedback residuals.
+``TrainState.ef_residual`` holds its error-feedback residuals.  A bucket
+that resolves to the ``ring_rdma`` tier runs over a ``PeerWindow`` the
+trainer builds for the widest such bucket and checks once per step, before
+the update; ``Trainer.close()`` releases it.
 """
 
 import dataclasses
@@ -38,6 +41,7 @@ from dlrover_tpu_torch.ops.cuda import ring_reduce_scatter as ring
 from dlrover_tpu_torch.parallel import collectives
 from dlrover_tpu_torch.parallel.bucketing import BucketLayout
 from dlrover_tpu_torch.parallel.collectives import GradSyncPolicy
+from dlrover_tpu_torch.parallel.peer_memory import PeerWindow
 from dlrover_tpu_torch.parallel.process_group import DpGroup
 from dlrover_tpu_torch.trainer import optim
 
@@ -123,6 +127,7 @@ class Trainer:
         self._sync_world = 1
         self._grad_layout: Optional[collectives.GradLayout] = None
         self._bucket_layout: Optional[BucketLayout] = None
+        self._peer_window: Optional[PeerWindow] = None
         self._configure_grad_sync()
 
     # -- data-parallel grad sync ---------------------------------------------
@@ -152,8 +157,10 @@ class Trainer:
                                          int(bucket_mb * 1024 * 1024))
             if len(buckets):
                 self._bucket_layout = buckets
-                for b in buckets.buckets:
-                    collectives.check_transport(self._resolved(b))
+                rdma = [b.width for b in buckets.buckets
+                        if self._resolved(b) == "ring_rdma"]
+                if rdma:
+                    self._peer_window = PeerWindow(self.dp_group, max(rdma))
         if self.grad_sync.sharded_update and self.grad_sync.clip_norm is None:
             logger.warning(
                 "grad_sync=%s runs the optimizer on per-rank gradient "
@@ -165,6 +172,13 @@ class Trainer:
     def _resolved(self, bucket) -> str:
         return ring.resolve_transport(self.grad_sync, self._sync_world,
                                       bucket.width)
+
+    def close(self) -> None:
+        """Release what the grad sync holds outside torch's allocator (the
+        ``ring_rdma`` peer window); collective when there is one."""
+        if self._peer_window is not None:
+            self._peer_window.close()
+            self._peer_window = None
 
     @property
     def _sync_active(self) -> bool:
@@ -334,7 +348,11 @@ class Trainer:
                 if self._bucket_layout is not None:
                     synced, new_ef = collectives.sync_gradient_tree_bucketed(
                         ghat, state.ef_residual, layout, self._bucket_layout,
-                        policy, group)
+                        policy, group, window=self._peer_window)
+                    if self._peer_window is not None:
+                        # one wait per step, not per bucket; a ring that
+                        # ran out of time raises before the update
+                        self._peer_window.check()
                 else:
                     synced, new_ef = collectives.sync_gradient_tree(
                         ghat, state.ef_residual, layout, policy, group)

@@ -77,7 +77,7 @@ def test_missing_compiler_raises(workdir, monkeypatch):
 
 
 def test_repo_sources_are_the_ones_built():
-    for name in ("flash_attention", "ring_reduce_scatter"):
+    for name in ("flash_attention", "ring_reduce_scatter", "rdma_ring"):
         assert (_build.CSRC_DIR / f"{name}.cu").exists()
         assert name in _build.SOURCES
     assert set(_build.SOURCES) == {

@@ -6,14 +6,16 @@ collectives.py) against dlrover_tpu/parallel/collectives.py.
 * The wire codecs: encode_chunks / decode_chunks bit-identical to the JAX
   codecs under jit (tolerance zero), blockwise ties included.
 * bucket_reduce_scatter over 4 gloo ranks (spawned processes, CPU) on the
-  all_to_all and ring_pallas_q tiers and the exact reduce-scatter, against
-  the JAX function under shard_map on 4 CPU devices.  On integer payloads
-  whose blocks decode to exact integers, the shard rows and residuals are
-  bit-exact.  On random payloads the shard rows agree within 2e-6 of the
-  largest |value| (the ranks sum in another order than XLA, and XLA fuses
-  a multiply into the add) and the residuals within 1e-6 of the largest
-  |value|; on every rank the contribution is its dequantized codes plus
-  its residual exactly.
+  all_to_all and ring_pallas_q tiers, the exact reduce-scatter and the
+  exact ring tiers (ring, ring_pallas, ring_rdma), against the JAX function
+  under shard_map on 4 CPU devices.  On integer payloads whose blocks
+  decode to exact integers, the shard rows and residuals are bit-exact.
+  The exact ring tiers add in the reference's hop order, so their shard
+  rows are bit-exact on random payloads too.  On random payloads the other
+  shard rows agree within 2e-6 of the largest |value| (the ranks sum in
+  another order than XLA, and XLA fuses a multiply into the add) and the
+  residuals within 1e-6 of the largest |value|; on every rank the
+  contribution is its dequantized codes plus its residual exactly.
 """
 
 import numpy as np
@@ -24,6 +26,7 @@ import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 from jax.sharding import PartitionSpec as P  # noqa: E402
 
+from dlrover_tpu.ops.pallas import ring_reduce_scatter as jring  # noqa: E402
 from dlrover_tpu.parallel import collectives as jcoll  # noqa: E402
 from dlrover_tpu.parallel.mesh import MeshConfig, build_mesh  # noqa: E402
 from dlrover_tpu_torch.parallel import collectives as tcoll  # noqa: E402
@@ -189,8 +192,13 @@ CASES = [
     for mode in ("int8_sharded", "int4_sharded", "blockwise_sharded")
     for transport in ("all_to_all", "ring_pallas_q")
     for kind, width in (("int", 2048), ("rand", 1000))
-] + [("exact_sharded-auto-int", "exact_sharded", "auto", 2048, "int"),
-     ("exact_sharded-auto-rand", "exact_sharded", "auto", 1000, "rand")]
+] + [
+    (f"exact_sharded-{transport}-{kind}", "exact_sharded", transport, width,
+     kind)
+    for transport in ("auto", "ring", "ring_pallas", "ring_rdma")
+    for kind, width in (("int", 2048), ("rand", 1000))
+]
+EXACT_RINGS = ("ring", "ring_pallas", "ring_rdma")
 
 
 def _payloads():
@@ -240,10 +248,12 @@ def rs_results():
 
 @pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
 def test_bucket_reduce_scatter_matches_shard_map(rs_results, case):
-    name, mode, _, _, kind = case
+    name, mode, transport, _, kind = case
     want_chunk, want_resid, ranks, payload = rs_results[name]
     got_chunk = np.stack([r["shard"] for r in ranks])
     scale = np.abs(payload).max()
+    if transport in EXACT_RINGS:
+        assert np.array_equal(got_chunk, want_chunk)
     if kind == "int":
         assert np.array_equal(got_chunk, want_chunk)
         assert np.array_equal(got_chunk, payload.sum(axis=0))
@@ -278,11 +288,24 @@ def test_ring_and_all_to_all_agree_on_residuals(rs_results):
                 assert np.array_equal(x["residual"], y["residual"])
 
 
-def test_exact_ring_tiers_are_a_later_slice():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tcoll.check_transport("ring_pallas")
-    tcoll.check_transport("psum_scatter")
-    tcoll.check_transport("ring_pallas_q")
+def test_every_exact_tier_resolves_and_runs(rs_results):
+    """Each exact ring request runs on every rank and resolves as in the
+    reference: ring_pallas where the width meets the tiling rule, ring_rdma
+    without cards falling back to those two.  On the CPU no kernel runs."""
+    expect = {("ring", 2048): "ring", ("ring", 1000): "ring",
+              ("ring_pallas", 2048): "ring_pallas",
+              ("ring_pallas", 1000): "ring",
+              ("ring_rdma", 2048): "ring_pallas",
+              ("ring_rdma", 1000): "ring"}
+    for (transport, width), want in expect.items():
+        kind = "int" if width == 2048 else "rand"
+        ranks = rs_results[f"exact_sharded-{transport}-{kind}"][2]
+        policy = jcoll.GradSyncPolicy(mode="exact_sharded", bucket_mb=4.0,
+                                      transport=transport)
+        assert jring.resolve_transport(policy, WORLD, width, "dp") == want
+        for r in ranks:
+            assert r["transport"] == want
+            assert set(r["launches"].values()) == {0}
 
 
 def test_ranks_run_on_the_card_unless_asked(monkeypatch):

@@ -196,10 +196,14 @@ def test_resolve_transport_matches_reference(mode, transport):
 
 
 def test_rdma_ring_needs_two_peer_cards():
-    """The one-kernel ring resolves only with two CUDA devices that reach
-    each other's memory; without them ring_rdma falls back to the ring."""
-    if torch.cuda.device_count() < 2:
-        assert not ring.rdma_available()
+    """The one-kernel ring resolves only with a CUDA device per rank (at
+    least two) whose neighbours reach each other's memory: ranks that
+    share a card time-slice it.  Without them ring_rdma falls back to the
+    ring."""
+    for world in (1, 2, 4, 8):
+        if torch.cuda.device_count() < max(2, world):
+            assert not ring.rdma_available(world)
+    if torch.cuda.device_count() < 4:
         assert ring.select_transport("ring_rdma", False, 4, 4096,
                                      True) == "ring_pallas"
         assert ring.select_transport("ring_rdma", False, 4, 1000,

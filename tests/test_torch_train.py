@@ -183,9 +183,11 @@ def test_accumulation_needs_a_divisible_batch():
 
 def test_other_grad_sync_modes_are_a_later_slice():
     """What the dp grad sync leaves to later slices raises: stochastic
-    rounding, the hierarchical two-level sync and the exact ring tiers
-    (the exact ring kernels).  The ring tiers are refused when the trainer
-    resolves its buckets, so a stand-in group of 4 ranks is enough."""
+    rounding and the hierarchical two-level sync.  The exact ring tiers are
+    ported: the trainer resolves every ring request for its buckets with
+    the reference's fallback chain, so a stand-in group of 4 ranks is
+    enough (the tiny model's one 4 MB bucket is 26,704 wide, off the
+    ring_pallas tiling rule, and there is no card for ring_rdma)."""
     from types import SimpleNamespace
 
     from dlrover_tpu_torch.parallel.collectives import GradSyncPolicy
@@ -200,10 +202,12 @@ def test_other_grad_sync_modes_are_a_later_slice():
             mode="int8_sharded", hierarchical=True))
     four = SimpleNamespace(world=4, rank=0)
     for transport in ("ring", "ring_pallas", "ring_pallas_q", "ring_rdma"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            Trainer(model, optimizer, device="cpu", dp_group=four,
-                    grad_sync=GradSyncPolicy(mode="exact_sharded",
-                                             transport=transport))
+        trainer = Trainer(model, optimizer, device="cpu", dp_group=four,
+                          grad_sync=GradSyncPolicy(mode="exact_sharded",
+                                                   transport=transport))
+        summary = trainer.grad_sync_summary()
+        assert summary["bucket_widths"] == [26704]
+        assert summary["transport_resolved"] == ["ring"]
     # a quantized mode resolves ring_pallas_q to the fused ring: ported
     trainer = Trainer(model, optimizer, device="cpu", dp_group=four,
                       grad_sync=GradSyncPolicy(mode="int8_sharded",

@@ -4,8 +4,9 @@ processes on the CPU, global batch 8 (2 rows per rank), 3 steps:
 
 * exact_sharded against the port's own single-device step on the same
   global batch;
-* exact_sharded and int8_sharded against the JAX Trainer on a 4-device CPU
-  mesh from the same weights (models/convert.py);
+* exact_sharded, int8_sharded and exact_sharded over the ring_pallas tier
+  against the JAX Trainer on a 4-device CPU mesh from the same weights
+  (models/convert.py);
 * every rank: the error-feedback invariant (contribution = dequant + new
   residual, exactly) and params bit-identical across ranks after every
   step; the other quantized modes and transports track exact_sharded.
@@ -15,7 +16,13 @@ is 0 at step 0 (warmup), so the params move twice.  exact_sharded against
 the single-device step and against JAX differs only in fp32 summation
 order (the cross-rank reduce, the norm over shards): losses within 1e-6
 relative [0, 9e-8], params within 1e-4 = lr / 10 [1.0e-5, 3.2e-5] and
-1e-7 on each leaf's mean [3e-9, 1.1e-8].  A quantized run differs by its
+1e-7 on each leaf's mean [3e-9, 1.1e-8].  The ring_pallas run (buckets of
+0.05 MB, so that some widths meet the tier's 1024 rule and some fall back
+to the ring) holds the same tolerances against JAX (its per-layer leaves
+land in other buckets, and so at other ring positions, than JAX's stacked
+ones) and its losses within 1e-5 relative of the port's stock
+exact_sharded, the reference's own tolerance between the ring and
+psum_scatter (tests/test_grad_overlap.py).  A quantized run differs by its
 quantization error, and the port quantizes per-layer [out, in] leaves
 where JAX quantizes stacked [L, in, ...] ones, so their blocks differ.
 Adam moves each param by about the lr per step whatever the gradient's
@@ -73,9 +80,13 @@ RUNS = [
     ("int8", dict(mode="int8")),
     ("exact", dict(mode="exact")),
     ("exact_sharded/per_leaf", dict(mode="exact_sharded", bucket_mb=0.0)),
+    ("exact_sharded/ring_pallas", dict(mode="exact_sharded", bucket_mb=0.05,
+                                       transport="ring_pallas")),
     ("int8_sharded/per_leaf", dict(mode="int8_sharded", bucket_mb=0.0)),
 ]
 QUANTIZED = [name for name, kw in RUNS if not kw["mode"].startswith("exact")]
+# the runs held against the JAX Trainer with the same policy
+JAX_RUNS = ["exact_sharded", "int8_sharded", "exact_sharded/ring_pallas"]
 
 
 def _batch():
@@ -84,13 +95,14 @@ def _batch():
             "labels": ids[:, 1:].astype(np.int32)}
 
 
-def _run_jax(mode):
+def _run_jax(name):
     cfg = JaxLlamaConfig.tiny(dtype=jnp.float32)
     mesh = build_mesh(MeshConfig(dp=WORLD), devices=jax.devices()[:WORLD])
+    policy = dict(dict(RUNS)[name])
+    policy.setdefault("bucket_mb", 4.0)
     trainer = JaxTrainer(
         JaxLlama(cfg), joptim.create_optimizer(grad_clip_norm=None, **OPT),
-        mesh, grad_sync=jcoll.GradSyncPolicy(mode=mode, clip_norm=CLIP,
-                                             bucket_mb=4.0))
+        mesh, grad_sync=jcoll.GradSyncPolicy(clip_norm=CLIP, **policy))
     batch = _batch()
     state = trainer.create_state(jax.random.PRNGKey(0), batch["input_ids"])
     init = jax.tree.map(np.asarray, nn.meta.unbox(state.params))
@@ -105,10 +117,10 @@ def _run_jax(mode):
 
 @pytest.fixture(scope="module")
 def runs():
-    """The JAX trainer (exact_sharded and int8_sharded), then every port
-    run in ONE spawn of 4 ranks, then the port's single-device step."""
-    init, jax_exact, jax_exact_losses = _run_jax("exact_sharded")
-    _, jax_int8, jax_int8_losses = _run_jax("int8_sharded")
+    """The JAX trainer (each run of JAX_RUNS), then every port run in ONE
+    spawn of 4 ranks, then the port's single-device step."""
+    jax_runs = {name: _run_jax(name) for name in JAX_RUNS}
+    init = jax_runs["exact_sharded"][0]
     cfg = LlamaConfig.tiny(dtype=torch.float32)
     state_dict = {k: v.numpy() for k, v in
                   flax_llama_to_state_dict(init, cfg).items()}
@@ -134,8 +146,7 @@ def runs():
         losses.append(metrics["loss"].item())
     return dict(
         cfg=cfg, ranks=ranks,
-        jax={"exact_sharded": (jax_exact, jax_exact_losses),
-             "int8_sharded": (jax_int8, jax_int8_losses)},
+        jax={name: run[1:] for name, run in jax_runs.items()},
         single=({n: p.numpy() for n, p in state.params.items()},
                 np.array(losses)),
     )
@@ -162,13 +173,13 @@ def test_exact_sharded_matches_single_device_step(runs):
     assert losses[-1] < losses[0]  # it trains
 
 
-@pytest.mark.parametrize("mode", ["exact_sharded", "int8_sharded"])
+@pytest.mark.parametrize("mode", JAX_RUNS)
 def test_matches_jax_trainer_on_a_4_device_mesh(runs, mode):
     params, losses = _port(runs, mode)
     jax_final, jax_losses = runs["jax"][mode]
     want = {k: v.numpy() for k, v in
             flax_llama_to_state_dict(jax_final, runs["cfg"]).items()}
-    if mode == "exact_sharded":
+    if mode.startswith("exact_sharded"):
         np.testing.assert_allclose(losses, jax_losses, rtol=1e-6)
         _assert_params_close(params, want, LR / 10, 1e-7)
     else:
@@ -221,8 +232,21 @@ def test_sync_summary_names_the_resolved_transports(runs):
         assert summaries[name]["transport_resolved"] == ["ring_pallas_q"]
         assert summaries[name]["n_buckets"] >= 1
     assert not summaries["exact_sharded/per_leaf"]["bucketed"]
+    # tiny buckets: some widths meet ring_pallas's 1024 rule, some ride
+    # the ring
+    assert summaries["exact_sharded/ring_pallas"]["transport_resolved"] == [
+        "ring", "ring_pallas"]
     assert summaries["exact"] == {"mode": "exact", "bucketed": False,
                                   "transport": "auto"}
+
+
+def test_exact_ring_tracks_stock_exact_sharded(runs):
+    """The ring sums in its hop order, the stock reduce-scatter in gloo's:
+    the same math to fp32 rounding."""
+    params, losses = _port(runs, "exact_sharded/ring_pallas")
+    want, want_losses = _port(runs, "exact_sharded")
+    np.testing.assert_allclose(losses, want_losses, rtol=1e-5)
+    _assert_params_close(params, want, LR / 10, 1e-7)
 
 
 def test_exact_all_reduce_matches_exact_sharded(runs):

@@ -39,8 +39,9 @@ def ef_checked_train_worker(group, spec: Dict[str, Any]) -> Dict[str, Any]:
         for run in spec["runs"]:
             errors: List[float] = []
 
-            def checked(buf, policy, group_, transport=None):
-                shard, resid = original(buf, policy, group_, transport)
+            def checked(buf, policy, group_, transport=None, window=None):
+                shard, resid = original(buf, policy, group_, transport,
+                                        window)
                 if resid is not None:
                     errors.append(ef_violation(buf, resid, policy))
                 return shard, resid
