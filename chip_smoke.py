@@ -7,10 +7,16 @@ Builds the CUDA kernels from dlrover_tpu_torch/csrc (nvcc, at first use),
 then runs, in order, failing on the first phase that fails:
 
 1. device: the card's name and power limit, as nvidia-smi reports them;
+   Then, per kernel of each built library, the count of HGMMA (wgmma),
+   UTMALDG (TMA load) and HMMA (mma.sync) instructions in its SASS
+   (cuobjdump -sass);
 2. kernels vs plain versions: each flash attention kernel (forward, dQ,
    dK/dV) against its plain PyTorch version on the same inputs, at small
-   shapes (causal and not, GQA 4:2, head_dim 64 and 128) and at the
-   training shape (B=4, S=2048, H=16, D=128); forward within 3e-2 absolute
+   shapes (causal and not, GQA 4:2, head_dim 64 and 128), at shapes off
+   the 128-row tiles (S=80 below one tile, D=64, GQA 2:1, causal; S=333,
+   D=64, GQA 4:1, not causal; S=200, D=128, causal), at S=2048, D=128,
+   GQA 4:1 and at the training shape (B=4, S=2048, H=16, D=128); forward
+   within 3e-2 absolute
    (LSE 1e-3), gradients within 0.05 * max|plain|, and every output, on
    every tile of 64 sequence positions, within a relative error
    ||kernel - plain||_F / ||plain||_F of 1e-2.  Then a small Llama's
@@ -18,14 +24,18 @@ then runs, in order, failing on the first phase that fails:
 3. kernel timing at the training shape with CUDA events, beside each
    kernel's bound on an H100 (bytes over 3.35 TB/s, bf16 operations over
    989 TFLOP/s), its plain version and F.scaled_dot_product_attention
-   (timed here only, as a yardstick; the port never calls it);
+   (timed here only, as a yardstick; the port never calls it): its
+   forward beside the forward kernel, and its backward alone (the forward
+   run once and kept, then torch.autograd.grad with retain_graph) beside
+   the dQ and dK/dV kernels;
 4. training: Llama-2-1B at full width and depth (22 layers), flash
    attention, B=4, S=2048 from a seeded numpy batch, AdamW with bf16
    moments, bf16 grads on fp32 masters; one warm-up step and 4 timed
    steps, each with a finite loss and the kernel launch counts a step
    must make (2 forwards per layer with remat, one dQ and one dK/dV);
-   then one more step under torch.profiler for the device time by phase
-   and by kernel family, and the device's busy share;
+   the mean, median and shortest step; then one more step under
+   torch.profiler for the device time by phase and by kernel family, and
+   the device's busy share of the median step;
 5. ring kernels vs plain versions: the fused quantize (int8, int4) and
    dequant-accumulate (int8, int4, also in place) of the ring_pallas_q
    grad sync against their plain PyTorch versions, torch.equal (tolerance
@@ -78,7 +88,8 @@ then runs, in order, failing on the first phase that fails:
    launch with CUDA events beside the bound (bytes over 3.35 TB/s) and
    the plain version; the hop add at the largest row beside torch.add.
 
-The last three lines are the kernels' JSON record, the nvidia-smi line and
+The last three lines are the kernels' JSON record (each flash kernel's
+with its D=128 instance's SASS counts under ``sass``), the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` is its count
 over the path that runs it here: the single-device training (flash), the
 dp leg (the ring_pallas_q and ring_pallas kernels), and for the rdma ring
@@ -90,6 +101,7 @@ import gc
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -113,6 +125,10 @@ REPLACES = {
     "flash_bwd_dq": "dlrover_tpu/ops/pallas/flash_attention.py:195",
     "flash_bwd_dkv": "dlrover_tpu/ops/pallas/flash_attention.py:239",
 }
+# the main path's instance (D=128) of each flash kernel
+SASS_KERNEL = {"flash_fwd": "fa_fwd_kernel<128>",
+               "flash_bwd_dq": "fa_bwd_dq_kernel<128>",
+               "flash_bwd_dkv": "fa_bwd_dkv_kernel<128>"}
 RING_SOURCE = "dlrover_tpu_torch/csrc/ring_reduce_scatter.cu"
 RING_REPLACES = {
     "q8_encode": "dlrover_tpu/ops/pallas/ring_reduce_scatter.py:113",
@@ -154,6 +170,43 @@ EXACT_RING_RTOL = 1e-5
 # same card, so only a nondeterministic reduction could move it
 DP_STEP0_RTOL = 1e-6
 DP_TIMEOUT_S = 480.0
+
+
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
+
+
+def kernel_label(mangled: str):
+    """``name<arg>`` of a mangled kernel name (its length-prefixed
+    identifier ending in ``_kernel``, then its first template argument)."""
+    for i in range(len(mangled)):
+        for j in range(i + 1, min(i + 4, len(mangled)) + 1):
+            if not mangled[i:j].isdigit():
+                break
+            name = mangled[j:j + int(mangled[i:j])]
+            if name.endswith("_kernel") and name.isidentifier():
+                arg = re.match(r"IL[ib](\d+)E", mangled[j + len(name):])
+                return name + (f"<{arg.group(1)}>" if arg else "")
+    return mangled
+
+
+def sass_counts(_build, source: str) -> dict:
+    """{kernel<D>: {op: count}} over the SASS of one built library."""
+    from pathlib import Path
+
+    cuobjdump = Path(_build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run(
+        [str(cuobjdump), "-sass", str(_build.library_path(source))],
+        capture_output=True, text=True, check=True, timeout=120).stdout
+    counts, kernel = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            kernel = kernel_label(line.split("Function :")[1].strip())
+            counts[kernel] = {op: 0 for op in SASS_OPS}
+        elif kernel:
+            for op in SASS_OPS:
+                if re.search(rf"\b{op}\b", line):
+                    counts[kernel][op] += 1
+    return counts
 
 
 def card_line() -> str:
@@ -315,21 +368,32 @@ def time_kernels(fa, gen):
             dot)
 
     sdpa_fwd_bwd_ms = cuda_time_ms(sdpa_fwd_bwd, iters=10)
+    # the backward alone: one forward kept, its graph walked again per call
+    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    sdpa_bwd_ms = cuda_time_ms(
+        lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg), dot,
+                                    retain_graph=True), iters=10)
+    library = {"flash_fwd": (sdpa_fwd_ms, "SDPA forward"),
+               "flash_bwd_dq": (sdpa_bwd_ms, "SDPA backward alone (dQ, dK "
+                                "and dV together)"),
+               "flash_bwd_dkv": (sdpa_bwd_ms, "SDPA backward alone (dQ, dK "
+                                 "and dV together)")}
     timings = {}
     for name, (kernel, plain, flops, nbytes) in runs.items():
         ms = cuda_time_ms(kernel, iters=20)
         plain_ms = cuda_time_ms(plain, iters=3, warmup=1)
         b_ms, b_by = bound_ms(flops, nbytes)
         timings[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                             bound_by=b_by,
-                             library_ms=sdpa_fwd_ms
-                             if name == "flash_fwd" else None)
+                             bound_by=b_by, library_ms=library[name][0],
+                             library_call=library[name][1])
         print(f"  {name}: {ms:.4f} ms  bound {b_ms:.4f} ms ({b_by}, "
               f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)  "
               f"plain {plain_ms:.4f} ms")
     print(f"  F.scaled_dot_product_attention(is_causal=True): forward "
-          f"{sdpa_fwd_ms:.4f} ms, forward+backward {sdpa_fwd_bwd_ms:.4f} ms;"
-          f" port forward+dQ+dK/dV "
+          f"{sdpa_fwd_ms:.4f} ms, backward alone {sdpa_bwd_ms:.4f} ms, "
+          f"forward+backward {sdpa_fwd_bwd_ms:.4f} ms; port dQ+dK/dV "
+          f"{timings['flash_bwd_dq']['ms'] + timings['flash_bwd_dkv']['ms']:.4f}"
+          f" ms, forward+dQ+dK/dV "
           f"{sum(t['ms'] for t in timings.values()):.4f} ms")
     return timings
 
@@ -390,13 +454,17 @@ def train(fa):
         if step:
             step_s.append(dt)
     mean_s = sum(step_s) / len(step_s)
-    state = profile_step(trainer, state, batch, fa, per_step, mean_s)
+    # the host's clock can stall one step for hundreds of ms: the median
+    # is what the profiled step's busy share is read against
+    median_s = statistics.median(step_s)
+    state = profile_step(trainer, state, batch, fa, per_step, median_s)
     launches = dict(fa.launches)
     tokens = TRAIN_B * TRAIN_S
     L, h = cfg.num_layers, cfg.num_heads * cfg.head_dim
     flops_per_step = (6 * n_params + 6 * L * h * TRAIN_S) * tokens
-    print(f"  step_ms={mean_s * 1e3:.2f} (mean of {len(step_s)}; "
-          f"min {min(step_s) * 1e3:.2f}) tokens_per_s={tokens / mean_s:.0f}"
+    print(f"  step_ms={mean_s * 1e3:.2f} (mean of {len(step_s)}; median "
+          f"{median_s * 1e3:.2f}; min {min(step_s) * 1e3:.2f}) "
+          f"tokens_per_s={tokens / mean_s:.0f}"
           f" mfu={flops_per_step / mean_s / PEAK_BF16_FLOPS:.4f} "
           f"[(6N + 6*L*h*S)*tokens / 989e12, remat not counted] "
           f"peak_mem_gb={torch.cuda.max_memory_allocated() / 2**30:.2f}")
@@ -452,7 +520,8 @@ def profile_step(trainer, state, batch, fa, per_step, step_s):
     forward = spans.get("trainer.forward_backward", 0.0)
     update = spans.get("trainer.update", 0.0)
     print(f"  profiled step: device busy {busy_ms:.1f} ms = "
-          f"{busy_ms / (step_s * 1e3):.3f} of the {step_s * 1e3:.1f} ms step"
+          f"{busy_ms / (step_s * 1e3):.3f} of the {step_s * 1e3:.1f} ms "
+          f"median step"
           f" (idle share {1 - busy_ms / (step_s * 1e3):.3f})")
     print(f"    forward {forward:.1f} ms, backward with remat recompute "
           f"{busy_ms - forward - update:.1f} ms, optimizer update "
@@ -938,12 +1007,27 @@ def main() -> int:
             elif kernel and ("registers" in line or "spill" in line):
                 print(f"  {kernel}: {line.split(':', 1)[-1].strip()}")
 
+    sass = {}
+    for source in _build.SOURCES:
+        for kernel, counts in sass_counts(_build, source).items():
+            sass[kernel] = counts
+            print(f"  {kernel} SASS: {counts}")
+    for kernel in ("fa_fwd_kernel<128>", "fa_bwd_dkv_kernel<128>"):
+        if not (sass[kernel]["HGMMA"] and sass[kernel]["UTMALDG"]):
+            raise AssertionError(f"{kernel} has no wgmma or no TMA load in "
+                                 f"its SASS: {sass[kernel]}")
+
     print("[kernels vs plain versions]", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
     for D in (64, 128):
         for causal in (True, False):
             check_kernels(fa, gen, 2, 256, 4, 2, D, causal)
-    check_kernels(fa, gen, 1, 200, 4, 4, 128, True)  # ragged last tile
+    # off the 128-row tiles: below one tile, ragged (a multiple of neither
+    # 64 nor 128), and the ragged last tile at D=128
+    check_kernels(fa, gen, 2, 80, 4, 2, 64, True)
+    check_kernels(fa, gen, 2, 333, 8, 2, 64, False)
+    check_kernels(fa, gen, 1, 200, 4, 4, 128, True)
+    check_kernels(fa, gen, 1, TRAIN_S, 16, 4, 128, True)  # GQA 4:1
     errors = check_kernels(fa, gen, TRAIN_B, TRAIN_S, 16, 16, 128, True)
     check_model_logits()
 
@@ -995,7 +1079,7 @@ def main() -> int:
              replaces=REPLACES[name], launches=launches[name],
              max_abs_err=errors[name][0], atol=errors[name][1],
              rel_err=errors[name][2], rel_tol=REL_TOL,
-             **timings[name])
+             sass=sass[SASS_KERNEL[name]], **timings[name])
         for name in REPLACES
     ] + [
         dict(name=name, route="cuda", source=RING_SOURCE,

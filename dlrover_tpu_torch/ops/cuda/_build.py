@@ -2,8 +2,9 @@
 
 Each source ``dlrover_tpu_torch/csrc/<name>.cu`` becomes one shared library
 with a plain C interface, ``build/kernels/lib<name>_<hash>.so`` at the root
-of the checkout, keyed by a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is reused.  ``nvcc`` only exists on
+of the checkout, keyed by a hash of the source, every shared header
+(``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt
+and an unchanged one is reused.  ``nvcc`` only exists on
 the machine with the card: a build there takes seconds, and a missing
 compiler or a failed build raises.  ``nvcc``'s report (``-Xptxas -v``:
 registers, shared memory and spills per kernel) is kept beside the library
@@ -46,11 +47,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    source = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:

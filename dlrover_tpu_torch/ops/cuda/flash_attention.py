@@ -1,8 +1,10 @@
-"""FA2 flash attention on Hopper: hand-written CUDA forward, dQ and dK/dV.
+"""Flash attention on Hopper: hand-written CUDA forward, dQ and dK/dV.
 
 Port of ``dlrover_tpu/ops/pallas/flash_attention.py``.  The three kernels
 live in ``dlrover_tpu_torch/csrc/flash_attention.cu`` (its header gives the
-bound and the design); this module holds, beside each kernel:
+bound and the design: the forward and dK/dV are warp-specialised wgmma +
+TMA kernels, dQ an mma.sync kernel); this module holds, beside each
+kernel:
 
 * its plain PyTorch version (``*_plain``): the same function written as
   whole-matrix fp32 math with the same mask fill and the same ``l == 0``
@@ -128,7 +130,8 @@ def _library():
 
 def _check_kernel_inputs(q, k, v, dout=None, lse=None, delta=None):
     """What the CUDA kernels take: bf16 q/k/v/dout and fp32 lse/delta, all
-    contiguous on one CUDA device, head_dim 64 or 128."""
+    contiguous and 16-byte aligned on one CUDA device, head_dim 64 or
+    128."""
     if q.device.type != "cuda":
         raise RuntimeError(
             f"flash attention kernels run on CUDA tensors, got {q.device}"
@@ -153,6 +156,10 @@ def _check_kernel_inputs(q, k, v, dout=None, lse=None, delta=None):
                              f"{shape}")
         if t.device != q.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {q.device}")
+        if t.data_ptr() % 16:
+            # TMA reads q/k/v/dout from 16-byte aligned addresses
+            raise ValueError(f"{name} must start at a 16-byte aligned "
+                             "address")
     if D not in HEAD_DIMS:
         raise ValueError(f"head_dim {D} not supported by the kernels "
                          f"(supported: {HEAD_DIMS})")

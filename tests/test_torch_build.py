@@ -51,6 +51,20 @@ def test_library_is_keyed_by_the_source(workdir):
     assert _build.library_path("k") != first
 
 
+def test_library_is_keyed_by_the_headers(workdir):
+    """Every csrc/*.cuh is part of each library's key: an edited, added or
+    removed header rebuilds what may include it."""
+    first = _build.library_path("k")
+    header = workdir / "csrc" / "common.cuh"
+    header.write_text("// helpers v1\n")
+    with_header = _build.library_path("k")
+    assert with_header != first
+    header.write_text("// helpers v2\n")
+    assert _build.library_path("k") != with_header
+    header.unlink()
+    assert _build.library_path("k") == first
+
+
 def test_build_compiles_once_and_keeps_the_report(workdir, monkeypatch):
     _fake_nvcc(workdir, monkeypatch, exit_code=0)
     path = _build.build(["k"])["k"]

@@ -194,16 +194,27 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# (B, S, H, H_kv, D, causal): whole 128-row tiles; S below one tile (80);
+# S a multiple of neither 64 nor 128 (333, 200); S=2048 with GQA 4:1
+CARD_CASES = [
+    (2, 256, 4, 2, 64, True),
+    (2, 256, 4, 4, 128, False),
+    (2, 80, 4, 2, 64, True),
+    (2, 333, 8, 2, 64, False),
+    (1, 200, 4, 4, 128, True),
+    (1, 2048, 16, 4, 128, True),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("D,H_kv,causal", [(64, 2, True), (128, 4, False)])
-def test_kernels_match_plain_on_card(cuda_device, D, H_kv, causal):
+@pytest.mark.parametrize("B,S,H,H_kv,D,causal", CARD_CASES)
+def test_kernels_match_plain_on_card(cuda_device, B, S, H, H_kv, D, causal):
     g = torch.Generator(device=cuda_device).manual_seed(0)
 
     def rnd(*shape):
         return torch.randn(*shape, generator=g, device=cuda_device,
                            dtype=torch.bfloat16)
 
-    B, S, H = 2, 256, 4
     q, k, v, do = rnd(B, S, H, D), rnd(B, S, H_kv, D), rnd(B, S, H_kv, D), \
         rnd(B, S, H, D)
     out, lse = fa.flash_forward(q, k, v, causal)
