@@ -7,14 +7,18 @@ Builds the CUDA kernels from dlrover_tpu_torch/csrc (nvcc, at first use),
 then runs, in order, failing on the first phase that fails:
 
 1. device: the card's name and power limit, as nvidia-smi reports them;
-   Then, per kernel of each built library, the count of HGMMA (wgmma),
-   UTMALDG (TMA load) and HMMA (mma.sync) instructions in its SASS
-   (cuobjdump -sass);
+   Then each kernel's registers and spills (nvcc -Xptxas -v) and, per
+   kernel of each built library, the count of HGMMA (wgmma), UTMALDG (TMA
+   load) and HMMA (mma.sync) instructions in its SASS (cuobjdump -sass).
+   The D=128 instance of each flash kernel must hold wgmma and TMA loads
+   and no mma.sync: all three are warp-specialised wgmma + TMA kernels
+   (dQ holds a 128-row Q/dO tile and streams 128-row K/V tiles);
 2. kernels vs plain versions: each flash attention kernel (forward, dQ,
    dK/dV) against its plain PyTorch version on the same inputs, at small
    shapes (causal and not, GQA 4:2, head_dim 64 and 128), at shapes off
    the 128-row tiles (S=80 below one tile, D=64, GQA 2:1, causal; S=333,
-   D=64, GQA 4:1, not causal; S=200, D=128, causal), at S=2048, D=128,
+   D=64, GQA 4:1, not causal; S=200, D=128, causal; S=192, D=128, GQA
+   2:1, causal: a multiple of 64 but not of 128), at S=2048, D=128,
    GQA 4:1 and at the training shape (B=4, S=2048, H=16, D=128); forward
    within 3e-2 absolute
    (LSE 1e-3), gradients within 0.05 * max|plain|, and every output, on
@@ -86,7 +90,10 @@ then runs, in order, failing on the first phase that fails:
    torch.equal against the plain versions (the JSON line's max_abs_err is
    the largest |kernel - plain| over every comparison), then time per
    launch with CUDA events beside the bound (bytes over 3.35 TB/s) and
-   the plain version; the hop add at the largest row beside torch.add.
+   the plain version; the hop add at the largest row like for like, in
+   turns (kernel, torch, torch, kernel): in place, as the ring runs it,
+   beside torch.add(a, b, out=a) (its ``library_ms``), and out of place
+   beside torch.add(a, b) (``ms_out_of_place``, ``library_ms_out_of_place``).
 
 The last three lines are the kernels' JSON record (each flash kernel's
 with its D=128 instance's SASS counts under ``sass``), the nvidia-smi line and
@@ -119,6 +126,17 @@ GRAD_REL = 0.05
 REL_TOL = 1e-2
 REL_TILE = 64
 TRAIN_B, TRAIN_S, TIMED_STEPS = 4, 2048, 4
+# (B, S, H, H_kv, D, causal) of the kernel-vs-plain checks: small shapes
+# (causal and not, GQA 4:2, head_dim 64 and 128); off the 128-row tiles:
+# below one tile, ragged (a multiple of neither 64 nor 128), the ragged
+# last tile at D=128, and S a multiple of 64 but not of 128 (the last
+# 128-row tile half past S: one of dQ's two warpgroups has no row to
+# compute); S=2048 with GQA 4:1; the training shape last
+FLASH_SHAPES = tuple((2, 256, 4, 2, D, causal) for D in (64, 128)
+                     for causal in (True, False)) + (
+    (2, 80, 4, 2, 64, True), (2, 333, 8, 2, 64, False),
+    (1, 200, 4, 4, 128, True), (2, 192, 4, 2, 128, True),
+    (1, TRAIN_S, 16, 4, 128, True), (TRAIN_B, TRAIN_S, 16, 16, 128, True))
 SOURCE = "dlrover_tpu_torch/csrc/flash_attention.cu"
 REPLACES = {
     "flash_fwd": "dlrover_tpu/ops/pallas/flash_attention.py:64",
@@ -189,13 +207,13 @@ def kernel_label(mangled: str):
     return mangled
 
 
-def sass_counts(_build, source: str) -> dict:
+def sass_counts(_build, library) -> dict:
     """{kernel<D>: {op: count}} over the SASS of one built library."""
     from pathlib import Path
 
     cuobjdump = Path(_build.nvcc()).with_name("cuobjdump")
     sass = subprocess.run(
-        [str(cuobjdump), "-sass", str(_build.library_path(source))],
+        [str(cuobjdump), "-sass", str(library)],
         capture_output=True, text=True, check=True, timeout=120).stdout
     counts, kernel = {}, None
     for line in sass.splitlines():
@@ -207,6 +225,19 @@ def sass_counts(_build, source: str) -> dict:
                 if re.search(rf"\b{op}\b", line):
                     counts[kernel][op] += 1
     return counts
+
+
+def print_build_report(log: str) -> None:
+    """Each kernel's registers and spills from nvcc's -Xptxas -v report."""
+    kernel = None
+    for line in log.splitlines():
+        found = re.search(r"((?:fa_\w+?|encode|accum|add|rdma_ring)_kernel)"
+                          r"(?:IL[ib](\d+)E)?", line)
+        if "Compiling entry function" in line and found:
+            kernel = found.group(1) + (f"<{found.group(2)}>"
+                                       if found.group(2) else "")
+        elif kernel and ("registers" in line or "spill" in line):
+            print(f"  {kernel}: {line.split(':', 1)[-1].strip()}")
 
 
 def card_line() -> str:
@@ -820,22 +851,49 @@ def time_rdma_ring(rdma):
                 library_ms=library_ms)
 
 
+def time_in_turns(fns: dict, iters: int = 20) -> dict:
+    """{name: [ms, ms]}: each function timed twice, in turns (a, b, ...,
+    b, a), so that a drift of the card's clock reaches every one alike."""
+    names = list(fns)
+    readings = {name: [] for name in names}
+    for name in names + names[::-1]:
+        readings[name].append(cuda_time_ms(fns[name], iters=iters))
+    return readings
+
+
 def time_hop_add(rrs, width: int):
-    """The ring_pallas hop's add at one bucket row, in place as the ring
-    runs it, beside its bound, its plain version and torch.add."""
+    """The ring_pallas hop's add at one bucket row beside its bound, its
+    plain version and torch.add, like for like: in place, as the ring runs
+    it, beside torch.add(a, b, out=a), and out of place beside
+    torch.add(a, b), each pair in turns."""
     import torch
 
     a = torch.randn(width, device="cuda")
     b = torch.randn(width, device="cuda")
-    ms = cuda_time_ms(lambda: rrs.ring_add(a, b, out=a), iters=20)
+    pairs = {
+        "in place": {
+            "ring_add(a, b, out=a)": lambda: rrs.ring_add(a, b, out=a),
+            "torch.add(a, b, out=a)": lambda: torch.add(a, b, out=a)},
+        "out of place": {
+            "ring_add(a, b)": lambda: rrs.ring_add(a, b),
+            "torch.add(a, b)": lambda: torch.add(a, b)},
+    }
+    means = {}
+    for label, fns in pairs.items():
+        readings = time_in_turns(fns)
+        (kernel, k_ms), (library, l_ms) = readings.items()
+        means[label] = (statistics.mean(k_ms), statistics.mean(l_ms))
+        print(f"  {label} at width {width}: {kernel} {k_ms[0]:.4f}, "
+              f"{k_ms[1]:.4f} ms; {library} {l_ms[0]:.4f}, {l_ms[1]:.4f} ms; "
+              f"kernel / torch {means[label][0] / means[label][1]:.3f}")
     plain_ms = cuda_time_ms(lambda: rrs.add_plain(a, b), iters=20)
-    library_ms = cuda_time_ms(lambda: torch.add(a, b), iters=20)
     b_ms = 12 * width / PEAK_BYTES_PER_S * 1e3
-    print(f"  ring_add at width {width} (in place): {ms:.4f} ms  bound "
-          f"{b_ms:.4f} ms (bytes)  plain {plain_ms:.4f} ms  torch.add "
-          f"{library_ms:.4f} ms")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by="bytes",
-                library_ms=library_ms)
+    print(f"  ring_add bound {b_ms:.4f} ms (bytes), plain {plain_ms:.4f} ms")
+    return dict(ms=means["in place"][0], plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by="bytes", library_ms=means["in place"][1],
+                library_call="torch.add(a, b, out=a)",
+                ms_out_of_place=means["out of place"][0],
+                library_ms_out_of_place=means["out of place"][1])
 
 
 def peer_window_leg():
@@ -996,39 +1054,25 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build()
     print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
-    kernel = None
     for source in _build.SOURCES:
-        for line in _build.build_log(source).splitlines():
-            found = re.search(r"((?:fa_\w+?|encode|accum|add|rdma_ring)_kernel)"
-                              r"(?:IL[ib](\d+)E)?", line)
-            if "Compiling entry function" in line and found:
-                kernel = found.group(1) + (f"<{found.group(2)}>"
-                                           if found.group(2) else "")
-            elif kernel and ("registers" in line or "spill" in line):
-                print(f"  {kernel}: {line.split(':', 1)[-1].strip()}")
+        print_build_report(_build.build_log(source))
 
     sass = {}
     for source in _build.SOURCES:
-        for kernel, counts in sass_counts(_build, source).items():
+        for kernel, counts in sass_counts(
+                _build, _build.library_path(source)).items():
             sass[kernel] = counts
             print(f"  {kernel} SASS: {counts}")
-    for kernel in ("fa_fwd_kernel<128>", "fa_bwd_dkv_kernel<128>"):
-        if not (sass[kernel]["HGMMA"] and sass[kernel]["UTMALDG"]):
-            raise AssertionError(f"{kernel} has no wgmma or no TMA load in "
-                                 f"its SASS: {sass[kernel]}")
+    for kernel in SASS_KERNEL.values():  # wgmma and TMA, no mma.sync
+        ops = sass[kernel]
+        if not (ops["HGMMA"] and ops["UTMALDG"]) or ops["HMMA"]:
+            raise AssertionError(f"{kernel} SASS: {ops}; expected wgmma and "
+                                 "TMA loads and no mma.sync")
 
     print("[kernels vs plain versions]", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for D in (64, 128):
-        for causal in (True, False):
-            check_kernels(fa, gen, 2, 256, 4, 2, D, causal)
-    # off the 128-row tiles: below one tile, ragged (a multiple of neither
-    # 64 nor 128), and the ragged last tile at D=128
-    check_kernels(fa, gen, 2, 80, 4, 2, 64, True)
-    check_kernels(fa, gen, 2, 333, 8, 2, 64, False)
-    check_kernels(fa, gen, 1, 200, 4, 4, 128, True)
-    check_kernels(fa, gen, 1, TRAIN_S, 16, 4, 128, True)  # GQA 4:1
-    errors = check_kernels(fa, gen, TRAIN_B, TRAIN_S, 16, 16, 128, True)
+    for shape in FLASH_SHAPES:
+        errors = check_kernels(fa, gen, *shape)  # the training shape's last
     check_model_logits()
 
     print("[kernel timing, B=4 S=2048 H=16 D=128 causal]", flush=True)

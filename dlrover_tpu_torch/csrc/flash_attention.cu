@@ -23,10 +23,11 @@
 // causal) the forward does 2 products of 2*B*H*D*S(S+1)/2 flop each
 // (~69 GFLOP, ~70 us at 989 TFLOP/s bf16) against ~134 MB of traffic
 // (~40 us at 3.35 TB/s); dQ does 3 such products and dK/dV 4, against
-// similar traffic.  All three kernels are bound by tensor-core operations,
-// not bytes, and only wgmma reaches the tensor cores' full rate on Hopper.
+// similar traffic (dQ: 103 GFLOP, ~104 us).  All three kernels are bound by
+// tensor-core operations, not bytes, and only wgmma reaches the tensor
+// cores' full rate on Hopper.
 //
-// The forward and dK/dV (hopper.cuh has the building blocks) are
+// All three kernels (hopper.cuh has the building blocks) are
 // warp-specialised: one producer warp keeps TMA loads of 128-byte-swizzled
 // tiles in flight through 2-stage rings (a full and an empty mbarrier per
 // stage) while two consumer warpgroups run wgmma on the tiles that have
@@ -47,19 +48,24 @@
 //     - lse), dS^T = P^T (dP^T - delta) scale, and dV += P^T dO,
 //     dK += dS^T Q are wgmma with A from registers and B = dO, Q MN-major;
 //     dK and dV stay in registers for the whole kernel.
+//   dQ, the forward's mirror: a CTA holds a 128-row Q tile and a 128-row
+//     dO tile (64 rows per consumer), loaded once, and streams 128-row K
+//     and V tiles through a ring each; S = Q K^T and dP = dO V^T are wgmma
+//     m64n128k16 with both operands K-major, then P = exp(S scale - lse)
+//     and dS = P (dP - delta) scale on the accumulators (lse and delta of
+//     the thread's two rows sit in registers), and dQ += dS K is wgmma with
+//     dS re-packed as the register A operand and K read MN-major, as the
+//     forward reads V.  A V stage is released once dP is done, a K stage
+//     once dS K is.  dQ stays in registers; a warpgroup whose rows are all
+//     past S skips the products.  The consumer's arrays take dQ (D/2) + S
+//     and dP (BN/2 each) + dS packed (BN/4) = 224 registers a thread at
+//     D = 128 and BN = 128, without spills under 240.  The loop is not
+//     software-pipelined: issuing tile j+1's S and dP while dS_j K_j runs
+//     measured slower (and spills at BN = 128).
 // Under the causal mask, tiles past the diagonal are never loaded and only
-// the diagonal (and a ragged last) tile is masked; the forward launches
-// its longest q tiles first, the dK/dV its longest kv tiles first.
-// The dQ kernel is still the first design: one CTA of 4 warps per (64-row
-// tile, b*h), each warp owning 16 rows, mma.sync m16n8k16 fed by ldmatrix
-// from padded shared memory, cp.async double buffering.
-//
-// mma.sync fragment layouts (PTX ISA, mma.m16n8k16, g = lane / 4,
-// t = lane % 4): A (16x16): a0 = (g, 2t..2t+1), a1 = (g+8, 2t..),
-// a2 = (g, 2t+8..), a3 = (g+8, 2t+8..); B (16x8): b0 = (k 2t..2t+1, n g),
-// b1 = (k 2t+8.., g); C (16x8 fp32): c0,c1 = (g, 2t..2t+1),
-// c2,c3 = (g+8, 2t..2t+1).  The wgmma accumulator of each warp's 16 rows
-// has the C layout per 8 columns (hopper.cuh).
+// the diagonal (and a ragged last) tile is masked; the forward and dQ
+// launch their longest q tiles first, the dK/dV its longest kv tiles
+// first.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -73,254 +79,12 @@ namespace {
 
 using hopper::pack_bf16;
 
-constexpr int BM = 64;           // query rows per tile (dQ)
-constexpr int BN = 64;           // key rows per tile (dQ)
-constexpr int WR = 16;           // rows per warp (dQ)
-constexpr int NWARPS = BM / WR;  // 4
-constexpr int NTHREADS = NWARPS * 32;
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const bf16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// This lane's ldmatrix.x4 row address for the 16x16 block at (row0, col0)
-// of a row-major tile with stride ld, in A order: matrices (rows 0-7,
-// cols 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15).  Loaded plainly it is
-// an A fragment; loaded with .trans from a [k][n] tile it is the B
-// fragments of n-tiles col0 (r0, r1) and col0 + 8 (r2, r3).
-__device__ __forceinline__ int a_off(int row0, int col0, int ld, int lane) {
-  return (row0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + col0 +
-         (lane >> 4) * 8;
-}
-
-// This lane's ldmatrix.x4 row address for B fragments read from an [n][k]
-// tile (rows = n): r0, r1 = n-tile n0 and r2, r3 = n-tile n0 + 8, over
-// k0..k0+15.
-__device__ __forceinline__ int b_off(int n0, int k0, int ld, int lane) {
-  return (n0 + (lane & 7) + (lane >> 4) * 8) * ld + k0 +
-         ((lane >> 3) & 1) * 8;
-}
-
-// cp.async copies, global -> shared, bypassing registers.  With valid
-// false the source is not read and the destination is zero-filled.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// wait until at most N committed groups are still in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Start copying ROWS rows of D bf16 from global row r0 (row stride gstride
-// elements) into shared memory with row stride D + 8; rows >= S become
-// zero.  The caller commits the group and waits for it.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          long gstride, int r0, int S) {
-  constexpr int LDH = D + 8;
-  constexpr int VEC = 8;  // bf16 per 16-byte copy
-  constexpr int PER_ROW = D / VEC;
-  for (int idx = threadIdx.x; idx < ROWS * PER_ROW; idx += NTHREADS) {
-    const int r = idx / PER_ROW;
-    const int c = (idx % PER_ROW) * VEC;
-    const bool in = r0 + r < S;
-    cp_async16(dst + r * LDH + c, src + (long)(in ? r0 + r : 0) * gstride + c,
-               in);
-  }
-}
-
-// acc (16 x N fp32, N/8 C fragments) = A (16 rows of `a`, row-major,
-// stride LDH) times the transpose of N rows of `b` (row-major, stride
-// LDH), over D columns.
-template <int D, int N>
-__device__ __forceinline__ void warp_abt(float (&acc)[N / 8][4],
-                                         const bf16* a, const bf16* b,
-                                         int lane) {
-  constexpr int LDH = D + 8;
-#pragma unroll
-  for (int n = 0; n < N / 8; ++n) {
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  }
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t fa[4];
-    ldmatrix_x4(fa, a + a_off(0, kk * 16, LDH, lane));
-#pragma unroll
-    for (int np = 0; np < N / 16; ++np) {
-      uint32_t fb[4];
-      ldmatrix_x4(fb, b + b_off(np * 16, kk * 16, LDH, lane));
-      mma_bf16(acc[2 * np], fa, fb[0], fb[1]);
-      mma_bf16(acc[2 * np + 1], fa, fb[2], fb[3]);
-    }
-  }
-}
-
-// acc (16 x D fp32) += P (16 x K, given as its fp32 C fragments, rounded
-// to bf16 here) times K rows of `b` (row-major [K][D], stride LDH).
-template <int D, int K>
-__device__ __forceinline__ void warp_pb(float (&acc)[D / 8][4],
-                                        const float (&p)[K / 8][4],
-                                        const bf16* b, int lane) {
-  constexpr int LDH = D + 8;
-#pragma unroll
-  for (int kk = 0; kk < K / 16; ++kk) {
-    const uint32_t fa[4] = {
-        pack_bf16(p[2 * kk][0], p[2 * kk][1]),
-        pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-        pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-        pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]),
-    };
-#pragma unroll
-    for (int dn = 0; dn < D / 16; ++dn) {
-      uint32_t fb[4];
-      ldmatrix_x4_trans(fb, b + a_off(kk * 16, dn * 16, LDH, lane));
-      mma_bf16(acc[2 * dn], fa, fb[0], fb[1]);
-      mma_bf16(acc[2 * dn + 1], fa, fb[2], fb[3]);
-    }
-  }
-}
-
-// Store a warp's 16 x D fp32 accumulator (times mul[row half]) as bf16
-// rows row0 and row0 + 8 (this lane's g rows) of a [.., D] global tensor
-// with row stride gstride; rows >= S are skipped.
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* base, long gstride, int row0,
-                                           int S, const float (&acc)[D / 8][4],
-                                           const float (&mul)[2], int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = row0 + g + h * 8;
-    if (row >= S) continue;
-    bf16* dst = base + (long)row * gstride + 2 * t;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<uint32_t*>(dst + n * 8) =
-          pack_bf16(acc[n][2 * h] * mul[h], acc[n][2 * h + 1] * mul[h]);
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
-// dQ: grid (ceil(S/BM), B*H); q tile resident, kv tiles streamed
-// ---------------------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-    fa_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, bf16* __restrict__ dq,
-                     int S, int H, int Hkv, float scale, int causal) {
-  constexpr int LDH = D + 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* dOs = Qs + BM * LDH;
-  bf16* KVs = dOs + BM * LDH;  // two buffers of (K tile, V tile)
-
-  const int q0 = blockIdx.x * BM;
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H, hk = h / (H / Hkv);
-  const long qstride = (long)H * D, kvstride = (long)Hkv * D;
-  const long qoff = ((long)b * S * H + h) * D;
-  const bf16* kb = k + ((long)b * S * Hkv + hk) * D;
-  const bf16* vb = v + ((long)b * S * Hkv + hk) * D;
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int row0 = q0 + warp * WR;
-  float lse_r[2], delta_r[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + g + r * 8;
-    lse_r[r] = row < S ? lse[(long)bh * S + row] : 0.f;
-    delta_r[r] = row < S ? delta[(long)bh * S + row] : 0.f;
-  }
-
-  load_tile<D, BM>(Qs, q + qoff, qstride, q0, S);
-  load_tile<D, BM>(dOs, dout + qoff, qstride, q0, S);
-  load_tile<D, BN>(KVs, kb, kvstride, 0, S);
-  load_tile<D, BN>(KVs + BN * LDH, vb, kvstride, 0, S);
-  cp_async_commit();
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  }
-
-  const int n_kv = (S + BN - 1) / BN;
-  const int kv_end = causal ? min(n_kv, (q0 + BM - 1) / BN + 1) : n_kv;
-  for (int j = 0; j < kv_end; ++j) {
-    const int k0 = j * BN;
-    const bf16* Ks = KVs + (j & 1) * 2 * BN * LDH;
-    const bf16* Vs = Ks + BN * LDH;
-    if (j + 1 < kv_end) {  // prefetch the next K/V tile into the other buffer
-      bf16* next = KVs + ((j + 1) & 1) * 2 * BN * LDH;
-      load_tile<D, BN>(next, kb, kvstride, k0 + BN, S);
-      load_tile<D, BN>(next + BN * LDH, vb, kvstride, k0 + BN, S);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // tile j (and, first time, Q/dO) has landed
-    float s[BN / 8][4], dp[BN / 8][4];
-    warp_abt<D, BN>(s, Qs + warp * WR * LDH, Ks, lane);    // Q K^T
-    warp_abt<D, BN>(dp, dOs + warp * WR * LDH, Vs, lane);  // dO V^T
-#pragma unroll
-    for (int n = 0; n < BN / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + n * 8 + 2 * t + (e & 1);
-        const int row = row0 + g + (e >> 1) * 8;
-        float x = s[n][e] * scale;
-        if (col >= S || (causal && col > row)) x = NEG_INF;
-        const float p = __expf(x - lse_r[e >> 1]);
-        s[n][e] = p * (dp[n][e] - delta_r[e >> 1]) * scale;  // dS
-      }
-    }
-    warp_pb<D, BN>(acc, s, Ks, lane);  // dQ_w += dS_w K
-    __syncthreads();  // every warp is done with this buffer
-  }
-  const float one[2] = {1.f, 1.f};
-  store_rows<D>(dq + qoff, qstride, row0, S, acc, one, lane);
-}
-
-// ---------------------------------------------------------------------------
-// Hopper kernels (forward, dK/dV): shared pieces
+// shared pieces
 // ---------------------------------------------------------------------------
 
 constexpr int WG = 128;                   // threads of a warpgroup
@@ -330,10 +94,10 @@ constexpr int PRODUCER_REGS = 24;
 
 // Fill the masked entries of a 64 x N accumulator tile with NEG_INF.  The
 // thread's entry d[4n + e] sits at row mrow + 8 * (e >> 1), column
-// ncol + 8n + (e & 1).  Forward (TRANS false; rows are queries, columns
-// keys): a key past S, or past the query under the causal mask, is masked.
-// dK/dV (TRANS true; rows are keys, columns queries): a query past S, or a
-// query before the key under the causal mask.
+// ncol + 8n + (e & 1).  Forward and dQ (TRANS false; rows are queries,
+// columns keys): a key past S, or past the query under the causal mask, is
+// masked.  dK/dV (TRANS true; rows are keys, columns queries): a query past
+// S, or a query before the key under the causal mask.
 template <int N, bool TRANS>
 __device__ __forceinline__ void mask_tile(float (&d)[N / 2], int mrow, int ncol,
                                           int S, bool causal) {
@@ -586,6 +350,179 @@ __global__ void __launch_bounds__(HOPPER_THREADS, 1)
 }
 
 // ---------------------------------------------------------------------------
+// dQ: grid (B*H, ceil(S/128)), the longest causal q tiles first; a 128-row
+// Q/dO tile resident, 128-row K/V tiles streamed.  Writes dq [B,S,H,D].
+// ---------------------------------------------------------------------------
+
+constexpr int DQ_BM = 128;    // q rows per CTA, 64 per consumer warpgroup
+constexpr int DQ_BN = 128;    // kv rows per streamed tile
+constexpr int DQ_STAGES = 2;  // depth of the K ring and of the V ring
+// With K/V tiles as tall as the Q tile, each warpgroup's rows see every
+// tile up to the CTA's last, and only the last carries the mask.
+static_assert(DQ_BN == DQ_BM, "the dQ tile loop assumes square tiles");
+
+template <int D>
+struct DqSmem {
+  static constexpr int Q = 0;
+  static constexpr int DO = DQ_BM * D * 2;
+  static constexpr int TILE = DQ_BN * D * 2;
+  static constexpr int K = 2 * DQ_BM * D * 2;     // DQ_STAGES K tiles
+  static constexpr int V = K + DQ_STAGES * TILE;  // DQ_STAGES V tiles
+  static constexpr int BARS = V + DQ_STAGES * TILE;
+  // qdo_full, then full and empty of each K stage and of each V stage
+  static constexpr int BYTES = BARS + (1 + 4 * DQ_STAGES) * 8 + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(HOPPER_THREADS, 1)
+    fa_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     const __grid_constant__ CUtensorMap tm_do,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, bf16* __restrict__ dq,
+                     int S, int H, int Hkv, float scale, int causal) {
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  bf16* Qs = reinterpret_cast<bf16*>(smem + DqSmem<D>::Q);
+  bf16* dOs = reinterpret_cast<bf16*>(smem + DqSmem<D>::DO);
+  bf16* Ks = reinterpret_cast<bf16*>(smem + DqSmem<D>::K);
+  bf16* Vs = reinterpret_cast<bf16*>(smem + DqSmem<D>::V);
+  uint64_t* qdo_full = reinterpret_cast<uint64_t*>(smem + DqSmem<D>::BARS);
+  uint64_t* k_full = qdo_full + 1;
+  uint64_t* k_empty = k_full + DQ_STAGES;
+  uint64_t* v_full = k_empty + DQ_STAGES;
+  uint64_t* v_empty = v_full + DQ_STAGES;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H, hk = h / (H / Hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * DQ_BM;
+  const int n_kv = (S + DQ_BN - 1) / DQ_BN;
+  // causal block skip: kv tile j is needed iff j*BN <= q0 + BM - 1
+  const int kv_end = causal ? min(n_kv, (q0 + DQ_BM - 1) / DQ_BN + 1) : n_kv;
+  // the last tile carries the mask: the diagonal, or keys past S
+  const bool last_masked = causal || kv_end * DQ_BN > S;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qdo_full, 1);
+    for (int s = 0; s < DQ_STAGES; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&k_empty[s], 2 * WG);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&v_empty[s], 2 * WG);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 2 * WG) {
+    // producer warpgroup: one thread starts every copy, Q and dO once,
+    // then K_j before V_j
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 2 * WG) {
+      auto load = [&](const CUtensorMap* map, bf16* ring, uint64_t* full,
+                      uint64_t* empty, int j) {
+        const int st = j % DQ_STAGES;
+        mbar_wait(&empty[st], ((j / DQ_STAGES) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[st], DQ_BN * D * 2);
+        tma_load_tile<D, DQ_BN>(ring + st * DQ_BN * D, map, hk, j * DQ_BN, b,
+                                &full[st]);
+      };
+      mbar_arrive_expect_tx(qdo_full, 2 * DQ_BM * D * 2);
+      tma_load_tile<D, DQ_BM>(Qs, &tm_q, h, q0, b, qdo_full);
+      tma_load_tile<D, DQ_BM>(dOs, &tm_do, h, q0, b, qdo_full);
+      for (int j = 0; j < kv_end; ++j) {
+        load(&tm_k, Ks, k_full, k_empty, j);
+        load(&tm_v, Vs, v_full, v_empty, j);
+      }
+    }
+  } else {
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int wg = threadIdx.x / WG, tid = threadIdx.x % WG;
+    const int lane = tid % 32, g = lane >> 2, t = lane & 3;
+    const int r0 = q0 + wg * 64;               // this warpgroup's first row
+    const int row = r0 + (tid / 32) * 16 + g;  // and row + 8
+    const float scale_log2 = scale * LOG2E;
+    const uint32_t q_base = smem_u32(Qs), do_base = smem_u32(dOs);
+    const bool idle = r0 >= S;  // every row of this warpgroup is past S
+    float lse2[2], dlt[2];  // lse (log2 units) and delta of the two rows
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int rr = row + 8 * r;
+      lse2[r] = rr < S ? lse[(long)bh * S + rr] * LOG2E : 0.f;
+      dlt[r] = rr < S ? delta[(long)bh * S + rr] : 0.f;
+    }
+
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    mbar_wait(qdo_full, 0);
+
+    for (int j = 0; j < kv_end; ++j) {
+      const int st = j % DQ_STAGES;
+      const uint32_t parity = (j / DQ_STAGES) & 1;
+      mbar_wait(&k_full[st], parity);
+      mbar_wait(&v_full[st], parity);
+      if (idle) {
+        // release the tile once it has arrived (an early arrival would
+        // count toward the stage's previous phase)
+        mbar_arrive(&v_empty[st]);
+        mbar_arrive(&k_empty[st]);
+        continue;
+      }
+      const uint32_t k_base = smem_u32(Ks + st * DQ_BN * D);
+      const uint32_t v_base = smem_u32(Vs + st * DQ_BN * D);
+
+      float s[DQ_BN / 2], dp[DQ_BN / 2];  // S = Q K^T, dP = dO V^T
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        Wgmma<DQ_BN>::ss(s, desc_k(q_base, DQ_BM, wg * 64, kk),
+                         desc_k(k_base, DQ_BN, 0, kk), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        Wgmma<DQ_BN>::ss(dp, desc_k(do_base, DQ_BM, wg * 64, kk),
+                         desc_k(v_base, DQ_BN, 0, kk), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      mbar_arrive(&v_empty[st]);
+      if (j == kv_end - 1 && last_masked) {
+        mask_tile<DQ_BN, false>(s, row, j * DQ_BN + 2 * t, S, causal);
+      }
+#pragma unroll
+      for (int i = 0; i < DQ_BN / 2; ++i) {
+        const int r = (i >> 1) & 1;
+        const float p = exp2f(fmaf(s[i], scale_log2, -lse2[r]));
+        s[i] = p * (dp[i] - dlt[r]) * scale;  // dS
+      }
+      uint32_t da[DQ_BN / 16][4];  // dS as the A operand of dS K
+      pack_a<DQ_BN>(da, s);
+
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DQ_BN / 16; ++kk) {
+        Wgmma<D>::rs(acc, da[kk], desc_mn(k_base, DQ_BN, kk), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(da);
+      mbar_arrive(&k_empty[st]);
+    }
+
+    const float one[2] = {1.f, 1.f};
+    const long qstride = (long)H * D;
+    store_acc<D>(dq + ((long)b * S * H + h) * D, qstride, row, S, acc, one,
+                 t);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // dK/dV: grid (B*H, ceil(S/128)), the longest causal kv tiles first; a
 // 128-row kv tile resident, 64-row q tiles streamed.  Writes dk/dv per q
 // head ([B,S,H,D]); the caller sums them over each GQA group.
@@ -811,15 +748,20 @@ template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int B, int S,
               int H, int Hkv, float scale, int causal, cudaStream_t stream) {
-  constexpr int smem = 6 * BM * (D + 8) * 2;  // Q, dO, 2 x (K, V)
+  CUtensorMap tq, tk, tv, tdo;
+  int rc = hopper::make_bshd_map(&tq, q, B, S, H, D, DQ_BM);
+  if (!rc) rc = hopper::make_bshd_map(&tdo, dout, B, S, H, D, DQ_BM);
+  if (!rc) rc = hopper::make_bshd_map(&tk, k, B, S, Hkv, D, DQ_BN);
+  if (!rc) rc = hopper::make_bshd_map(&tv, v, B, S, Hkv, D, DQ_BN);
+  if (rc) return rc;
+  constexpr int smem = DqSmem<D>::BYTES;
   static bool done[MAX_DEVICES] = {};
   cudaError_t err = set_smem_once(fa_bwd_dq_kernel<D>, smem, done);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((S + BM - 1) / BM, B * H);
-  fa_bwd_dq_kernel<D><<<grid, NTHREADS, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (bf16*)dq, S, H, Hkv, scale,
-      causal);
+  dim3 grid(B * H, (S + DQ_BM - 1) / DQ_BM);
+  fa_bwd_dq_kernel<D><<<grid, HOPPER_THREADS, smem, stream>>>(
+      tq, tk, tv, tdo, (const float*)lse, (const float*)delta, (bf16*)dq, S,
+      H, Hkv, scale, causal);
   return (int)cudaGetLastError();
 }
 

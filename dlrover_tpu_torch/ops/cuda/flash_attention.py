@@ -2,9 +2,8 @@
 
 Port of ``dlrover_tpu/ops/pallas/flash_attention.py``.  The three kernels
 live in ``dlrover_tpu_torch/csrc/flash_attention.cu`` (its header gives the
-bound and the design: the forward and dK/dV are warp-specialised wgmma +
-TMA kernels, dQ an mma.sync kernel); this module holds, beside each
-kernel:
+bound and the design: all three are warp-specialised wgmma + TMA
+kernels); this module holds, beside each kernel:
 
 * its plain PyTorch version (``*_plain``): the same function written as
   whole-matrix fp32 math with the same mask fill and the same ``l == 0``

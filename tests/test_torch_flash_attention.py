@@ -179,6 +179,28 @@ def test_seq_len_off_the_tile_matches_pallas(ref, S, pallas_block):
     np.testing.assert_allclose(_np(out), _np(want), **FP32_TOL)
 
 
+@pytest.mark.parametrize("S,pallas_block", [(100, 50), (96, 32)])
+def test_seq_len_off_the_tile_backward_matches_pallas(ref, S, pallas_block):
+    """The backward at S not a multiple of 64, causal, GQA 2:1: the port's
+    autograd (plain dQ, the version the card's dQ kernel is held against,
+    and plain dK/dV) against jax.grad through the Pallas custom VJP at a
+    block that divides S."""
+    q, k, v, _ = _inputs(5, 1, S, 4, 16, 2)
+
+    def loss_j(q_, k_, v_):
+        return ref.jnp.sum(ref.attention(q_, k_, v_, True, pallas_block,
+                                         pallas_block, True) ** 2)
+
+    grads_j = ref.jax.grad(loss_j, argnums=(0, 1, 2))(
+        _jx(ref, q), _jx(ref, k), _jx(ref, v))
+    qt, kt, vt = (_tc(x).requires_grad_() for x in (q, k, v))
+    out = flash_attention(qt, kt, vt, True)
+    grads_t = torch.autograd.grad((out ** 2).sum(), (qt, kt, vt))
+    for gt, gj in zip(grads_t, grads_j):
+        assert gt.shape == gj.shape
+        np.testing.assert_allclose(_np(gt), _np(gj), rtol=1e-4, atol=1e-4)
+
+
 def test_cuda_tensor_never_takes_the_plain_path():
     """A non-CPU tensor goes to the kernel wrapper, which rejects what the
     kernels do not take instead of computing it some other way."""
@@ -195,13 +217,16 @@ def cuda_device():
 
 
 # (B, S, H, H_kv, D, causal): whole 128-row tiles; S below one tile (80);
-# S a multiple of neither 64 nor 128 (333, 200); S=2048 with GQA 4:1
+# S a multiple of neither 64 nor 128 (333, 200); S a multiple of 64 but
+# not of 128 (192: dQ's last 128-row q tile has one warpgroup's rows all
+# past S); S=2048 with GQA 4:1
 CARD_CASES = [
     (2, 256, 4, 2, 64, True),
     (2, 256, 4, 4, 128, False),
     (2, 80, 4, 2, 64, True),
     (2, 333, 8, 2, 64, False),
     (1, 200, 4, 4, 128, True),
+    (2, 192, 4, 2, 128, True),
     (1, 2048, 16, 4, 128, True),
 ]
 

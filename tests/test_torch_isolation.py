@@ -1,6 +1,6 @@
-"""The PyTorch port stands alone: no module of dlrover_tpu_torch, and not
-chip_smoke.py, imports JAX, its libraries or the JAX package (the machine
-with the card has no JAX installed)."""
+"""The PyTorch port stands alone: no module of dlrover_tpu_torch, and
+neither chip_smoke.py nor chip_ab.py, imports JAX, its libraries or the
+JAX package (the machine with the card has no JAX installed)."""
 
 import ast
 from pathlib import Path
@@ -10,7 +10,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "dlrover_tpu")
 FILES = sorted((ROOT / "dlrover_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"
+    ROOT / "chip_smoke.py", ROOT / "chip_ab.py"
 ]
 
 
