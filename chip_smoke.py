@@ -40,6 +40,25 @@ then runs, in order, failing on the first phase that fails:
    the mean, median and shortest step; then one more step under
    torch.profiler for the device time by phase and by kernel family, and
    the device's busy share of the median step;
+   [flash checkpoint], on that trainer and state: the state's bytes, the
+   free bytes of /dev/shm and the host's available RAM (a state that does
+   not fit in /dev/shm is checkpointed at the largest depth at full width
+   that does, printed as "reduced: depth N of 22"); two synchronous memory
+   saves (async_snapshot=False) and their blocking times; then the
+   reference bench's sequence (dlrover_tpu_torch/trainer/flash_checkpoint/
+   bench.py run()): 4 steps without a save, an async memory save
+   (warm-up), an async storage save (blocking_save_s), 4 steps while it
+   stages and persists (persist_total_s), a restore from shm into the
+   trainer's own state (restore_shm_s) and, after one more step, a restore
+   from storage by a fresh scope (restore_storage_s); each restore must be
+   torch.equal, leaf by leaf, to a copy taken on the card at the save, the
+   model's bf16 compute copy must equal the restored masters, the flash
+   launches of the phase's 9 steps must be 9 steps' worth, and a step from
+   the restored state must reproduce the loss of the first step trained
+   from the snapshot (1e-6 relative); last, a newer memory snapshot whose
+   generation is made odd (torn) must restore the storage step.  Every
+   shm segment and the checkpoint directory are released at its end, and
+   its numbers go to a {"ckpt": {...}} JSON line;
 5. ring kernels vs plain versions: the fused quantize (int8, int4) and
    dequant-accumulate (int8, int4, also in place) of the ring_pallas_q
    grad sync against their plain PyTorch versions, torch.equal (tolerance
@@ -104,9 +123,11 @@ its one-card path (``launches_dp_leg`` beside it: 0, as the dp leg's ranks
 share the card).  Without a CUDA device it exits 1 and prints no result.
 """
 
+import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -188,6 +209,13 @@ EXACT_RING_RTOL = 1e-5
 # same card, so only a nondeterministic reduction could move it
 DP_STEP0_RTOL = 1e-6
 DP_TIMEOUT_S = 480.0
+# [flash checkpoint]: steps without a save, and steps trained while the
+# snapshot stages; bytes of the segment's meta on top of the state's
+CKPT_STEPS = 4
+CKPT_META_MARGIN = 64 << 20
+# the forward of the step from the restored state against the first step
+# from the snapshot: the same weights, batch and kernels on one card
+RESTORED_LOSS_RTOL = 1e-6
 
 
 SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
@@ -499,7 +527,7 @@ def train(fa):
           f" mfu={flops_per_step / mean_s / PEAK_BF16_FLOPS:.4f} "
           f"[(6N + 6*L*h*S)*tokens / 989e12, remat not counted] "
           f"peak_mem_gb={torch.cuda.max_memory_allocated() / 2**30:.2f}")
-    return launches
+    return launches, trainer, state, batch
 
 
 def profile_step(trainer, state, batch, fa, per_step, step_s):
@@ -562,6 +590,206 @@ def profile_step(trainer, state, batch, fa, per_step, step_s):
     for name, ms in by_name.most_common(8):
         print(f"    top kernel {ms:8.2f} ms  {name[:100]}")
     return state
+
+
+def shm_free_bytes() -> int:
+    st = os.statvfs("/dev/shm")
+    return st.f_bavail * st.f_frsize
+
+
+def host_available_bytes() -> int:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def ckpt_depth(state, num_layers: int, shm_free: int) -> int:
+    """The largest depth at full width whose state fits in /dev/shm (the
+    phase holds one snapshot segment at a time), from the bytes of layer
+    0's leaves and of the rest."""
+    from dlrover_tpu_torch.common.pytree import flatten_with_path
+    from dlrover_tpu_torch.trainer.flash_checkpoint.bench import state_nbytes
+
+    total = state_nbytes(state) + CKPT_META_MARGIN
+    per_layer = sum(leaf.numel() * leaf.element_size()
+                    for path, leaf in flatten_with_path(state)
+                    if "layers.0." in path)
+    if total <= shm_free:
+        return num_layers
+    depth = (shm_free - (total - num_layers * per_layer)) // per_layer
+    if depth < 1:
+        raise AssertionError(f"/dev/shm has {shm_free / 1e9:.2f} GB free: "
+                             "not even one layer's state fits")
+    return int(depth)
+
+
+def flash_checkpoint(fa, trainer, state, batch, per_step):
+    """The [flash checkpoint] phase on the training phase's trainer and
+    state; returns its JSON record."""
+    import shutil
+    import struct
+    import tempfile
+
+    import torch
+
+    from dlrover_tpu_torch.common.pytree import flatten_with_path
+    from dlrover_tpu_torch.models.llama import LlamaForCausalLM
+    from dlrover_tpu_torch.trainer.flash_checkpoint import (
+        Checkpointer,
+        bench,
+        snapshot,
+    )
+    from dlrover_tpu_torch.trainer.optim import create_optimizer
+    from dlrover_tpu_torch.trainer.train import Trainer
+
+    layers = trainer.model.config.num_layers
+    shm_free, ram = shm_free_bytes(), host_available_bytes()
+    state_bytes = bench.state_nbytes(state)
+    print(f"  state {state_bytes / 1e9:.3f} GB in "
+          f"{len(flatten_with_path(state))} leaves ({layers} layers); /dev/shm "
+          f"free {shm_free / 1e9:.1f} GB; host RAM available "
+          f"{ram / 1e9:.1f} GB", flush=True)
+    depth = ckpt_depth(state, layers, shm_free)
+    if depth < layers:
+        print(f"  reduced: depth {depth} of {layers} (shm "
+              f"{shm_free / 1e9:.1f} GB free)", flush=True)
+        cfg = dataclasses.replace(trainer.model.config, num_layers=depth)
+        trainer = Trainer(
+            LlamaForCausalLM(cfg, device=trainer.device, seed=0),
+            create_optimizer(peak_lr=3e-4, warmup_steps=10,
+                             total_steps=10_000, moment_dtype=torch.bfloat16),
+            grads_dtype=torch.bfloat16, device=trainer.device)
+        state = trainer.create_state()
+        state, _ = trainer.train_step(state, batch)
+        per_step = {k: v * depth // layers for k, v in per_step.items()}
+        state_bytes = bench.state_nbytes(state)
+    phase_t0 = time.perf_counter()
+    ckpt_dir = tempfile.mkdtemp(prefix="dlrover_tpu_torch_ckpt_")
+    scope = f"smoke{os.getpid()}"
+    ref = {}
+    record = dict(state_gb=state_bytes / 1e9, layers=depth,
+                  reduced=depth < layers, shm_free_gb=shm_free / 1e9,
+                  ram_available_gb=ram / 1e9)
+    try:
+        sync_s, phases, sync_paths = bench.sync_save_s(
+            state, ckpt_dir, f"{scope}s", step=state.step,
+            device=trainer.device)
+        split = [(round(p["device_to_host_s"], 4), round(p["shm_write_s"], 4))
+                 for p in phases]
+        print(f"  sync memory save (async_snapshot=False): blocking_save_s "
+              f"{sync_s[0]:.4f} (fresh segment and pinned memory), "
+              f"{sync_s[1]:.4f} (again); device to pinned host / host to "
+              f"shm {split} s; paths {sync_paths}", flush=True)
+        record.update(sync_blocking_save_s=sync_s, sync_phases=phases,
+                      sync_paths=sync_paths)
+
+        # the state at the snapshot step, on the card; allocated before the
+        # bench's first step, so that the copy takes no memory the steps
+        # have cached
+        ref.update({path: torch.empty_like(leaf) for path, leaf in
+                    flatten_with_path(state) if isinstance(leaf, torch.Tensor)})
+
+        def on_snapshot(st):
+            for path, leaf in flatten_with_path(st):
+                if isinstance(leaf, torch.Tensor):
+                    ref[path].copy_(leaf)
+                else:
+                    ref[path] = leaf
+
+        def check_equal(label, st):
+            bad = [path for path, leaf in flatten_with_path(st)
+                   if not (torch.equal(leaf, ref[path])
+                           if isinstance(leaf, torch.Tensor)
+                           else leaf == ref[path])]
+            if bad or len(flatten_with_path(st)) != len(ref):
+                raise AssertionError(f"{label} restore differs from the "
+                                     f"state at the snapshot step: {bad[:5]}")
+
+        def verify(source, st, first_loss):
+            record["first_loss_from_snapshot"] = first_loss
+            check_equal(source, st)
+            print(f"  {source} restore: every one of {len(ref)} leaves "
+                  f"torch.equal to the state at the snapshot step",
+                  flush=True)
+            if source != "storage":
+                return
+            bf16 = [n for n, p in trainer.model.named_parameters()
+                    if not torch.equal(p, st.params[n].to(p.dtype))]
+            if bf16:
+                raise AssertionError(f"compute copy stale after the restore: "
+                                     f"{bf16[:5]}")
+            record["compute_copy_equal"] = True
+
+        fa.reset_launches()
+        state, detail = bench.run(trainer, state, batch, ckpt_dir, scope,
+                                  steps=CKPT_STEPS, on_snapshot=on_snapshot,
+                                  verify=verify)
+        phase_steps = 2 * CKPT_STEPS + 1
+        grown = dict(fa.launches)
+        want = {k: v * phase_steps for k, v in per_step.items()}
+        if grown != want:
+            raise AssertionError(f"the phase's {phase_steps} steps launched "
+                                 f"{grown}, expected {want}")
+        record.update(detail)
+        print(f"  async memory save (warm-up) and async storage save: paths "
+              f"{detail['save_paths']}; blocking_save_s "
+              f"{detail['blocking_save_s']:.5f}", flush=True)
+        print(f"  steps without a save "
+              f"{[round(x, 4) for x in detail['steps_no_save']]} s; during "
+              f"staging {[round(x, 4) for x in detail['steps_during_staging']]}"
+              f" s; median inflation {detail['staging_inflation_x']:.3f}x; "
+              f"staging_s {detail['staging_s']:.2f}, persist_total_s "
+              f"{detail['persist_total_s']:.2f}", flush=True)
+        print(f"  restore_shm_s {detail['restore_shm_s']:.3f} "
+              f"(restore_shm_host_s {detail['restore_shm_host_s']:.3f}); "
+              f"restore_storage_s {detail['restore_storage_s']:.3f}; flash "
+              f"launches over the phase's {phase_steps} steps {grown}",
+              flush=True)
+        # one step from the restored state: the forward runs on the
+        # restored compute copy, so it must reproduce the loss of the
+        # first step trained from the snapshot
+        state, metrics = trainer.train_step(state, batch)
+        loss, first = metrics["loss"].item(), record["first_loss_from_snapshot"]
+        record["loss_after_restore"] = loss
+        print(f"  one step from the storage restore: loss {loss!r} (the "
+              f"first step from the snapshot: {first!r})", flush=True)
+        if not (math.isfinite(loss)
+                and abs(loss - first) <= RESTORED_LOSS_RTOL * abs(first)):
+            raise AssertionError(f"loss {loss} after the restore; the first "
+                                 f"step from the snapshot had {first}")
+
+        # a torn shm reads as no snapshot: a newer memory snapshot (step
+        # label 2) with its generation made odd restores the storage step
+        torn = Checkpointer(ckpt_dir, scope=f"{scope}t", async_snapshot=False,
+                            device=trainer.device)
+        try:
+            torn.save_checkpoint(bench.SAVE_STEP + 1, state)
+            buf = torn.engine._shm.buf
+            off = snapshot._GEN_OFF
+            (gen,) = struct.unpack(">Q", bytes(buf[off:off + 8]))
+            buf[off:off + 8] = struct.pack(">Q", gen + 1)
+            t0 = time.perf_counter()
+            restored, step = torn.load_checkpoint(state, trainer=trainer)
+            torn_s = time.perf_counter() - t0
+        finally:
+            torn.engine.unlink_memory()
+            torn.close()
+        if step != bench.SAVE_STEP:
+            raise AssertionError(f"a torn shm restored step {step}, not the "
+                                 f"storage step {bench.SAVE_STEP}")
+        check_equal("torn-shm", restored)
+        print(f"  torn shm (odd generation over step {bench.SAVE_STEP + 1}): "
+              f"load returned the storage step {step} in {torn_s:.3f} s, "
+              f"torch.equal to the snapshot", flush=True)
+        record.update(torn_restore_step=step, torn_restore_s=torn_s)
+    finally:
+        ref.clear()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    print(f"  the phase took {time.perf_counter() - phase_t0:.1f} s",
+          flush=True)
+    return record
 
 
 def ring_edge_rows(block: int, rows: int = 64, seed: int = 0):
@@ -1079,7 +1307,16 @@ def main() -> int:
     timings = time_kernels(fa, gen)
 
     print("[training]", flush=True)
-    launches = train(fa)
+    launches, trainer, state, batch = train(fa)
+
+    print("[flash checkpoint]", flush=True)
+    ckpt_record = flash_checkpoint(
+        fa, trainer, state, batch,
+        {"flash_fwd": 2 * trainer.model.config.num_layers,
+         "flash_bwd_dq": trainer.model.config.num_layers,
+         "flash_bwd_dkv": trainer.model.config.num_layers})
+    print(json.dumps({"ckpt": ckpt_record}), flush=True)
+    del trainer, state, batch
 
     from dlrover_tpu_torch.ops.cuda import ring_reduce_scatter as rrs
 

@@ -1,14 +1,21 @@
 """The ``DLROVER_TPU_*`` environment knobs that the port reads.
 
-A copy of the grad-sync knobs of ``dlrover_tpu/common/envs.py``: the same
-names, defaults and parsing.  Values are read from ``os.environ`` at call
-time; a malformed value logs a warning and falls back to the default.
+A copy of the knobs of ``dlrover_tpu/common/envs.py`` that the port's
+paths read (the grad sync, the single-process flash checkpoint and the
+node env it is scoped by): the same names, defaults and parsing.  Values
+are read from ``os.environ`` at call time; a malformed value logs a
+warning and falls back to the default.  The directories that default under
+``/tmp`` in the reference default under the process's temp directory here
+(``tempfile.gettempdir()``, which honours ``TMPDIR``).
 """
 
 import logging
 import os
+import tempfile
 
 logger = logging.getLogger(__name__)
+
+_TMP = os.path.join(tempfile.gettempdir(), "dlrover_tpu")
 
 DEFAULTS = {
     # MB of fp32 gradient per grad-sync bucket; 0 = per-leaf collectives.
@@ -23,6 +30,44 @@ DEFAULTS = {
     "DLROVER_TPU_GRAD_HI_FRAC": 0.125,
     # the one-kernel RDMA ring for transport=ring_rdma
     "DLROVER_TPU_GRAD_RING_RDMA": False,
+    # -- flash checkpoint: staging (snapshot.py) --
+    # allowed step-inflation factor while the stager copies to the host
+    "DLROVER_TPU_STAGE_FACTOR": 1.5,
+    # manual duty cycle (sleep = pace x transfer time); 0 = adaptive
+    "DLROVER_TPU_STAGE_PACE": 0.0,
+    # fixed streaming chunk size; 0 = the adaptive pacer's
+    "DLROVER_TPU_STREAM_CHUNK_BYTES": 0,
+    # -- flash checkpoint: engine --
+    # stream D2H chunks straight into shm (0: extract to host, then pack)
+    "DLROVER_TPU_STREAM_STAGING": True,
+    # states at or below this take the synchronous save path
+    "DLROVER_TPU_ASYNC_MIN_BYTES": 128 << 20,
+    # '' exact; 'bf16' snapshots fp32 leaves as bf16 (not bit-exact)
+    "DLROVER_TPU_SNAPSHOT_DTYPE": "",
+    # how long an async save waits for the device-copy slot before it
+    # saves synchronously
+    "DLROVER_CKPT_SLOT_WAIT_S": 120.0,
+    # buffer-lock bound (must outlast an in-flight stream)
+    "DLROVER_TPU_CKPT_LOCK_TIMEOUT_S": 600.0,
+    # CRC32 check on restore: eager, lazy or off
+    "DLROVER_TPU_VERIFY_CRC": "lazy",
+    # paths of ROADMAP queue 1 item 6: refused in the port
+    "DLROVER_TPU_PEER_RESTORE": False,
+    "DLROVER_TPU_DIST_PERSIST": False,
+    # -- flash checkpoint: saver (agent/ckpt_saver.py) --
+    "DLROVER_TPU_PERSIST_LOCK_WAIT_S": 900.0,
+    "DLROVER_TPU_PERSIST_WRITERS": 4,
+    "DLROVER_TPU_PERSIST_CHUNK_BYTES": 64 << 20,
+    # -- node env (common/constants.NodeEnv) and process plumbing --
+    "DLROVER_TPU_JOB_NAME": "",
+    "DLROVER_TPU_MASTER_ADDR": "",
+    "DLROVER_TPU_PROCESS_ID": 0,
+    "DLROVER_TPU_NUM_PROCESSES": 1,
+    # unix sockets of the shared lock, queue and dict
+    "DLROVER_TPU_SOCKET_DIR": os.path.join(_TMP, "sockets"),
+    "DLROVER_TPU_LOG_LEVEL": "INFO",
+    # training-event JSONL path; '' = a per-pid file under the temp dir
+    "DLROVER_TPU_EVENT_FILE": "",
 }
 
 _TRUE_WORDS = ("1", "true", "yes", "on")
@@ -36,6 +81,19 @@ def _complain(name: str, value: str, type_: str, fallback) -> None:
 
 def get_str(name: str) -> str:
     return os.environ.get(name, DEFAULTS[name])
+
+
+def get_int(name: str) -> int:
+    fallback = DEFAULTS[name]
+    value = os.environ.get(name)
+    if value is None:
+        return fallback
+    try:
+        # int(float(...)) accepts "1e8"-style byte sizes
+        return int(float(value))
+    except ValueError:
+        _complain(name, value, "int", fallback)
+        return fallback
 
 
 def get_float(name: str) -> float:

@@ -45,9 +45,12 @@ def flash_attention(
 ) -> torch.Tensor:
     """Fused attention, q: [B, S, H, D], k/v: [B, S, H_kv, D].
 
-    The kernels tile by a fixed 64 rows and zero-fill and mask a ragged
-    last tile, so any S works: there are no block sizes to choose, and the
-    TPU block table (ops/pallas/fa_tuned.json) does not apply to this card.
+    The kernels' tiles are fixed (``csrc/flash_attention.cu``): the
+    forward and dQ hold 128-row Q tiles and stream 128-row K/V tiles, and
+    dK/dV holds 128-row K/V tiles and streams 64-row Q/dO tiles.  A ragged
+    last tile is zero-filled and masked, so any S works: there are no
+    block sizes to choose, and the TPU block table
+    (ops/pallas/fa_tuned.json) does not apply to this card.
     """
     if q.shape[2] % k.shape[2]:
         raise ValueError(

@@ -1,1 +1,1 @@
-"""Optimizer recipe and the training harness."""
+"""Optimizer recipe, the training harness and flash checkpoint."""

@@ -1,0 +1,173 @@
+"""Flash-Checkpoint measurement on the port's ``Trainer``.
+
+Port of the measurement in ``run()`` of
+``dlrover_tpu/trainer/flash_checkpoint/bench.py``: steps without a save,
+the headline blocking time of an async storage save, the steps trained
+while the snapshot stages behind them, the time until the step is
+persisted, and the restores from shm and from storage.  ``chip_smoke.py``
+calls ``run`` on its ``llama2_1b`` trainer.  The reference's recovery,
+reshard and staging drills run in subprocesses and belong to ROADMAP queue
+1 items 6-7; they are not ported here.
+
+Every time is a host clock around work that ends in a device synchronize
+(``utils/timing.hard_block``), so it includes the card's queued work.
+"""
+
+import time
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+
+from dlrover_tpu_torch.common.pytree import flatten_with_path
+from dlrover_tpu_torch.trainer.flash_checkpoint import snapshot
+from dlrover_tpu_torch.trainer.flash_checkpoint.checkpointer import (
+    Checkpointer,
+    StorageType,
+)
+from dlrover_tpu_torch.utils.timing import hard_block
+
+# the step labels of the warm-up memory save and the measured storage save
+WARMUP_STEP, SAVE_STEP = 0, 1
+
+
+def _timed_step(trainer, state, batch) -> Tuple[Any, float, float]:
+    t0 = time.perf_counter()
+    state, metrics = trainer.train_step(state, batch)
+    loss = metrics["loss"].item()
+    hard_block(state)
+    return state, time.perf_counter() - t0, loss
+
+
+def state_nbytes(state: Any) -> int:
+    return sum(leaf.numel() * leaf.element_size()
+               for _, leaf in flatten_with_path(state)
+               if isinstance(leaf, torch.Tensor))
+
+
+def run(trainer, state, batch, ckpt_dir: str, scope: str, steps: int = 4,
+        on_snapshot: Optional[Callable[[Any], None]] = None,
+        verify: Optional[Callable[[str, Any, float], None]] = None,
+        persist_timeout_s: float = 1200.0) -> Tuple[Any, Dict]:
+    """The reference's sequence, on ``trainer`` and its ``state``:
+
+    1. ``steps`` steps without a save (the step time, and the stage
+       pacer's calm baseline);
+    2. an async memory save (warm-up: the device copy's buffer and the
+       shm segment), flushed;
+    3. an async storage save at step label ``SAVE_STEP``:
+       ``blocking_save_s``; ``on_snapshot(state)`` runs right after it
+       (before any step, e.g. to take a reference copy);
+    4. ``steps`` steps while the snapshot stages and persists, then the
+       exit barrier: ``persist_total_s`` from the save's start
+       (``staging_s``: until the snapshot was in shm);
+    5. a restore from shm into the trainer's own state (which the steps
+       moved on): ``restore_shm_s``; the engine's host-side cost alone
+       (shm to host tensors): ``restore_shm_host_s``;
+    6. one step, then a restore from storage by a fresh scope (no shm
+       snapshot), in place again: ``restore_storage_s``.
+
+    ``verify(source, state, first_loss)`` runs after each restore
+    (``source`` "shm" or "storage"; ``first_loss`` the loss of the first
+    step trained from the snapshot in 4).  Returns the state and the
+    numbers; raises when a save, persist or restore fails."""
+    device = trainer.device
+    base = []
+    for _ in range(steps):
+        state, dt, _ = _timed_step(trainer, state, batch)
+        base.append(dt)
+    base_step_s = sorted(base)[len(base) // 2]
+    ckpt = Checkpointer(ckpt_dir, scope=scope, device=device)
+    ckpt2 = None
+    try:
+        ckpt.save_checkpoint(WARMUP_STEP, state, StorageType.MEMORY)
+        if not ckpt.engine._flush_async():
+            raise RuntimeError("the warm-up snapshot did not stage")
+        t0 = time.time()
+        blocked = ckpt.save_checkpoint(SAVE_STEP, state, StorageType.DISK)
+        if on_snapshot is not None:
+            on_snapshot(state)
+        overlap, first_loss = [], None
+        for _ in range(steps):
+            state, dt, loss = _timed_step(trainer, state, batch)
+            overlap.append(dt)
+            first_loss = loss if first_loss is None else first_loss
+        if not ckpt.wait_latest_checkpoint(timeout=persist_timeout_s):
+            raise RuntimeError(f"step {SAVE_STEP} was not persisted")
+        persist_total_s = time.time() - t0
+        staging_s = ckpt.engine.last_staged_at - t0
+        paths = list(ckpt.engine.save_paths)
+        overlap_step_s = sorted(overlap)[len(overlap) // 2]
+
+        t0 = time.time()
+        restored, step = ckpt.load_checkpoint(state, trainer=trainer)
+        hard_block(restored)
+        restore_shm_s = time.time() - t0
+        if step != SAVE_STEP:
+            raise RuntimeError(f"shm restore returned step {step}")
+        state = restored
+        if verify is not None:
+            verify("shm", state, first_loss)
+        # the engine's own cost: shm to host tensors, no device transfer
+        t0 = time.time()
+        maps, _, _ = ckpt.engine._index_maps_from_shm()
+        for index_map in maps.values():
+            index_map.whole().clone()
+        del maps
+        restore_shm_host_s = time.time() - t0
+
+        state, _, _ = _timed_step(trainer, state, batch)
+        ckpt2 = Checkpointer(ckpt_dir, scope=f"{scope}r", device=device)
+        t0 = time.time()
+        restored, step = ckpt2.load_checkpoint(state, trainer=trainer)
+        hard_block(restored)
+        restore_storage_s = time.time() - t0
+        if step != SAVE_STEP:
+            raise RuntimeError(f"storage restore returned step {step}")
+        state = restored
+        if verify is not None:
+            verify("storage", state, first_loss)
+    finally:
+        for c in (ckpt, ckpt2):
+            if c is not None:
+                c.engine.unlink_memory()
+                c.close()
+    detail = {
+        "blocking_save_s": blocked,
+        "save_paths": paths,
+        "staging_s": staging_s,
+        "persist_total_s": persist_total_s,
+        "state_gb": state_nbytes(state) / 1e9,
+        "step_s_no_save": base_step_s,
+        "steps_no_save": base,
+        "step_s_during_staging": overlap_step_s,
+        "steps_during_staging": overlap,
+        "staging_inflation_x": overlap_step_s / max(base_step_s, 1e-9),
+        "restore_shm_s": restore_shm_s,
+        "restore_shm_host_s": restore_shm_host_s,
+        "restore_storage_s": restore_storage_s,
+    }
+    return state, detail
+
+
+def sync_save_s(state, ckpt_dir: str, scope: str, step: int, device,
+                repeats: int = 2) -> Tuple[list, list, list]:
+    """Blocking memory saves (``async_snapshot=False``) into a scope of
+    their own: the seconds of each (the first lands in a fresh segment
+    and fresh pinned memory), the seconds of its two phases (device to
+    pinned host memory, host memory to shm) and the path each took.  The
+    segment is released before this returns."""
+    ckpt = Checkpointer(ckpt_dir, scope=scope, async_snapshot=False,
+                        device=device)
+    try:
+        times, phases = [], []
+        for _ in range(repeats):
+            times.append(ckpt.save_checkpoint(step, state,
+                                              StorageType.MEMORY))
+            phases.append(dict(ckpt.engine.last_sync_phases))
+        meta = snapshot.read_snapshot_meta(ckpt.engine._shm)
+        if meta is None or meta["step"] != step or min(times) < 0:
+            raise RuntimeError(f"sync save of step {step} did not land")
+        return times, phases, list(ckpt.engine.save_paths)
+    finally:
+        ckpt.engine.unlink_memory()
+        ckpt.close()

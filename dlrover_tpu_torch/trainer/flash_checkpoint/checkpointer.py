@@ -1,0 +1,119 @@
+"""User-facing Flash Checkpoint API.
+
+Port of ``dlrover_tpu/trainer/flash_checkpoint/checkpointer.py``.  Typical
+loop::
+
+    trainer = Trainer(model, optimizer, grads_dtype=torch.bfloat16)
+    state = trainer.create_state()
+    ckpt = Checkpointer("/mnt/ckpt")
+    for step in range(...):
+        state, _ = trainer.train_step(state, batch)
+        if step % 10 == 0:
+            ckpt.save_checkpoint(step, state)                  # enqueue only
+        if step % 500 == 0:
+            ckpt.save_checkpoint(step, state, StorageType.DISK)
+
+    # restart: a fresh state on the card is the target, filled in place
+    state, step = ckpt.load_checkpoint(trainer.create_state(),
+                                       trainer=trainer)
+
+The reference's ``load_checkpoint(abstract_state, shardings)`` becomes
+``load_checkpoint(target)``: one device and no mesh, and the port restores
+into a state that already lives on its device rather than allocating a
+second one.
+"""
+
+from typing import Any, Dict, Optional, Tuple
+
+from dlrover_tpu_torch.device import DeviceLike
+from dlrover_tpu_torch.trainer.flash_checkpoint.engine import CheckpointEngine
+
+
+class StorageType:
+    MEMORY = 0
+    DISK = 1
+
+
+class Checkpointer:
+    def __init__(
+        self,
+        checkpoint_dir: str,
+        process_id: Optional[int] = None,
+        num_processes: Optional[int] = None,
+        scope: str = "",
+        replica: bool = False,
+        async_snapshot: bool = True,
+        device: DeviceLike = None,
+    ):
+        """``async_snapshot`` (default) blocks the training loop only for
+        the enqueue of a device-to-device copy of the state; device->host
+        staging runs behind training (engine module docstring).  It costs
+        one extra copy of the state in device memory, kept for the next
+        save.  Pass ``False`` when the device has no room for it.
+
+        ``device``: where the states to save and restore live; the card
+        by default (raises without one), ``"cpu"`` to run on the CPU.
+        ``replica=True`` is not ported yet and raises."""
+        self._engine = CheckpointEngine(
+            checkpoint_dir,
+            process_id=process_id,
+            num_processes=num_processes,
+            scope=scope,
+            replica=replica,
+            device=device,
+        )
+        self._async = async_snapshot
+
+    @property
+    def engine(self) -> CheckpointEngine:
+        return self._engine
+
+    def save_checkpoint(
+        self,
+        step: int,
+        state: Any,
+        storage_type: int = StorageType.MEMORY,
+        extras: Optional[Dict] = None,
+    ) -> float:
+        """Returns seconds the training loop was blocked.  Raises a
+        failure of an earlier save's background staging or persist."""
+        if storage_type == StorageType.DISK:
+            if self._async:
+                return self._engine.save_to_storage_async(step, state, extras)
+            return self._engine.save_to_storage(step, state, extras)
+        if self._async:
+            return self._engine.save_to_memory_async(step, state, extras)
+        return self._engine.save_to_memory(step, state, extras)
+
+    def load_checkpoint(self, target: Any,
+                        trainer=None) -> Tuple[Optional[Any], int]:
+        """``(state, step)`` from shm if possible, storage otherwise;
+        ``(None, -1)`` when no checkpoint exists.
+
+        ``target`` is a state of the saved structure on its device (e.g.
+        ``trainer.create_state()``); its tensors are filled in place.
+        Pass the ``trainer`` that trains it: a trainer with
+        ``grads_dtype`` runs on a copy of the masters held by its model,
+        which the restore must refresh."""
+        state, step = self._engine.load(target)
+        if state is not None and trainer is not None:
+            trainer.refresh_compute_copy(state)
+        return state, step
+
+    def latest_step(self) -> int:
+        return self._engine.latest_step()
+
+    @property
+    def last_extras(self):
+        """The extras dict stored with the checkpoint that load_checkpoint
+        restored (e.g. the data-shard position) — empty before a load."""
+        return self._engine.last_extras
+
+    def wait_latest_checkpoint(self, timeout: float = 600.0) -> bool:
+        """Exit barrier: block until async persists finished.  False on
+        a timeout or a dropped persist; raises on a staging or persist
+        failure."""
+        return self._engine.wait_saving_complete(timeout)
+
+    def close(self):
+        self._engine.close()

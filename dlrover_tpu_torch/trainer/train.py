@@ -15,7 +15,13 @@ same reason: one copy of the params in device memory).
 ``grads_dtype=torch.bfloat16`` keeps the fp32 masters in the state and
 runs forward and backward on a bf16 copy held by the model, so the
 gradients are bf16; the copy is refreshed from the masters after each
-update.  Without it the model's parameters ARE the masters.
+update.  Without it the model's parameters ARE the masters.  A state the
+trainer did not produce itself (one a checkpoint restore filled in place)
+gets the copy refreshed before its first step.
+
+``train_step`` ticks the process's step clock (``utils/step_clock.py``)
+with the wall time between successive steps: the flash checkpoint's stage
+pacer reads it to bound how much a background snapshot slows the steps.
 
 Data parallelism: ``Trainer(dp_group=...)`` (``parallel/process_group.py``)
 runs one rank per process, each on its own slice of the global batch, and
@@ -30,6 +36,8 @@ the update; ``Trainer.close()`` releases it.
 
 import dataclasses
 import logging
+import time
+import weakref
 from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
@@ -44,6 +52,7 @@ from dlrover_tpu_torch.parallel.collectives import GradSyncPolicy
 from dlrover_tpu_torch.parallel.peer_memory import PeerWindow
 from dlrover_tpu_torch.parallel.process_group import DpGroup
 from dlrover_tpu_torch.trainer import optim
+from dlrover_tpu_torch.utils.step_clock import get_step_clock
 
 logger = logging.getLogger(__name__)
 
@@ -129,6 +138,10 @@ class Trainer:
         self._bucket_layout: Optional[BucketLayout] = None
         self._peer_window: Optional[PeerWindow] = None
         self._configure_grad_sync()
+        # the state the model's compute copy was last refreshed from
+        self._copy_source: Optional[weakref.ref] = None
+        self._step_clock = get_step_clock()
+        self._last_step_ts: Optional[float] = None
 
     # -- data-parallel grad sync ---------------------------------------------
 
@@ -230,10 +243,12 @@ class Trainer:
             if self.grad_sync.quantized:
                 ef = collectives.error_feedback_init(
                     masters, self._grad_layout) or None
-        return TrainState(
+        state = TrainState(
             step=0, params=masters,
             opt_state=self.optimizer.init(update_params), ef_residual=ef,
         )
+        self._copy_source = weakref.ref(state)
+        return state
 
     # -- train step ----------------------------------------------------------
 
@@ -262,9 +277,12 @@ class Trainer:
         ``trainer.grad_sync`` (with a dp group) and ``trainer.update``:
         context managers that record only while a profiler runs."""
         batch = self._to_device(batch)
+        if self._copy_source is None or self._copy_source() is not state:
+            self.refresh_compute_copy(state)
         if self._sync_world > 1:
             metrics = self._sync_step(state, batch)
             state.step += 1
+            self._tick()
             return state, metrics
         with record_function("trainer.forward_backward"):
             if self.grad_accum_steps == 1:
@@ -285,9 +303,18 @@ class Trainer:
                 grads, state.opt_state, state.params
             )
             optim.apply_updates(state.params, updates)
-            self._refresh_compute_copy(state)
+            self.refresh_compute_copy(state)
         state.step += 1
+        self._tick()
         return state, {"loss": loss, "grad_norm": grad_norm}
+
+    def _tick(self) -> None:
+        """Feed the staging pacer: the wall time between successive steps
+        tracks the step cadence in any loop that reads a result."""
+        now = time.monotonic()
+        if self._last_step_ts is not None:
+            self._step_clock.record(now - self._last_step_ts)
+        self._last_step_ts = now
 
     def _clip(self, grads, grad_norm):
         """``GradSyncPolicy.clip_norm``: scale by min(1, clip / norm)."""
@@ -297,11 +324,15 @@ class Trainer:
         scale = torch.clamp(clip / grad_norm.clamp(min=1e-12), max=1.0)
         return {n: g * scale.to(g.dtype) for n, g in grads.items()}
 
-    def _refresh_compute_copy(self, state: TrainState) -> None:
+    def refresh_compute_copy(self, state: TrainState) -> None:
+        """Copy the masters of ``state`` into the model's compute copy
+        (with ``grads_dtype``; without it the model's parameters are the
+        masters of the state ``create_state`` made)."""
         if self.grads_dtype is not None:
             with torch.no_grad():
                 for n, p in self._named.items():
                     p.copy_(state.params[n])
+        self._copy_source = weakref.ref(state)
 
     # -- data-parallel step ----------------------------------------------------
 
@@ -379,7 +410,7 @@ class Trainer:
                     full, state.opt_state, state.params)
                 optim.apply_updates(state.params, updates)
             state.ef_residual = new_ef
-            self._refresh_compute_copy(state)
+            self.refresh_compute_copy(state)
         return {"loss": loss, "grad_norm": grad_norm}
 
     # -- gradient accumulation -----------------------------------------------

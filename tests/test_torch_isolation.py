@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module of dlrover_tpu_torch, and
-neither chip_smoke.py nor chip_ab.py, imports JAX, its libraries or the
-JAX package (the machine with the card has no JAX installed)."""
+neither chip_smoke.py nor chip_ab.py, imports JAX, its libraries (flax,
+optax, ml_dtypes) or the JAX package (the machine with the card has none
+of them installed)."""
 
 import ast
 from pathlib import Path
@@ -8,7 +9,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "dlrover_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "dlrover_tpu")
 FILES = sorted((ROOT / "dlrover_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "chip_ab.py"
 ]
@@ -55,6 +56,7 @@ def test_checker_catches_each_form(tmp_path):
         "from dlrover_tpu.common import log\n"
         "from flax import linen\n"
         "x = __import__('optax')\n"
+        "import ml_dtypes\n"
         "import importlib\n"
         "y = importlib.import_module('jaxlib')\n"
         "import dlrover_tpu_torch\n"
@@ -62,4 +64,4 @@ def test_checker_catches_each_form(tmp_path):
     )
     found = {m for m in _imported_modules(sample) if _forbidden(m)}
     assert found == {"jax.numpy", "dlrover_tpu.common", "flax", "optax",
-                     "jaxlib"}
+                     "ml_dtypes", "jaxlib"}
