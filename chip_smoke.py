@@ -59,6 +59,24 @@ then runs, in order, failing on the first phase that fails:
    generation is made odd (torn) must restore the storage step.  Every
    shm segment and the checkpoint directory are released at its end, and
    its numbers go to a {"ckpt": {...}} JSON line;
+   [mesh], after that trainer is freed: one worker process started as the
+   agent starts it (process_group.launch: DLROVER_TPU_PROCESS_ID=0,
+   _NUM_PROCESSES=1, a 127.0.0.1 coordinator) runs bootstrap.init (which
+   must initialise nothing at world 1), build_mesh(MeshConfig()) (a mesh
+   of ones over a one-rank NCCL group) and Trainer(mesh=...) on the
+   training phase's configuration, seed and batch, 5 steps: each loss
+   within 1e-6 relative of the training phase's same step, each step's
+   flash launches 44 / 22 / 22 (its counts reset before the step and read
+   after it, in that process), the median step beside the training
+   phase's; then a probe of whether gloo carries all_gather_into_tensor,
+   reduce_scatter_tensor and all_reduce on CUDA tensors (2 ranks on the
+   card; NCCL refuses two ranks on one card), printed; then ranks that
+   share the card over gloo, host-staged, at full width and 4 layers,
+   global B=4, 3 steps: tp=2 (2 ranks) always, and fsdp=2 (2 ranks) and
+   fsdp=2 x tp=2 (4 ranks) only if the probe found all three ops carried;
+   each run's losses equal on every rank, within 2e-4 relative of the
+   same depth on one rank without a mesh, and its flash launches 8 / 4 /
+   4 per rank a step (each launch on the rank's local heads);
 5. ring kernels vs plain versions: the fused quantize (int8, int4) and
    dequant-accumulate (int8, int4, also in place) of the ring_pallas_q
    grad sync against their plain PyTorch versions, torch.equal (tolerance
@@ -120,7 +138,9 @@ with its D=128 instance's SASS counts under ``sass``), the nvidia-smi line and
 over the path that runs it here: the single-device training (flash), the
 dp leg (the ring_pallas_q and ring_pallas kernels), and for the rdma ring
 its one-card path (``launches_dp_leg`` beside it: 0, as the dp leg's ranks
-share the card).  Without a CUDA device it exits 1 and prints no result.
+share the card); each flash kernel's ``launches_mesh`` is its count over
+the [mesh] phase's world-1 run.  Without a CUDA device it exits 1 and
+prints no result.
 """
 
 import dataclasses
@@ -216,6 +236,20 @@ CKPT_META_MARGIN = 64 << 20
 # the forward of the step from the restored state against the first step
 # from the snapshot: the same weights, batch and kernels on one card
 RESTORED_LOSS_RTOL = 1e-6
+# [mesh]: steps of the world-1 run (as many as [training] takes before
+# its profiled step), and its losses against [training]'s: a mesh of ones
+# places nothing, so the step is the plain path's step
+MESH_STEPS = 1 + TIMED_STEPS
+MESH_LOSS_RTOL = 1e-6
+# the ranks that share the card: steps, depth (the dp leg's), and the
+# losses of a split model against the same depth on one rank (bf16: a
+# tp=2 row shard sums two bf16 partial outputs where one rank sums in
+# fp32 and rounds once; fsdp reduces the bf16 gradients in fp32).  A
+# first run of these legs measured tp=2 2.1e-6, fsdp=2 1.4e-5 and
+# fsdp=2 x tp=2 2.6e-5 (H100, 700 W)
+MESH_RANK_STEPS = 3
+MESH_RANK_RTOL = 2e-4
+MESH_TIMEOUT_S = 600.0
 
 
 SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
@@ -486,7 +520,7 @@ def train(fa):
           f"layers, hidden {cfg.hidden_size}, heads {cfg.num_heads}x"
           f"{cfg.head_dim}, vocab {cfg.vocab_size}; B={TRAIN_B} S={TRAIN_S}")
     torch.cuda.reset_peak_memory_stats()
-    step_s = []
+    step_s, losses = [], []
     torch.cuda.synchronize()
     fa.reset_launches()
     for step in range(1 + TIMED_STEPS):
@@ -510,6 +544,7 @@ def train(fa):
             # random weights and tokens: the loss starts near ln(vocab)
             raise AssertionError(f"first loss {loss} is far from "
                                  f"ln({cfg.vocab_size})")
+        losses.append(loss)
         if step:
             step_s.append(dt)
     mean_s = sum(step_s) / len(step_s)
@@ -527,7 +562,8 @@ def train(fa):
           f" mfu={flops_per_step / mean_s / PEAK_BF16_FLOPS:.4f} "
           f"[(6N + 6*L*h*S)*tokens / 989e12, remat not counted] "
           f"peak_mem_gb={torch.cuda.max_memory_allocated() / 2**30:.2f}")
-    return launches, trainer, state, batch
+    plain = {"loss": losses, "median_s": median_s}
+    return launches, trainer, state, batch, plain
 
 
 def profile_step(trainer, state, batch, fa, per_step, step_s):
@@ -590,6 +626,131 @@ def profile_step(trainer, state, batch, fa, per_step, step_s):
     for name, ms in by_name.most_common(8):
         print(f"    top kernel {ms:8.2f} ms  {name[:100]}")
     return state
+
+
+def mesh_phase(plain) -> dict:
+    """The [mesh] phase: the worker bootstrap, the mesh and the mesh path
+    of the Trainer (module docstring).  Returns the flash launches of the
+    world-1 run."""
+    import numpy as np
+    import torch
+
+    from dlrover_tpu_torch.models.llama import LlamaConfig
+    from dlrover_tpu_torch.parallel import (
+        dp_workers,
+        mesh_workers,
+        process_group,
+    )
+
+    ids = np.random.default_rng(0).integers(0, 32000,
+                                            size=(TRAIN_B, TRAIN_S + 1))
+    spec = dict(
+        preset="llama2_1b",
+        model=dict(attention_impl="flash", max_seq_len=TRAIN_S),
+        state_dict=None, seed=0,
+        batch={"input_ids": ids[:, :-1].astype(np.int32),
+               "labels": ids[:, 1:].astype(np.int32)},
+        optimizer=dict(peak_lr=3e-4, warmup_steps=10, total_steps=10_000,
+                       moment_dtype=torch.bfloat16),
+        grads_dtype=torch.bfloat16,
+        runs=[dict(name="world1", axes=dict(dp=-1), steps=MESH_STEPS)])
+    t0 = time.perf_counter()
+    (worker,) = process_group.launch(mesh_workers.bootstrap_worker, 1,
+                                     (spec,), timeout_s=MESH_TIMEOUT_S)
+    rec = worker["train"]["runs"]["world1"]
+    ctx = worker["context"]
+    print(f"  one worker as the agent starts it (process {ctx['process_id']}"
+          f" of {ctx['num_processes']}, coordinator "
+          f"{ctx['coordinator_addr']}): bootstrap.init initialised "
+          f"{'a group' if worker['initialised_by_init'] else 'nothing'}; "
+          f"build_mesh gave a {worker['backend']} group of "
+          f"{worker['world']} and the mesh {rec['shape']}; "
+          f"{time.perf_counter() - t0:.1f} s with the process and model "
+          "set-up", flush=True)
+    if worker["backend"] != "nccl" or worker["initialised_by_init"]:
+        raise AssertionError("a world of one on the card must initialise "
+                             "nothing in bootstrap.init and give the mesh a "
+                             "one-rank NCCL group")
+    if set(rec["shape"].values()) != {1}:
+        raise AssertionError(f"mesh {rec['shape']}: expected all ones")
+    if len(rec["loss"]) != len(plain["loss"]):
+        raise AssertionError(f"{len(rec['loss'])} mesh steps against "
+                             f"{len(plain['loss'])} plain steps")
+    layers = LlamaConfig.llama2_1b().num_layers
+    per_step = {"flash_fwd": 2 * layers, "flash_bwd_dq": layers,
+                "flash_bwd_dkv": layers}
+    launches = dict.fromkeys(per_step, 0)
+    for step, (loss, want, counts) in enumerate(zip(
+            rec["loss"], plain["loss"], rec["flash_launches"])):
+        rel = abs(loss - want) / abs(want)
+        print(f"  step {step}: loss={loss:.6f} plain path {want:.6f} "
+              f"(rel {rel:.2e}) {rec['step_s'][step] * 1e3:.1f} ms "
+              f"launches={counts}")
+        if not math.isfinite(loss) or rel > MESH_LOSS_RTOL:
+            raise AssertionError(f"mesh step {step}: loss {loss} against "
+                                 f"the plain path's {want} (tol "
+                                 f"{MESH_LOSS_RTOL})")
+        if counts != per_step:
+            raise AssertionError(f"mesh step {step} launched {counts}, "
+                                 f"expected {per_step}")
+        for k in launches:
+            launches[k] += counts[k]
+    median_ms = statistics.median(rec["step_s"][1:]) * 1e3
+    print(f"  median step {median_ms:.2f} ms (steps 1-{MESH_STEPS - 1}) "
+          f"against [training]'s {plain['median_s'] * 1e3:.2f} ms; peak "
+          f"{rec['peak_mem_bytes'] / 2**30:.2f} GiB", flush=True)
+
+    probe = process_group.spawn(mesh_workers.collective_probe_worker, 2,
+                                backend="gloo", device="cuda",
+                                timeout_s=120.0)
+    fsdp_ok = all(v == "ok" for r in probe for v in r.values())
+    print(f"  gloo probe, 2 ranks on the card, CUDA tensors: {probe[0]} "
+          f"(rank 1 {probe[1]}); the fsdp legs "
+          f"{'run' if fsdp_ok else 'are left out: FSDP2 calls these'}",
+          flush=True)
+    legs = [("tp2", dict(dp=1, tp=2), 2)]
+    if fsdp_ok:
+        legs += [("fsdp2", dict(dp=1, fsdp=2), 2),
+                 ("fsdp2_tp2", dict(dp=1, fsdp=2, tp=2), 4)]
+    small = dict(spec, model=dict(num_layers=DP_LAYERS, attention_impl="flash",
+                                  max_seq_len=TRAIN_S))
+    ref = mesh_workers.reference_losses(small, MESH_RANK_STEPS, "cuda")
+    print(f"  {DP_LAYERS} layers on one rank, no mesh: losses "
+          f"{[round(v, 6) for v in ref['loss']]}; step s "
+          f"{[round(v, 4) for v in ref['step_s']]}")
+    torch.cuda.empty_cache()
+    per_step = {"flash_fwd": 2 * DP_LAYERS, "flash_bwd_dq": DP_LAYERS,
+                "flash_bwd_dkv": DP_LAYERS}
+    for name, axes, world in legs:
+        t0 = time.perf_counter()
+        ranks = process_group.spawn(
+            dp_workers.train_worker, world, (dict(small, runs=[dict(
+                name=name, axes=axes, steps=MESH_RANK_STEPS)]),),
+            backend="gloo", device="cuda", timeout_s=MESH_TIMEOUT_S)
+        recs = [r["runs"][name] for r in ranks]
+        peaks = [round(r["peak_mem_bytes"] / 2**30, 2) for r in recs]
+        loss = recs[0]["loss"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(loss, ref["loss"]))
+        print(f"  {name}: {world} gloo ranks on the card, mesh "
+              f"{ {k: v for k, v in recs[0]['shape'].items() if v > 1} }, "
+              f"global B={TRAIN_B}; losses {[round(v, 6) for v in loss]} "
+              f"(max rel {rel:.2e} vs one rank); step s "
+              f"{[round(v, 3) for v in recs[0]['step_s']]}; launches per "
+              f"step {recs[0]['flash_launches'][-1]} per rank; per-rank "
+              f"peak GiB {peaks}; {time.perf_counter() - t0:.1f} s with "
+              "spawn", flush=True)
+        for r in recs:
+            if r["loss"] != loss:
+                raise AssertionError(f"{name}: ranks report different "
+                                     "losses")
+            for counts in r["flash_launches"]:
+                if counts != per_step:
+                    raise AssertionError(f"{name} launched {counts} per "
+                                         f"step, expected {per_step}")
+        if not all(math.isfinite(v) for v in loss) or rel > MESH_RANK_RTOL:
+            raise AssertionError(f"{name}: losses {loss} against one rank's "
+                                 f"{ref['loss']} (tol {MESH_RANK_RTOL})")
+    return launches
 
 
 def shm_free_bytes() -> int:
@@ -1307,7 +1468,7 @@ def main() -> int:
     timings = time_kernels(fa, gen)
 
     print("[training]", flush=True)
-    launches, trainer, state, batch = train(fa)
+    launches, trainer, state, batch, plain = train(fa)
 
     print("[flash checkpoint]", flush=True)
     ckpt_record = flash_checkpoint(
@@ -1317,6 +1478,13 @@ def main() -> int:
          "flash_bwd_dkv": trainer.model.config.num_layers})
     print(json.dumps({"ckpt": ckpt_record}), flush=True)
     del trainer, state, batch
+    # the mesh's processes need the card's memory: release what the
+    # single-device phases left in this process's caching allocator
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[mesh] (this process holds "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB)", flush=True)
+    mesh_launches = mesh_phase(plain)
 
     from dlrover_tpu_torch.ops.cuda import ring_reduce_scatter as rrs
 
@@ -1360,6 +1528,7 @@ def main() -> int:
              replaces=REPLACES[name], launches=launches[name],
              max_abs_err=errors[name][0], atol=errors[name][1],
              rel_err=errors[name][2], rel_tol=REL_TOL,
+             launches_mesh=mesh_launches[name],
              sass=sass[SASS_KERNEL[name]], **timings[name])
         for name in REPLACES
     ] + [

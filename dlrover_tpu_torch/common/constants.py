@@ -1,8 +1,9 @@
-"""Constants the port's flash checkpoint reads.
+"""Constants the port reads.
 
-The two classes of ``dlrover_tpu/common/constants.py`` that this slice
-needs, copied: the checkpoint directory's file names and the node env
-names that scope a job's shm and sockets.
+The two classes of ``dlrover_tpu/common/constants.py`` that the port
+needs, copied: the checkpoint directory's file names, and the node env
+names that scope a job's shm and sockets and that the worker bootstrap
+reads (``trainer/bootstrap.py``).
 """
 
 
@@ -10,7 +11,11 @@ class NodeEnv:
     """Env vars injected into agents / workers."""
 
     MASTER_ADDR = "DLROVER_TPU_MASTER_ADDR"
+    NODE_RANK = "DLROVER_TPU_NODE_RANK"
+    NODE_NUM = "DLROVER_TPU_NODE_NUM"
     JOB_NAME = "DLROVER_TPU_JOB_NAME"
+    # the rendezvous of the worker processes (torch.distributed here)
+    COORDINATOR_ADDR = "DLROVER_TPU_COORDINATOR_ADDR"
     PROCESS_ID = "DLROVER_TPU_PROCESS_ID"
     NUM_PROCESSES = "DLROVER_TPU_NUM_PROCESSES"
 

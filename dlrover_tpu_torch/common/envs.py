@@ -2,10 +2,11 @@
 
 A copy of the knobs of ``dlrover_tpu/common/envs.py`` that the port's
 paths read (the grad sync, the single-process flash checkpoint and the
-node env it is scoped by): the same names, defaults and parsing.  Values
-are read from ``os.environ`` at call time; a malformed value logs a
-warning and falls back to the default.  The directories that default under
-``/tmp`` in the reference default under the process's temp directory here
+node env it is scoped by, the worker bootstrap and the mesh): the same
+names, defaults and parsing.  Values are read from ``os.environ`` at
+call time; a malformed value logs a warning and falls back to the
+default.  The directories that default under ``/tmp`` in the reference
+default under the process's temp directory here
 (``tempfile.gettempdir()``, which honours ``TMPDIR``).
 """
 
@@ -61,8 +62,21 @@ DEFAULTS = {
     # -- node env (common/constants.NodeEnv) and process plumbing --
     "DLROVER_TPU_JOB_NAME": "",
     "DLROVER_TPU_MASTER_ADDR": "",
+    "DLROVER_TPU_NODE_RANK": 0,
+    "DLROVER_TPU_NODE_NUM": 1,
+    # the rendezvous the agent publishes (host:port), this worker's
+    # process id and the world of processes
+    "DLROVER_TPU_COORDINATOR_ADDR": "",
     "DLROVER_TPU_PROCESS_ID": 0,
     "DLROVER_TPU_NUM_PROCESSES": 1,
+    # -- worker bootstrap (trainer/bootstrap.py) and mesh --
+    # platform the worker computes on: '' = the card, 'cpu' = the CPU
+    "DLROVER_TPU_PLATFORM": "",
+    "DLROVER_TPU_LOCAL_RANK": 0,
+    "DLROVER_TPU_RESTART_COUNT": 0,
+    "DLROVER_TPU_RDZV_ROUND": 0,
+    # pod slices (DCN domains) of a two-level mesh; 0/1 = flat
+    "DLROVER_TPU_SLICE_COUNT": 0,
     # unix sockets of the shared lock, queue and dict
     "DLROVER_TPU_SOCKET_DIR": os.path.join(_TMP, "sockets"),
     "DLROVER_TPU_LOG_LEVEL": "INFO",

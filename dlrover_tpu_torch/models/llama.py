@@ -10,6 +10,12 @@ runs again in the backward, as under ``nn.remat``.
 
 Linear weights use PyTorch's ``[out_features, in_features]`` layout; the
 q/k/v projections produce heads as ``[..., heads * head_dim]``.
+
+``shard_tensor_parallel(group)`` splits the model over a mesh's ``tp``
+axis (``parallel/tensor_parallel.py``): each rank keeps its heads
+(``H/tp`` query and ``H_kv/tp`` key/value heads, so the flash kernel runs
+unchanged on the local heads), its ``F/tp`` MLP columns and its ``V/tp``
+vocab rows; the model then returns this rank's vocab shard of the logits.
 """
 
 import dataclasses
@@ -25,6 +31,18 @@ from dlrover_tpu_torch.ops.attention import (
     flash_attention,
     reference_attention,
 )
+from dlrover_tpu_torch.parallel.tensor_parallel import (
+    copy_to_tp,
+    reduce_from_tp,
+    vocab_parallel_embedding,
+)
+
+# the dim each parameter is split along over tp (the Megatron layout):
+# 0 = output features (column shards), 1 = input features (row shards);
+# by the parameter's name within its module
+TP_DIMS = {"q_proj.weight": 0, "k_proj.weight": 0, "v_proj.weight": 0,
+           "o_proj.weight": 1, "gate_proj.weight": 0, "up_proj.weight": 0,
+           "down_proj.weight": 1, "embed_tokens": 0, "lm_head.weight": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,21 +156,22 @@ class Attention(nn.Module):
         self.k_proj = linear(E, H_kv * D)
         self.v_proj = linear(E, H_kv * D)
         self.o_proj = linear(H * D, E)
+        self.tp = None  # the tp group once sharded
 
     def forward(self, x, cos, sin):
         cfg = self.config
         B, S, _ = x.shape
-        dt = cfg.dtype
-        q = _linear(x, self.q_proj.weight, dt).view(
-            B, S, cfg.num_heads, cfg.head_dim)
-        k = _linear(x, self.k_proj.weight, dt).view(
-            B, S, cfg.num_kv_heads, cfg.head_dim)
-        v = _linear(x, self.v_proj.weight, dt).view(
-            B, S, cfg.num_kv_heads, cfg.head_dim)
+        dt, D = cfg.dtype, cfg.head_dim
+        x = copy_to_tp(x, self.tp)
+        # the local head counts (H/tp, H_kv/tp) follow from the shards
+        q = _linear(x, self.q_proj.weight, dt).view(B, S, -1, D)
+        k = _linear(x, self.k_proj.weight, dt).view(B, S, -1, D)
+        v = _linear(x, self.v_proj.weight, dt).view(B, S, -1, D)
         q = _rope(q, cos, sin)
         k = _rope(k, cos, sin)
         out = self._attend(q, k, v)
-        return _linear(out.reshape(B, S, -1), self.o_proj.weight, dt)
+        out = _linear(out.reshape(B, S, -1), self.o_proj.weight, dt)
+        return reduce_from_tp(out, self.tp)
 
     def _attend(self, q, k, v):
         if self.config.attention_impl == "flash":
@@ -175,11 +194,14 @@ class MLP(nn.Module):
         self.gate_proj = linear(E, F_)
         self.up_proj = linear(E, F_)
         self.down_proj = linear(F_, E)
+        self.tp = None
 
     def forward(self, x):
+        x = copy_to_tp(x, self.tp)
         gate = _linear(x, self.gate_proj.weight, self.dtype)
         up = _linear(x, self.up_proj.weight, self.dtype)
-        return _linear(F.silu(gate) * up, self.down_proj.weight, self.dtype)
+        out = _linear(F.silu(gate) * up, self.down_proj.weight, self.dtype)
+        return reduce_from_tp(out, self.tp)
 
 
 class DecoderLayer(nn.Module):
@@ -221,7 +243,8 @@ class _Fp32Logits(torch.autograd.Function):
 
 class LMHead(nn.Module):
     """Final projection to fp32 logits; at a 32k vocab it is ~10% of a 1B
-    model's FLOPs, so it runs at the compute dtype's rate."""
+    model's FLOPs, so it runs at the compute dtype's rate.  Sharded over
+    tp it gives this rank's vocab columns of the logits."""
 
     def __init__(self, config: LlamaConfig, device):
         super().__init__()
@@ -230,8 +253,10 @@ class LMHead(nn.Module):
             config.vocab_size, config.hidden_size,
             dtype=config.param_dtype, device=device,
         ))
+        self.tp = None
 
     def forward(self, x):
+        x = copy_to_tp(x, self.tp)
         x2 = x.to(self.dtype).reshape(-1, x.shape[-1])
         logits = _Fp32Logits.apply(x2, self.weight.to(self.dtype))
         return logits.view(*x.shape[:-1], -1)
@@ -260,6 +285,7 @@ class LlamaForCausalLM(nn.Module):
             config.param_dtype, device,
         )
         self.lm_head = LMHead(config, device)
+        self.tp = None
         self.init_weights(torch.Generator(device=device).manual_seed(seed))
 
     @torch.no_grad()
@@ -275,7 +301,11 @@ class LlamaForCausalLM(nn.Module):
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
         cfg = self.config
         S = input_ids.shape[1]
-        x = F.embedding(input_ids, self.embed_tokens.to(cfg.dtype))
+        table = self.embed_tokens.to(cfg.dtype)
+        if self.tp is None:
+            x = F.embedding(input_ids, table)
+        else:
+            x = vocab_parallel_embedding(input_ids, table, self.tp)
         cos, sin = _rope_tables(S, cfg.head_dim, cfg.rope_theta, x.device)
         for layer in self.layers:
             if cfg.remat and torch.is_grad_enabled():
@@ -283,6 +313,39 @@ class LlamaForCausalLM(nn.Module):
             else:
                 x = layer(x, cos, sin)
         return self.lm_head(self.final_norm(x))
+
+    def tp_dims(self):
+        """``{parameter name: dim}`` of the parameters split over tp."""
+        return {name: TP_DIMS[key] for name, _ in self.named_parameters()
+                for key in TP_DIMS if name.endswith(key)}
+
+    @torch.no_grad()
+    def shard_tensor_parallel(self, group) -> None:
+        """Keep this rank's shard of every parameter that ``TP_DIMS``
+        splits (``group``: the tp axis's ``DpGroup``); the others stay
+        whole.  Raises ``ValueError`` where tp does not divide the heads,
+        the MLP width or the vocab: GSPMD would pad there, the port does
+        not."""
+        cfg, tp = self.config, group.world
+        for what, size in (("num_kv_heads", cfg.num_kv_heads),
+                           ("num_heads", cfg.num_heads),
+                           ("intermediate_size", cfg.intermediate_size),
+                           ("vocab_size", cfg.vocab_size)):
+            if size % tp:
+                raise ValueError(f"tp={tp} does not divide {what}={size}: "
+                                 "the port does not pad a tensor-parallel "
+                                 "shard")
+        dims = self.tp_dims()
+        for name, param in list(self.named_parameters()):
+            if name not in dims:
+                continue
+            owner, _, attr = name.rpartition(".")
+            module = self.get_submodule(owner) if owner else self
+            shard = param.chunk(tp, dim=dims[name])[group.rank]
+            setattr(module, attr, nn.Parameter(shard.contiguous()))
+        for module in self.modules():
+            if hasattr(module, "tp"):
+                module.tp = group
 
     def num_params(self) -> int:
         cfg = self.config

@@ -1,10 +1,12 @@
-"""What each rank process runs: the dp grad sync driven end to end.
+"""What each rank process runs: the dp grad sync and the mesh driven end
+to end.
 
 ``process_group.spawn`` starts one process per rank and calls one of these
 functions in each; they live in the package so that a rank imports torch
 and the port only.  ``train_worker`` drives ``Trainer`` through a list of
-sync modes from the same start (``chip_smoke.py`` on the card, the CPU
-tests at a tiny size); ``reduce_scatter_worker`` drives
+runs from the same start, each a sync mode over the dp group or a mesh
+(``build_mesh`` -> ``Trainer(mesh=...)``; ``chip_smoke.py`` on the card,
+the CPU tests at a tiny size); ``reduce_scatter_worker`` drives
 ``collectives.bucket_reduce_scatter`` on given payloads;
 ``peer_window_worker`` builds a ``PeerWindow`` and moves one row to each
 right neighbour through it.
@@ -16,23 +18,20 @@ from typing import Any, Dict, List
 
 import numpy as np
 import torch
+from torch.distributed.tensor import Shard
 
 from dlrover_tpu_torch.ops.cuda import flash_attention as fa
 from dlrover_tpu_torch.ops.cuda import rdma_ring
 from dlrover_tpu_torch.ops.cuda import ring_reduce_scatter as ring
 from dlrover_tpu_torch.parallel import collectives
+from dlrover_tpu_torch.parallel.mesh import (
+    MESH_AXIS_NAMES,
+    MeshConfig,
+    build_mesh,
+    mesh_shape,
+)
 from dlrover_tpu_torch.parallel.peer_memory import PeerWindow
 from dlrover_tpu_torch.parallel.process_group import DpGroup
-
-
-def _local_rows(batch: Dict[str, np.ndarray], group: DpGroup):
-    """This rank's contiguous slice of the global batch (the data axis
-    sharding of the JAX trainer)."""
-    out = {}
-    for k, v in batch.items():
-        n = v.shape[0] // group.world
-        out[k] = v[group.rank * n:(group.rank + 1) * n]
-    return out
 
 
 def launch_counts() -> Dict[str, int]:
@@ -56,45 +55,72 @@ def params_checksum(params: Dict[str, torch.Tensor]) -> int:
     return total
 
 
+def sharding_axes(placements) -> list:
+    """The mesh axes a placement tuple (over ``MESH_AXIS_NAMES``) shards
+    along, in mesh order."""
+    return [a for a, p in zip(MESH_AXIS_NAMES, placements)
+            if isinstance(p, Shard)]
+
+
+def make_model(spec: Dict[str, Any], device, overrides=None):
+    """The port's Llama of ``spec``: ``model`` (``LlamaConfig`` fields and
+    ``overrides``, over the ``preset``'s when one is named), loaded with
+    ``state_dict`` (numpy) or, when that is None, seeded from ``seed``."""
+    from dlrover_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+
+    preset = spec.get("preset")
+    fields = dict(spec["model"], **(overrides or {}))
+    cfg = (dataclasses.replace(getattr(LlamaConfig, preset)(), **fields)
+           if preset else LlamaConfig(**fields))
+    model = LlamaForCausalLM(cfg, device=device, seed=spec.get("seed", 0))
+    if spec.get("state_dict") is not None:
+        model.load_state_dict({k: torch.from_numpy(v) for k, v in
+                               spec["state_dict"].items()})
+    return model
+
+
 def train_worker(group: DpGroup, spec: Dict[str, Any]) -> Dict[str, Any]:
     """Run ``spec["runs"]`` one after the other, each from the same start.
 
-    ``spec``: ``model`` (``LlamaConfig`` fields, over the ``preset``'s
-    when one is named), ``state_dict`` (numpy, or None for the model's
-    own seeded init from ``seed``), ``batch`` (the global numpy batch; this
-    rank takes its rows), ``optimizer`` (``create_optimizer`` kwargs),
-    ``grads_dtype``, ``runs`` (``{"name", "policy", "steps"}`` with
-    ``GradSyncPolicy`` kwargs) and ``return_params``.
+    ``spec``: the model (``make_model``), ``batch`` (the global numpy
+    batch; this rank takes its rows), ``optimizer`` (``create_optimizer``
+    kwargs), ``grads_dtype``, ``runs`` and ``return_params``.  A run is
+    ``{"name", "steps"}`` with either ``"policy"`` (``GradSyncPolicy``
+    kwargs: the trainer over the dp group) or ``"axes"`` (``MeshConfig``
+    fields: the trainer on ``build_mesh`` of them), and optionally
+    ``"grad_accum"``, ``"model"`` fields and ``"grads_dtype"`` over the
+    spec's.
 
     Returns, per run: losses, grad norms, step seconds (on the host clock,
     after a device synchronize), the ring and flash kernels' launches per
-    step, whether every rank's params were bit-identical after every step,
-    the sync summary, peak device memory and, on rank 0 with
-    ``return_params``, the final params."""
-    from dlrover_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    step, peak device memory and, on rank 0 with ``return_params``, the
+    final params (gathered whole on a mesh).  A dp run adds whether every
+    rank's params were bit-identical after every step and the sync
+    summary; a mesh run adds the mesh's shape, each parameter's local
+    shape and the sharding axes of each param and moment leaf."""
     from dlrover_tpu_torch.trainer.optim import create_optimizer
     from dlrover_tpu_torch.trainer.train import Trainer
 
     device = group.device
-    preset = spec.get("preset")
-    cfg = (dataclasses.replace(getattr(LlamaConfig, preset)(), **spec["model"])
-           if preset else LlamaConfig(**spec["model"]))
-    batch = _local_rows(spec["batch"], group)
-    out: Dict[str, Any] = {"rank": group.rank, "runs": {}}
+    out: Dict[str, Any] = {"rank": group.rank, "world": group.world,
+                           "backend": group.backend, "runs": {}}
     for run in spec["runs"]:
         if device.type == "cuda":
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(device)
-        model = LlamaForCausalLM(cfg, device=device, seed=spec.get("seed", 0))
-        if spec.get("state_dict") is not None:
-            model.load_state_dict({k: torch.from_numpy(v) for k, v in
-                                   spec["state_dict"].items()})
+        on_mesh = "axes" in run
+        place = (dict(mesh=build_mesh(MeshConfig.from_dict(run["axes"]),
+                                      device=device)) if on_mesh else
+                 dict(grad_sync=collectives.GradSyncPolicy(**run["policy"]),
+                      dp_group=group))
         trainer = Trainer(
-            model, create_optimizer(**spec["optimizer"]),
-            grads_dtype=spec.get("grads_dtype"),
-            grad_sync=collectives.GradSyncPolicy(**run["policy"]),
-            dp_group=group, device=device)
+            make_model(spec, device, run.get("model")),
+            create_optimizer(**spec["optimizer"]),
+            grads_dtype=run.get("grads_dtype", spec.get("grads_dtype")),
+            grad_accum_steps=run.get("grad_accum", 1), device=device,
+            **place)
         state = trainer.create_state()
+        batch = trainer.shard_batch(spec["batch"])
         record = {"loss": [], "grad_norm": [], "step_s": [],
                   "launches": [], "flash_launches": [], "params_agree": []}
         for _ in range(run["steps"]):
@@ -113,20 +139,30 @@ def train_worker(group: DpGroup, spec: Dict[str, Any]) -> Dict[str, Any]:
             record["flash_launches"].append(dict(fa.launches))
             record["loss"].append(loss)
             record["grad_norm"].append(grad_norm)
-            sums = group.all_gather(torch.tensor(
-                [params_checksum(state.params)], dtype=torch.int64,
-                device=device))
-            record["params_agree"].append(
-                bool((sums == sums[0]).all().item()))
-        record["summary"] = trainer.grad_sync_summary()
+            if not on_mesh:
+                sums = group.all_gather(torch.tensor(
+                    [params_checksum(state.params)], dtype=torch.int64,
+                    device=device))
+                record["params_agree"].append(
+                    bool((sums == sums[0]).all().item()))
         record["peak_mem_bytes"] = (torch.cuda.max_memory_allocated(device)
                                     if device.type == "cuda" else None)
+        if on_mesh:
+            record["shape"] = mesh_shape(trainer.mesh)
+            record["axes"] = {k: sharding_axes(v) for k, v in
+                              trainer.state_placements(state).items()}
+            record["local_shapes"] = {n: tuple(p.shape)
+                                      for n, p in state.params.items()}
+            params = trainer.full_params(state)  # collective
+        else:
+            record["summary"] = trainer.grad_sync_summary()
+            params = state.params
         if spec.get("return_params") and group.rank == 0:
             record["params"] = {n: p.detach().cpu().numpy().copy()
-                                for n, p in state.params.items()}
+                                for n, p in params.items()}
         out["runs"][run["name"]] = record
         trainer.close()
-        del trainer, state, model
+        del trainer, state, params
     return out
 
 

@@ -14,8 +14,10 @@ need no staging.
 
 ``spawn`` starts one process per rank (start method ``spawn``: CUDA cannot
 fork) over a ``FileStore``, runs a function of the port in each, and
-returns what each returned.  Ranks of an NCCL group need a card each; ranks
-of a gloo group on the card share the cards round-robin.  As every entry
+returns what each returned.  ``launch`` starts them as the agent does
+instead: each with the rendezvous environment, joining the group itself
+through ``trainer/bootstrap.init``.  Ranks of an NCCL group need a card
+each; ranks of a gloo group on the card share the cards round-robin.  As every entry
 point of the port, the ranks compute on the card unless the caller asks for
 the CPU (``device="cpu"``), and raise without one.
 """
@@ -24,10 +26,11 @@ import datetime
 import multiprocessing
 import os
 import queue as queue_lib
+import socket
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, Dict, List, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -41,15 +44,17 @@ _all_gather = getattr(dist, "all_gather_single", dist.all_gather_into_tensor)
 
 
 class DpGroup:
-    """One rank's view of the data-parallel group."""
+    """One rank's view of a group of ranks: the data-parallel group, or
+    one axis of the mesh (``parallel/mesh.py`` ``axis_group``)."""
 
-    def __init__(self, device: DeviceLike = None):
-        """The default (world) group of ``torch.distributed``; ``device``
-        is where this rank computes: the card unless the caller asks for
-        the CPU."""
-        self.rank = dist.get_rank()
-        self.world = dist.get_world_size()
-        self.backend = str(dist.get_backend())
+    def __init__(self, device: DeviceLike = None, group=None):
+        """``group``: a ``torch.distributed`` process group (None: the
+        default, world, group); ``device`` is where this rank computes:
+        the card unless the caller asks for the CPU."""
+        self.group = group
+        self.rank = dist.get_rank(group)
+        self.world = dist.get_world_size(group)
+        self.backend = str(dist.get_backend(group))
         self.device = resolve_device(device)
         # gloo exchanges host memory: CUDA tensors are staged through it
         self.host_staged = self.backend == "gloo"
@@ -66,12 +71,13 @@ class DpGroup:
     def _back(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
         return t.to(like.device)
 
-    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum over the ranks; returns a new tensor."""
+    def all_reduce(self, t: torch.Tensor, op=dist.ReduceOp.SUM
+                   ) -> torch.Tensor:
+        """Sum (or ``op``) over the ranks; returns a new tensor."""
         buf = self._send(t)
         if buf is t:
             buf = t.clone()
-        dist.all_reduce(buf)
+        dist.all_reduce(buf, op=op, group=self.group)
         return self._back(buf, t)
 
     def reduce_scatter(self, t: torch.Tensor) -> torch.Tensor:
@@ -82,14 +88,14 @@ class DpGroup:
                              f"of the world {self.world}")
         buf = self._send(t)
         out = self._empty((t.shape[0] // self.world,) + tuple(t.shape[1:]), t)
-        _reduce_scatter(out, buf)
+        _reduce_scatter(out, buf, group=self.group)
         return self._back(out, t)
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         """Every rank's ``t``, stacked: ``(world, *t.shape)``."""
         buf = self._send(t).reshape(-1)
         out = self._empty((self.world * buf.numel(),), t)
-        _all_gather(out, buf)
+        _all_gather(out, buf, group=self.group)
         return self._back(out.view((self.world,) + tuple(t.shape)), t)
 
     def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
@@ -101,7 +107,7 @@ class DpGroup:
                              f"of the world {self.world}")
         buf = self._send(t)
         out = self._empty(tuple(t.shape), t)
-        dist.all_to_all_single(out, buf)
+        dist.all_to_all_single(out, buf, group=self.group)
         return self._back(out, t)
 
     def shift(self, tensors: Dict[str, torch.Tensor],
@@ -113,13 +119,16 @@ class DpGroup:
         src = (self.rank + d) % self.world
         if dst == self.rank:
             return {k: v.clone() for k, v in tensors.items()}
+        if self.group is not None:  # P2P ops take global ranks
+            dst = dist.get_global_rank(self.group, dst)
+            src = dist.get_global_rank(self.group, src)
         ops, received = [], {}
         for tag, (name, t) in enumerate(tensors.items()):
             buf = self._send(t)
             out = self._empty(tuple(t.shape), t)
             received[name] = (out, t)
-            ops.append(dist.P2POp(dist.isend, buf, dst, tag=tag))
-            ops.append(dist.P2POp(dist.irecv, out, src, tag=tag))
+            ops.append(dist.P2POp(dist.isend, buf, dst, self.group, tag))
+            ops.append(dist.P2POp(dist.irecv, out, src, self.group, tag))
         for work in dist.batch_isend_irecv(ops):
             work.wait()
         return {k: self._back(out, t) for k, (out, t) in received.items()}
@@ -195,7 +204,6 @@ def spawn(fn: Callable, world: int, args: Sequence[Any] = (),
     check_placement(backend, device, world)
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
-    deadline = time.monotonic() + timeout_s
     with tempfile.TemporaryDirectory(prefix="dp_store_") as tmp:
         store_path = os.path.join(tmp, "store")
         procs = [
@@ -204,40 +212,91 @@ def spawn(fn: Callable, world: int, args: Sequence[Any] = (),
                 tuple(args), results))
             for rank in range(world)
         ]
+        return _run(procs, results, timeout_s)
+
+
+def _launched_main(env: Dict[str, str], rank: int, fn, args, results
+                   ) -> None:
+    torch.set_num_threads(1)
+    os.environ.update(env)
+    try:
+        results.put((rank, True, fn(*args)))
+    except BaseException:  # reported to the parent, then re-raised
+        results.put((rank, False, traceback.format_exc()))
+        raise
+
+
+def _free_port() -> int:
+    """A TCP port on 127.0.0.1 that nothing listens on now."""
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def launch(fn: Callable, world: int, args: Sequence[Any] = (),
+           env: Optional[Dict[str, str]] = None,
+           timeout_s: float = 120.0) -> List[Any]:
+    """Start ``world`` worker processes as the agent does: each with the
+    rendezvous environment (``DLROVER_TPU_PROCESS_ID``, ``_NUM_PROCESSES``,
+    ``_LOCAL_RANK`` and a ``127.0.0.1`` ``_COORDINATOR_ADDR``) plus
+    ``env``, and ``fn(*args)`` in each; the worker initialises its group
+    itself (``trainer/bootstrap.init``).  Returns the results by rank;
+    raises as ``spawn`` does."""
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    coordinator = f"127.0.0.1:{_free_port()}"
+    procs = []
+    for rank in range(world):
+        rank_env = dict(env or {})
+        rank_env.update({
+            "DLROVER_TPU_PROCESS_ID": str(rank),
+            "DLROVER_TPU_NUM_PROCESSES": str(world),
+            "DLROVER_TPU_LOCAL_RANK": str(rank),
+            "DLROVER_TPU_COORDINATOR_ADDR": coordinator,
+        })
+        procs.append(ctx.Process(target=_launched_main, daemon=True, args=(
+            rank_env, rank, fn, tuple(args), results)))
+    return _run(procs, results, timeout_s)
+
+
+def _run(procs, results, timeout_s: float) -> List[Any]:
+    """Start the rank processes and collect one result from each."""
+    world = len(procs)
+    deadline = time.monotonic() + timeout_s
+    for p in procs:
+        p.start()
+    got: Dict[int, Any] = {}
+    try:
+        while len(got) < world:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                raise TimeoutError(
+                    f"ranks {sorted(set(range(world)) - set(got))} did "
+                    f"not finish within {timeout_s:.0f} s")
+            try:
+                rank, ok, value = results.get(timeout=min(left, 1.0))
+            except queue_lib.Empty:
+                dead = [r for r, p in enumerate(procs)
+                        if r not in got and p.exitcode is not None]
+                if dead:
+                    # a rank that died without reporting (killed, or
+                    # crashed in native code); give its report a moment
+                    time.sleep(1.0)
+                    if results.empty():
+                        raise RuntimeError(
+                            f"rank {dead[0]} exited with code "
+                            f"{procs[dead[0]].exitcode} and no result")
+                continue
+            if not ok:
+                raise RuntimeError(f"rank {rank} failed:\n{value}")
+            got[rank] = value
+    finally:
         for p in procs:
-            p.start()
-        got: Dict[int, Any] = {}
-        try:
-            while len(got) < world:
-                left = deadline - time.monotonic()
-                if left <= 0:
-                    raise TimeoutError(
-                        f"ranks {sorted(set(range(world)) - set(got))} did "
-                        f"not finish within {timeout_s:.0f} s")
-                try:
-                    rank, ok, value = results.get(timeout=min(left, 1.0))
-                except queue_lib.Empty:
-                    dead = [r for r, p in enumerate(procs)
-                            if r not in got and p.exitcode is not None]
-                    if dead:
-                        # a rank that died without reporting (killed, or
-                        # crashed in native code); give its report a moment
-                        time.sleep(1.0)
-                        if results.empty():
-                            raise RuntimeError(
-                                f"rank {dead[0]} exited with code "
-                                f"{procs[dead[0]].exitcode} and no result")
-                    continue
-                if not ok:
-                    raise RuntimeError(f"rank {rank} failed:\n{value}")
-                got[rank] = value
-        finally:
-            for p in procs:
-                p.join(timeout=max(0.0, min(10.0,
-                                            deadline - time.monotonic())))
-            for p in procs:
-                if p.is_alive():
-                    p.kill()
-                    p.join(timeout=10.0)
-            results.close()
+            p.join(timeout=max(0.0, min(10.0,
+                                        deadline - time.monotonic())))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10.0)
+        results.close()
     return [got[r] for r in range(world)]

@@ -1,0 +1,157 @@
+"""Logical-axis sharding rules.
+
+Port of ``dlrover_tpu/parallel/sharding.py``.  Parameters and activations
+carry *logical* axis names ("embed", "heads", "batch"...); one table maps
+logical names to mesh axes.  In JAX, GSPMD inserts the collectives from
+those annotations; here the table decides where each tensor is split:
+
+* ``spec_for_logical_axes`` maps a tuple of logical axes to the port's
+  spec, one mesh-axis entry per tensor dim (a name, a tuple of names or
+  None), with the reference's rule: a mesh axis appears once (a later
+  repeat is dropped) and trailing Nones are trimmed;
+* ``logical_to_mesh_sharding`` turns logical axes into DTensor placements
+  on the mesh, one per mesh axis: ``Shard(dim)`` on the axes that split
+  the tensor, ``Replicate()`` on the others;
+* ``param_logical_axes`` is the table of every parameter of the port's
+  Llama (``models/llama.py``) to its logical axes, in the port's
+  ``[out, in]`` weight layout, taken from the reference model's
+  ``with_logical_partitioning`` calls.  The port's params are plain
+  tensors, so there is nothing to unbox (the reference's
+  ``unbox_params``);
+* ``shard_batch`` gives this rank its rows of the global batch over the
+  data axes.
+"""
+
+import re
+from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+from torch.distributed.tensor import Replicate, Shard
+
+MeshAxis = Union[str, Tuple[str, ...], None]
+Spec = Tuple[MeshAxis, ...]
+
+# logical axis -> mesh axis (or tuple of axes, or None = replicated)
+DEFAULT_LOGICAL_RULES: List[Tuple[str, MeshAxis]] = [
+    ("batch", ("dp", "fsdp")),  # global batch over all data-ish axes
+    ("seq", "cp"),              # context parallelism over sequence
+    ("vocab", "tp"),
+    ("embed", "fsdp"),          # ZeRO-3-style param shard over fsdp
+    ("heads", "tp"),
+    ("kv_heads", "tp"),
+    ("head_dim", None),
+    ("mlp", "tp"),
+    ("expert", "ep"),
+    ("capacity", None),         # per-expert token buffer (MoE dispatch)
+    ("layers", None),           # scanned-layer leading axis stays replicated
+]
+
+
+def rules_to_dict(
+    rules: Sequence[Tuple[str, MeshAxis]]
+) -> Dict[str, MeshAxis]:
+    return dict(rules)
+
+
+def spec_for_logical_axes(
+    logical_axes: Sequence[Optional[str]],
+    rules: Optional[Sequence[Tuple[str, MeshAxis]]] = None,
+) -> Spec:
+    """Map a tuple of logical axis names to the mesh axes of each dim."""
+    table = rules_to_dict(rules or DEFAULT_LOGICAL_RULES)
+    out = []
+    used = set()
+    for name in logical_axes:
+        axis = table.get(name) if name else None
+        # a mesh axis may appear only once in a spec; drop repeats
+        if axis is not None:
+            flat = axis if isinstance(axis, tuple) else (axis,)
+            if any(a in used for a in flat):
+                axis = None
+            else:
+                used.update(flat)
+        out.append(axis)
+    while out and out[-1] is None:
+        out.pop()
+    return tuple(out)
+
+
+def spec_axes(spec: Spec) -> Dict[str, int]:
+    """``{mesh axis: tensor dim}`` of a spec."""
+    where = {}
+    for dim, entry in enumerate(spec):
+        for axis in (entry if isinstance(entry, tuple) else (entry,)):
+            if axis is not None:
+                where[axis] = dim
+    return where
+
+
+def logical_to_mesh_sharding(
+    logical_axes: Sequence[Optional[str]],
+    mesh_axis_names: Sequence[str],
+    rules: Optional[Sequence[Tuple[str, MeshAxis]]] = None,
+):
+    """DTensor placements on a mesh with axes ``mesh_axis_names`` (a
+    ``DeviceMesh``'s ``mesh_dim_names``) for a tuple of logical axes."""
+    where = spec_axes(spec_for_logical_axes(logical_axes, rules))
+    return tuple(Shard(where[a]) if a in where else Replicate()
+                 for a in mesh_axis_names)
+
+
+# the port's Llama, parameter name -> logical axes of its [out, in] weight
+# (the reference's kernels are [in, *out]: q_proj ("embed", "heads",
+# "head_dim") is the port's [heads * head_dim, embed])
+_LLAMA_AXES = (
+    (r"embed_tokens", ("vocab", "embed")),
+    (r"layers\.\d+\.attn\.q_proj\.weight", ("heads", "embed")),
+    (r"layers\.\d+\.attn\.[kv]_proj\.weight", ("kv_heads", "embed")),
+    (r"layers\.\d+\.attn\.o_proj\.weight", ("embed", "heads")),
+    (r"layers\.\d+\.mlp\.(gate|up)_proj\.weight", ("mlp", "embed")),
+    (r"layers\.\d+\.mlp\.down_proj\.weight", ("embed", "mlp")),
+    (r"layers\.\d+\.(input_norm|post_attn_norm)\.scale", ("embed",)),
+    (r"final_norm\.scale", ("embed",)),
+    (r"lm_head\.weight", ("vocab", "embed")),
+)
+
+
+def param_logical_axes(names) -> Dict[str, Tuple[str, ...]]:
+    """Logical axes of each named parameter of the port's Llama; raises
+    for a name the table does not know."""
+    out = {}
+    for name in names:
+        for pattern, axes in _LLAMA_AXES:
+            if re.fullmatch(pattern, name):
+                out[name] = axes
+                break
+        else:
+            raise KeyError(f"no logical axes for parameter {name!r}")
+    return out
+
+
+def _data_index(mesh, data_axes: Sequence[str] = ("dp", "fsdp")
+               ) -> Tuple[int, int]:
+    """(this rank's block, the number of blocks) of the batch split over
+    ``data_axes``, row-major as JAX's ``PartitionSpec(data_axes)``."""
+    names = list(mesh.mesh_dim_names)
+    coord = mesh.get_coordinate()
+    index, count = 0, 1
+    for axis in data_axes:
+        size = mesh.shape[names.index(axis)]
+        index = index * size + coord[names.index(axis)]
+        count *= size
+    return index, count
+
+
+def shard_batch(mesh, batch, data_axes: Tuple[str, ...] = ("dp", "fsdp")):
+    """This rank's rows of the global ``batch`` (a dict of arrays or
+    tensors with the batch leading): the batch split into as many equal
+    blocks as the data axes hold ranks, block ``index`` for this rank;
+    ranks that differ only in other axes (tp) get the same rows."""
+    index, count = _data_index(mesh, data_axes)
+    out = {}
+    for k, v in batch.items():
+        if v.shape[0] % count:
+            raise ValueError(f"batch {k!r} of {v.shape[0]} rows does not "
+                             f"split over {count} data ranks")
+        n = v.shape[0] // count
+        out[k] = v[index * n:(index + 1) * n]
+    return out

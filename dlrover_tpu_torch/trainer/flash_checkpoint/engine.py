@@ -45,6 +45,7 @@ from typing import Any, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from dlrover_tpu_torch.common import envs
@@ -327,6 +328,15 @@ class CheckpointEngine:
                 f"{self.num_processes} processes: the port's flash "
                 "checkpoint is single-process; the collective restore-step "
                 f"agreement is not ported yet ({ROADMAP_MULTI_HOST})")
+        if dist.is_available() and dist.is_initialized() and \
+                dist.get_world_size() > 1:
+            # a mesh trainer's state holds this rank's shards: saving one
+            # as the whole leaf would be a wrong checkpoint
+            raise NotImplementedError(
+                f"a torch.distributed world of {dist.get_world_size()} "
+                "ranks: the port's flash checkpoint saves one process's "
+                "whole leaves; sharded states and the collective restore "
+                f"are not ported yet ({ROADMAP_MULTI_HOST})")
         for knob in ("DLROVER_TPU_PEER_RESTORE", "DLROVER_TPU_DIST_PERSIST"):
             if envs.get_bool(knob):
                 raise NotImplementedError(

@@ -15,13 +15,29 @@ The global norm (clipping and the trainer's ``grad_norm`` metric) is summed
 in fp32 whatever the leaves' dtype.  optax sums bf16 leaves in bf16, so on
 bf16 grads the two norms differ by bf16 rounding (< 1%); Adam divides out
 any constant scale on the grads, so the params barely see it.
+
+On a mesh each rank holds the local shards of the sharded leaves (the
+trainer's fp32 masters, its grads and, since ``init`` maps over those
+masters, the moments: each moment has its param's placement,
+``moment_placements``).  The update is elementwise, so it runs on the
+shards with no communication; only the global norm needs the whole leaf.
+Inside ``sharded_leaves(groups)`` ``global_norm`` (and so
+``clip_by_global_norm``) sums the squares of each leaf's local shard and
+all-reduces that sum over the groups of the axes that shard the leaf; a
+leaf no group shards counts once.
 """
 
+import contextlib
+import contextvars
+import dataclasses
 import math
-from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+from typing import (Any, Callable, Dict, Mapping, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
+
+from dlrover_tpu_torch.common.pytree import flatten_with_path
 
 Params = Dict[str, torch.Tensor]
 Schedule = Callable[[int], float]
@@ -46,10 +62,38 @@ def chain(*transforms: GradientTransformation) -> GradientTransformation:
     return GradientTransformation(init, update)
 
 
+# leaf name -> the groups (``DpGroup``) whose ranks hold its other shards
+_SHARD_GROUPS: contextvars.ContextVar = contextvars.ContextVar(
+    "shard_groups", default=None)
+
+
+@contextlib.contextmanager
+def sharded_leaves(groups: Mapping[str, Sequence[Any]]):
+    """Within this context a leaf named in ``groups`` is the local shard
+    of a leaf split over ``groups[name]`` (each with ``all_reduce``, as
+    ``parallel/process_group.DpGroup``); ``global_norm`` is collective."""
+    token = _SHARD_GROUPS.set(dict(groups))
+    try:
+        yield
+    finally:
+        _SHARD_GROUPS.reset(token)
+
+
 def global_norm(tree: Params) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in fp32."""
-    squares = [t.float().square().sum() for t in tree.values()]
-    return torch.stack(squares).sum().sqrt()
+    """sqrt of the sum of squares of every leaf, in fp32; over the whole
+    leaves of the sharded ones inside ``sharded_leaves``."""
+    shards = _SHARD_GROUPS.get() or {}
+    partial: Dict[Tuple, list] = {}
+    for name, t in tree.items():
+        key = tuple(shards.get(name, ()))
+        partial.setdefault(key, []).append(t.float().square().sum())
+    total = []
+    for key, squares in partial.items():  # the same order on every rank
+        s = torch.stack(squares).sum()
+        for group in key:
+            s = group.all_reduce(s)
+        total.append(s)
+    return torch.stack(total).sum().sqrt()
 
 
 def apply_updates(params: Params, updates: Params) -> None:
@@ -69,6 +113,22 @@ def clip_by_global_norm(max_norm: float) -> GradientTransformation:
         }, state
 
     return GradientTransformation(lambda params: (), update)
+
+
+def moment_placements(opt_state: Any, placements: Mapping[str, Any]
+                      ) -> Dict[str, Any]:
+    """The counterpart of the reference's ``moment_sharding_specs``: the
+    placement of each moment leaf of ``opt_state`` (a ``ScaleByAdamState``
+    anywhere in the chain), by its path in the state, is its param's."""
+    out = {}
+    for path, _ in flatten_with_path(opt_state):
+        parts = path.split("/")
+        for i, part in enumerate(parts):
+            name = "/".join(parts[i + 1:])
+            if part in ("mu", "nu") and name in placements:
+                out[path] = placements[name]
+                break
+    return out
 
 
 class ScaleByAdamState(NamedTuple):
@@ -261,3 +321,35 @@ def create_optimizer(
             adamw(learning_rate=lr, b1=b1, b2=b2, weight_decay=weight_decay)
         )
     return chain(*transforms)
+
+
+def create_sharded_sync_optimizer(grad_sync, **kwargs):
+    """``create_optimizer`` companion for grad-sync sharded-update
+    policies: returns ``(optimizer, policy)`` with the global-norm clip
+    moved out of the chain and into the policy.
+
+    A sharded (ZeRO-1) update runs the chain on each dp rank's gradient
+    shard, so an in-chain ``clip_by_global_norm`` would clip against
+    shard-local norms; the policy's ``clip_norm`` clips against the true
+    global norm before the update instead.  Accepts every
+    ``create_optimizer`` kwarg; ``grad_clip_norm`` (default 1.0) becomes
+    the policy bound."""
+    from dlrover_tpu_torch.parallel.collectives import GradSyncPolicy
+
+    policy = GradSyncPolicy.parse(grad_sync)
+    explicit = "grad_clip_norm" in kwargs
+    clip = kwargs.pop("grad_clip_norm", 1.0)
+    if policy.clip_norm is not None:
+        # the caller bound the clip on the policy: the chain stays
+        # clip-free (the step applies policy.clip_norm for every policy)
+        if explicit and clip is not None and clip != policy.clip_norm:
+            raise ValueError(
+                f"conflicting clip bounds: policy.clip_norm="
+                f"{policy.clip_norm} vs grad_clip_norm={clip}")
+        return create_optimizer(grad_clip_norm=None, **kwargs), policy
+    if policy.sharded_update:
+        if clip:
+            policy = dataclasses.replace(policy, clip_norm=clip)
+        return create_optimizer(grad_clip_norm=None, **kwargs), policy
+    # replicated update, no policy bound: the in-chain clip is right
+    return create_optimizer(grad_clip_norm=clip or None, **kwargs), policy

@@ -1,11 +1,12 @@
 """Training harness: state creation, train step, gradient accumulation.
 
 Port of ``dlrover_tpu/trainer/train.py``: the single-device step
-(``_exact_train_step``, ``_accumulate_scan``) and the flat data-parallel
+(``_exact_train_step``, ``_accumulate_scan``), the flat data-parallel
 step with its gradient sync (``_configure_grad_sync``, ``_accumulate_local``,
-``_sync_body``).  PyTorch runs eagerly, so there is no compile step, mesh
-or sharding: the step is forward, fp32 cross entropy, backward, the dp
-gradient sync when there is a dp group, and the optimizer update.
+``_sync_body``) and the mesh path (``Trainer(..., mesh)``).  PyTorch runs
+eagerly, so there is no compile step: the step is forward, fp32 cross
+entropy, backward, the gradient exchange of the mesh or the dp group, and
+the optimizer update.
 
 The state is updated in place: ``train_step`` adds the optimizer's updates
 to the fp32 master params of the ``TrainState`` it is given and returns
@@ -32,29 +33,73 @@ optimizer state covers only its shard of each shardable leaf, and
 that resolves to the ``ring_rdma`` tier runs over a ``PeerWindow`` the
 trainer builds for the widest such bucket and checks once per step, before
 the update; ``Trainer.close()`` releases it.
+
+The mesh (``Trainer(model, opt, mesh=build_mesh(...))``,
+``parallel/mesh.py``) places every parameter by the logical-axis rules
+(``parallel/sharding.py``), as the JAX trainer does:
+
+* ``tp``: the model keeps its Megatron shards (heads, MLP columns, vocab
+  rows; ``models/llama.py`` ``shard_tensor_parallel``) and the loss is the
+  vocab-parallel cross entropy;
+* ``fsdp``: FSDP2 ``fully_shard`` on each decoder layer and on the root,
+  over the ``DATA_AXES`` submesh (HSDP: replicated over dp, sharded
+  over fsdp), each parameter split along the dim the rules give ``fsdp``.
+  The sharded fp32 parameters are the masters; FSDP casts them to
+  ``grads_dtype`` when it gathers a layer (the compute copy), reduces the
+  gradients in fp32, and the trainer rounds each reduced shard to
+  ``grads_dtype``, so the norm, the clip and the update see the gradients
+  of that dtype, as on one device.  The loss is weighted before the
+  backward so that FSDP's mean over the data ranks is the global token
+  mean;
+* ``dp`` alone (no fsdp): the dp grad sync above over the mesh's dp group,
+  every ``grad_sync`` mode with it.
+
+Each rank's ``TrainState`` holds its local shards (the masters and, since
+the optimizer's ``init`` maps over them, the moments); the update is
+elementwise and runs on them with no communication; the global norm
+all-reduces each leaf's partial sum over the axes that shard it
+(``optim.sharded_leaves``).  ``placements`` records each parameter's DTensor
+placements on the mesh; ``full_params`` gathers the whole leaves.  ``cp``,
+``ep`` and ``pp`` are not ported yet (ROADMAP queue 1 items 4 and 5).
 """
 
 import dataclasses
 import logging
+import math
 import time
 import weakref
 from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
+from torch.distributed.tensor import Replicate, Shard
 from torch.profiler import record_function
 
 from dlrover_tpu_torch.device import DeviceLike, resolve_device
 from dlrover_tpu_torch.ops.cuda import ring_reduce_scatter as ring
-from dlrover_tpu_torch.parallel import collectives
+from dlrover_tpu_torch.parallel import collectives, sharding
 from dlrover_tpu_torch.parallel.bucketing import BucketLayout
 from dlrover_tpu_torch.parallel.collectives import GradSyncPolicy
+from dlrover_tpu_torch.parallel.mesh import (
+    MESH_AXIS_NAMES,
+    axis_group,
+    mesh_shape,
+)
 from dlrover_tpu_torch.parallel.peer_memory import PeerWindow
 from dlrover_tpu_torch.parallel.process_group import DpGroup
+from dlrover_tpu_torch.parallel.tensor_parallel import (
+    vocab_parallel_cross_entropy,
+)
 from dlrover_tpu_torch.trainer import optim
 from dlrover_tpu_torch.utils.step_clock import get_step_clock
 
 logger = logging.getLogger(__name__)
+
+# the mesh axes the batch is split over (the reference's default)
+DATA_AXES = ("dp", "fsdp")
+
+ROADMAP_MODEL_AXES = ("ROADMAP queue 1 items 4 (ring attention over cp) "
+                      "and 5 (ep for MoE, pp for the pipeline)")
 
 
 @dataclasses.dataclass
@@ -107,6 +152,7 @@ class Trainer:
         grad_sync: Union[str, GradSyncPolicy, None] = "exact",
         dp_group: Optional[DpGroup] = None,
         device: DeviceLike = None,
+        mesh=None,
     ):
         """``accum_dtype`` is the microbatch gradient ACCUMULATOR dtype and
         defaults to fp32 independently of ``grads_dtype``: repeated bf16
@@ -121,8 +167,15 @@ class Trainer:
         ``int8`` / ``int4`` / ``blockwise`` modes (and their ``_sharded``
         variants) quantize the reduce-scatter, with an error-feedback
         residual in the state.  A sharded mode clips with
-        ``GradSyncPolicy(clip_norm=...)``: pass an optimizer without a clip
-        stage, which would see one rank's shard only."""
+        ``GradSyncPolicy(clip_norm=...)``: build the optimizer with
+        ``optim.create_sharded_sync_optimizer``, which moves the clip out
+        of the chain (a chain clip would see one rank's shard only).
+
+        ``mesh`` (``parallel/mesh.build_mesh``; not with ``dp_group``)
+        places the model and its state by ``sharding.DEFAULT_LOGICAL_RULES``
+        (module docstring); each rank's ``train_step`` takes its rows of
+        the global batch over ``DATA_AXES`` (``shard_batch``).  A non-exact
+        ``grad_sync`` needs a pure data-parallel mesh (only dp active)."""
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.optimizer = optimizer
@@ -130,8 +183,21 @@ class Trainer:
         self.grads_dtype = grads_dtype
         self.accum_dtype = accum_dtype
         self._loss_fn = loss_fn or self._default_loss
-        self._named = dict(self.model.named_parameters())
         self.grad_sync = GradSyncPolicy.parse(grad_sync)
+        self.mesh = mesh
+        # the mesh's layout: leaf name -> groups that hold its other
+        # shards, and its placements over MESH_AXIS_NAMES
+        self._shard_groups: Dict[str, Tuple[DpGroup, ...]] = {}
+        self.placements: Dict[str, Tuple] = {}
+        self._data_groups: Tuple[DpGroup, ...] = ()
+        self._fsdp = False
+        if mesh is not None:
+            if dp_group is not None:
+                raise ValueError("pass a mesh or a dp_group, not both")
+            dp_group = self._configure_mesh()
+        elif dp_group is not None:
+            self._data_groups = (dp_group,)
+        self._named = dict(self.model.named_parameters())
         self.dp_group = dp_group
         self._sync_world = 1
         self._grad_layout: Optional[collectives.GradLayout] = None
@@ -142,6 +208,137 @@ class Trainer:
         self._copy_source: Optional[weakref.ref] = None
         self._step_clock = get_step_clock()
         self._last_step_ts: Optional[float] = None
+
+    # -- the mesh ----------------------------------------------------------
+
+    def _configure_mesh(self) -> Optional[DpGroup]:
+        """Check the mesh against what the port runs, split the model over
+        tp (its Megatron shards) and fsdp (the dim the rules give fsdp),
+        and return the dp group of a mesh whose only data axis is dp (None
+        otherwise)."""
+        shape = mesh_shape(self.mesh)
+        model_axes = [a for a in ("cp", "ep", "pp") if shape[a] > 1]
+        if model_axes:
+            raise NotImplementedError(
+                f"mesh axes {model_axes} are active: the port runs dp, fsdp "
+                f"and tp only; the others are not ported yet "
+                f"({ROADMAP_MODEL_AXES})")
+        active = [a for a in DATA_AXES if shape[a] > 1]
+        if self.grad_sync.active:
+            # the reference's refusals (_configure_grad_sync)
+            nondata = [a for a, n in shape.items()
+                       if a not in DATA_AXES and n > 1]
+            if nondata:
+                raise ValueError(
+                    f"grad_sync={self.grad_sync.mode!r} needs a pure "
+                    f"data-parallel mesh; non-data axes {nondata} are "
+                    "active (use grad_sync='exact' with model parallelism)")
+            bad = [a for a in active if a != "dp"]
+            if bad:
+                raise ValueError(
+                    f"grad_sync={self.grad_sync.mode!r} requires replicated "
+                    f"params over the sync axes; active data axes {bad} "
+                    "shard params (use grad_sync='exact' with fsdp)")
+        groups = {a: axis_group(self.mesh, a)
+                  for a in ("fsdp", "tp") if shape[a] > 1}
+        tp_dims = self.model.tp_dims() if "tp" in groups else {}
+        if "tp" in groups:
+            self.model.shard_tensor_parallel(groups["tp"])
+        if "fsdp" in groups:
+            self._fully_shard(shape["fsdp"])
+        # what was applied: the model's tp shards, FSDP's placements
+        for n, p in self.model.named_parameters():
+            place = dict.fromkeys(MESH_AXIS_NAMES, Replicate())
+            if n in tp_dims:
+                place["tp"] = Shard(tp_dims[n])
+            if self._fsdp:
+                place["fsdp"] = p.placements[
+                    p.device_mesh.mesh_dim_names.index("fsdp")]
+            self.placements[n] = tuple(place.values())
+            self._shard_groups[n] = tuple(
+                groups[a] for a in groups if isinstance(place[a], Shard))
+        self._data_groups = tuple(axis_group(self.mesh, a) for a in active)
+        return self._data_groups[0] if active == ["dp"] else None
+
+    def _fully_shard(self, fsdp: int) -> None:
+        """FSDP2 over ``DATA_AXES`` (HSDP) or ``fsdp`` alone: each decoder
+        layer, then the root, every parameter split along the dim the rules
+        give fsdp."""
+        from torch.distributed.fsdp import MixedPrecisionPolicy, fully_shard
+
+        named = dict(self.model.named_parameters())
+        fsdp_index = MESH_AXIS_NAMES.index("fsdp")
+        by_id = {}
+        for n, axes in sharding.param_logical_axes(named).items():
+            p = named[n]
+            place = sharding.logical_to_mesh_sharding(
+                axes, MESH_AXIS_NAMES)[fsdp_index]
+            if not isinstance(place, Shard) or p.shape[place.dim] % fsdp:
+                raise ValueError(
+                    f"fsdp={fsdp} must split {n} {tuple(p.shape)} evenly "
+                    f"along the dim the rules give it ({place}): the port "
+                    "does not pad an fsdp shard")
+            by_id[id(p)] = place
+        data = DATA_AXES if mesh_shape(self.mesh)["dp"] > 1 else "fsdp"
+        kw = dict(
+            mesh=self.mesh[data],
+            shard_placement_fn=lambda p: by_id[id(p)],
+            # the inputs keep their dtypes: the rope tables stay fp32
+            mp_policy=MixedPrecisionPolicy(
+                param_dtype=self.grads_dtype,
+                reduce_dtype=self.accum_dtype or torch.float32,
+                cast_forward_inputs=False))
+        for layer in self.model.layers:
+            fully_shard(layer, **kw)
+        fully_shard(self.model, **kw)
+        self._fsdp = True
+
+    def shard_batch(self, batch):
+        """This rank's rows of the global batch: over the mesh's data axes,
+        or over the dp group; the whole batch on one device."""
+        if self.mesh is not None:
+            return sharding.shard_batch(self.mesh, batch, DATA_AXES)
+        if self.dp_group is not None:
+            g = self.dp_group
+            n = next(iter(batch.values())).shape[0] // g.world
+            return {k: v[g.rank * n:(g.rank + 1) * n]
+                    for k, v in batch.items()}
+        return batch
+
+    def _data_world(self) -> int:
+        return math.prod(g.world for g in self._data_groups)
+
+    def adjust_accum_for_world(self, global_batch: int,
+                               per_device_batch: int) -> int:
+        """Preserve the global batch across mesh-size changes (the
+        reference ElasticTrainer's gradient-accumulation adjustment)."""
+        denom = max(1, per_device_batch * self._data_world())
+        self.grad_accum_steps = max(1, global_batch // denom)
+        return self.grad_accum_steps
+
+    def state_placements(self, state: "TrainState") -> Dict[str, Tuple]:
+        """Placements over ``MESH_AXIS_NAMES`` of the masters and their
+        moments in ``state``, by each leaf's path."""
+        params = {n: self.placements[n] for n in state.params}
+        out = {f"params/{n}": p for n, p in params.items()}
+        out.update({f"opt_state/{k}": v for k, v in
+                    optim.moment_placements(state.opt_state, params).items()})
+        return out
+
+    def full_params(self, state: "TrainState") -> Dict[str, torch.Tensor]:
+        """The whole fp32 masters, gathered from every shard (collective
+        over the mesh's fsdp and tp groups)."""
+        groups = {a: axis_group(self.mesh, a) for a in ("fsdp", "tp")
+                  if self.mesh is not None and mesh_shape(self.mesh)[a] > 1}
+        out = {}
+        for n, t in state.params.items():
+            for axis, group in groups.items():  # fsdp split the tp shard
+                place = self.placements[n][MESH_AXIS_NAMES.index(axis)]
+                if isinstance(place, Shard):
+                    parts = group.all_gather(t.contiguous())
+                    t = torch.cat(list(parts), dim=place.dim)
+            out[n] = t
+        return out
 
     # -- data-parallel grad sync ---------------------------------------------
 
@@ -226,14 +423,19 @@ class Trainer:
         optimizer state for them: for this rank's shards only under a
         sharded mode.  A quantized mode starts with zero residuals."""
         with torch.no_grad():
-            masters = {
-                n: p.detach().float().clone() for n, p in self._named.items()
-            }
-            for n, p in self._named.items():
-                p.data = (
-                    masters[n] if self.grads_dtype is None
-                    else masters[n].to(self.grads_dtype)
-                )
+            if self._fsdp:
+                # FSDP's sharded fp32 params are the masters (views: the
+                # update lands where the next gather reads)
+                masters = {n: p.to_local().detach()
+                           for n, p in self._named.items()}
+            else:
+                masters = {n: p.detach().float().clone()
+                           for n, p in self._named.items()}
+                for n, p in self._named.items():
+                    p.data = (
+                        masters[n] if self.grads_dtype is None
+                        else masters[n].to(self.grads_dtype)
+                    )
         update_params = masters
         ef = None
         if self._sync_active:
@@ -254,6 +456,10 @@ class Trainer:
 
     def _default_loss(self, batch):
         logits = self.model(batch["input_ids"])
+        tp = getattr(self.model, "tp", None)
+        if tp is not None:  # this rank's vocab shard of the logits
+            return vocab_parallel_cross_entropy(
+                logits, batch["labels"], tp, batch.get("mask"))
         return cross_entropy_loss(logits, batch["labels"], batch.get("mask"))
 
     def _grad_fn(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -280,12 +486,15 @@ class Trainer:
         if self._copy_source is None or self._copy_source() is not state:
             self.refresh_compute_copy(state)
         if self._sync_world > 1:
-            metrics = self._sync_step(state, batch)
+            with optim.sharded_leaves(self._shard_groups):
+                metrics = self._sync_step(state, batch)
             state.step += 1
             self._tick()
             return state, metrics
         with record_function("trainer.forward_backward"):
-            if self.grad_accum_steps == 1:
+            if self._fsdp:
+                loss, grads = self._fsdp_grads(batch)
+            elif self.grad_accum_steps == 1:
                 loss, grads = self._grad_fn(batch)
             else:
                 loss_sum, grad_sum, w_sum = self._accumulate(batch)
@@ -294,7 +503,8 @@ class Trainer:
                 grads = {n: g / w_sum.to(g.dtype)
                          for n, g in grad_sum.items()}
 
-        with record_function("trainer.update"):
+        with record_function("trainer.update"), \
+                optim.sharded_leaves(self._shard_groups):
             grad_norm = optim.global_norm(grads)
             # the policy's clip applies here too, so a job whose dp world
             # shrinks to 1 keeps the same update math
@@ -327,12 +537,67 @@ class Trainer:
     def refresh_compute_copy(self, state: TrainState) -> None:
         """Copy the masters of ``state`` into the model's compute copy
         (with ``grads_dtype``; without it the model's parameters are the
-        masters of the state ``create_state`` made)."""
-        if self.grads_dtype is not None:
+        masters of the state ``create_state`` made).  Under FSDP the
+        sharded params are the masters and each gather makes the copy;
+        a state the trainer did not make is copied into them."""
+        if self._fsdp:
+            with torch.no_grad():
+                for n, p in self._named.items():
+                    local = p.to_local()
+                    if local.data_ptr() != state.params[n].data_ptr():
+                        local.copy_(state.params[n])
+        elif self.grads_dtype is not None:
             with torch.no_grad():
                 for n, p in self._named.items():
                     p.copy_(state.params[n])
         self._copy_source = weakref.ref(state)
+
+    def _fsdp_grads(self, batch) -> Tuple[torch.Tensor,
+                                          Dict[str, torch.Tensor]]:
+        """The global mean loss and this rank's shards of the global mean
+        gradient under FSDP.  FSDP reduces each backward's gradients to
+        their mean over the data ranks, so each microbatch's loss is
+        weighted by ``w_mb * data_world / w_global`` (its token weight over
+        the global weight, all-reduced before the first backward): the
+        reduced sum is then exactly the global mask-weighted mean."""
+        accum = self.grad_accum_steps
+        batch_dim = next(iter(batch.values())).shape[0]
+        if batch_dim % accum != 0:
+            raise ValueError(
+                f"batch size {batch_dim} not divisible by "
+                f"grad_accum_steps {accum}; no sample may be dropped")
+        micro = batch_dim // accum
+        mbs = [{k: v[i * micro:(i + 1) * micro] for k, v in batch.items()}
+               for i in range(accum)]
+        weights = [self._mb_weight(mb, micro, self.device) for mb in mbs]
+        w_global = self._data_all_reduce(torch.stack(weights).sum())
+        w_global = w_global.clamp(min=1e-8)
+        scale = self._data_world() / w_global
+        loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
+        grads: Dict[str, torch.Tensor] = {}
+        for mb, w in zip(mbs, weights):
+            loss = self._loss_fn(mb)
+            (loss * (w * scale)).backward()
+            loss_sum = loss_sum + loss.detach().float() * w
+            for n, p in self._named.items():
+                # FSDP reduces in fp32 into the fp32 shard: round to
+                # grads_dtype, the gradients the other paths update with
+                g = p.grad.to_local()
+                if self.grads_dtype is not None:
+                    g = g.to(self.grads_dtype)
+                if accum == 1:
+                    grads[n] = g
+                elif n in grads:
+                    grads[n] += g.to(grads[n].dtype)
+                else:
+                    grads[n] = g.to(self.accum_dtype or torch.float32)
+                p.grad = None
+        return self._data_all_reduce(loss_sum) / w_global, grads
+
+    def _data_all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        for group in self._data_groups:
+            t = group.all_reduce(t)
+        return t
 
     # -- data-parallel step ----------------------------------------------------
 

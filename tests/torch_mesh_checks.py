@@ -1,0 +1,57 @@
+"""A rank function for the mesh tests (not a test module: pytest does
+not collect it).  ``process_group.spawn`` runs it in gloo ranks on the CPU;
+this module imports torch and the port only, so a spawned rank that
+unpickles the function never imports JAX."""
+
+import tempfile
+from typing import Dict, Tuple
+
+import torch
+
+from dlrover_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+from dlrover_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+from dlrover_tpu_torch.parallel.process_group import DpGroup
+from dlrover_tpu_torch.trainer.flash_checkpoint.engine import (
+    CheckpointEngine,
+)
+from dlrover_tpu_torch.trainer.optim import create_optimizer
+from dlrover_tpu_torch.trainer.train import Trainer
+
+
+def _trainer(axes: Dict[str, int], **kw) -> Trainer:
+    mesh = build_mesh(MeshConfig.from_dict(axes), device="cpu")
+    model = LlamaForCausalLM(LlamaConfig.tiny(dtype=torch.float32),
+                             device="cpu")
+    return Trainer(model, create_optimizer(), mesh=mesh, device="cpu", **kw)
+
+
+def refusal_worker(group: DpGroup) -> Dict[str, Tuple[str, str]]:
+    """On 8 ranks: ``{case: (exception type, message)}`` of each refused
+    trainer and of the flash checkpoint, and ``adjust_accum_for_world``'s
+    answer for 64 rows at 1 per device on dp=4 x fsdp=2."""
+    cases = {
+        "int8 on tp=2": (dict(dp=4, tp=2), dict(grad_sync="int8")),
+        "int8 on fsdp=2": (dict(dp=4, fsdp=2), dict(grad_sync="int8")),
+        "cp=2": (dict(dp=4, cp=2), {}),
+        "ep=2": (dict(dp=4, ep=2), {}),
+        "pp=2": (dict(dp=4, pp=2), {}),
+        "mesh and dp_group": (dict(dp=8), dict(dp_group=group)),
+        "tp=4 over 2 kv heads": (dict(dp=2, tp=4), {}),
+    }
+    out = {}
+    for case, (axes, kw) in cases.items():
+        try:
+            _trainer(axes, **kw)
+        except (ValueError, NotImplementedError) as e:
+            out[case] = (type(e).__name__, str(e))
+        else:
+            out[case] = ("accepted", "")
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            CheckpointEngine(tmp, device="cpu")
+        except NotImplementedError as e:
+            out["flash checkpoint"] = (type(e).__name__, str(e))
+        else:
+            out["flash checkpoint"] = ("accepted", "")
+    out["accum"] = _trainer(dict(dp=4, fsdp=2)).adjust_accum_for_world(64, 1)
+    return out
