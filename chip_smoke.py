@@ -74,9 +74,35 @@ then runs, in order, failing on the first phase that fails:
    share the card over gloo, host-staged, at full width and 4 layers,
    global B=4, 3 steps: tp=2 (2 ranks) always, and fsdp=2 (2 ranks) and
    fsdp=2 x tp=2 (4 ranks) only if the probe found all three ops carried;
-   each run's losses equal on every rank, within 2e-4 relative of the
-   same depth on one rank without a mesh, and its flash launches 8 / 4 /
-   4 per rank a step (each launch on the rank's local heads);
+   each run's losses and grad norms equal on every rank, within 2e-4
+   (losses) and 5e-4 (grad norms) relative of the same depth on one rank
+   without a mesh, and its flash launches 8 / 4 / 4 per rank a step (each
+   launch on the rank's local heads);
+   [moe]: the MoE Llama (models/moe.py) at llama2_1b width, 8 layers (its
+   depth cut: at 22 the state alone would take ~77 GB), E=8, top-2,
+   capacity factor 1.25 (C=640), flash attention, moe_loss_fn, B=4,
+   S=2048, the [training] optimizer and dtypes: one warm-up and 3 timed
+   steps, each with a finite loss and 8 / 8 / 8 flash launches (no
+   remat); the mean, median and shortest step and tokens/s; one more
+   step under torch.profiler, its device time split into the flash
+   kernels, the MoE's routing, dispatch einsum, expert matmuls and
+   combine einsum (each span's forward kernels and the backward of the
+   ops it recorded, by autograd sequence number), the optimizer update
+   and the rest, each kernel counted once; then the capacity dispatch against the dense oracle at
+   full width in fp32 with capacity factor E / top_k (nothing drops),
+   within 2e-5;
+   [ep] and [cp]: ring attention alone on 2 gloo ranks (cp=2) at B=4,
+   S=2048, H=16, D=128, causal, against reference_attention on the whole
+   sequence, fp32 within 2e-3 and bf16 within 3e-2; then ranks sharing
+   the card over gloo, full width, global B=4, 3 steps: the MoE (flash)
+   on ep=2 (4 layers) and dp=2 x ep=2 (2 layers: 4 ranks of 4 layers do
+   not fit the card), and the Llama with ring attention (remat on) on
+   cp=2 and tp=2 x cp=2 (4 layers); each run's losses and grad norms
+   equal on every rank and within the [mesh] legs' limits of one rank at
+   the same depth (the MoE; the Llama with reference attention), its
+   flash launches one forward, one
+   dQ and one dK/dV per layer per rank a step on ep (none through the
+   ring), its step seconds and per-rank peak GiB;
 5. ring kernels vs plain versions: the fused quantize (int8, int4) and
    dequant-accumulate (int8, int4, also in place) of the ring_pallas_q
    grad sync against their plain PyTorch versions, torch.equal (tolerance
@@ -139,7 +165,8 @@ over the path that runs it here: the single-device training (flash), the
 dp leg (the ring_pallas_q and ring_pallas kernels), and for the rdma ring
 its one-card path (``launches_dp_leg`` beside it: 0, as the dp leg's ranks
 share the card); each flash kernel's ``launches_mesh`` is its count over
-the [mesh] phase's world-1 run.  Without a CUDA device it exits 1 and
+the [mesh] phase's world-1 run, and ``launches_moe`` over the [moe]
+phase's steps.  Without a CUDA device it exits 1 and
 prints no result.
 """
 
@@ -241,15 +268,38 @@ RESTORED_LOSS_RTOL = 1e-6
 # places nothing, so the step is the plain path's step
 MESH_STEPS = 1 + TIMED_STEPS
 MESH_LOSS_RTOL = 1e-6
-# the ranks that share the card: steps, depth (the dp leg's), and the
-# losses of a split model against the same depth on one rank (bf16: a
-# tp=2 row shard sums two bf16 partial outputs where one rank sums in
-# fp32 and rounds once; fsdp reduces the bf16 gradients in fp32).  A
-# first run of these legs measured tp=2 2.1e-6, fsdp=2 1.4e-5 and
-# fsdp=2 x tp=2 2.6e-5 (H100, 700 W)
+# the ranks that share the card ([mesh], [ep] and [cp]): steps, depth
+# (the dp leg's), and the losses and grad norms of a split model against
+# the same depth on one rank (bf16: a tp=2 row shard sums two bf16
+# partial outputs where one rank sums in fp32 and rounds once; fsdp
+# reduces the bf16 gradients in fp32; ep sums the experts' bf16 partial
+# outputs over ranks; ring attention keeps fp32 probabilities where the
+# one-rank reference core rounds them to bf16).  Step 0 runs at lr 0, so
+# its grad norm is the gradient of the same weights on one rank and on
+# the mesh: a gradient off by a factor shows there.  Runs of these legs
+# measured losses within tp=2 2.1e-6, fsdp=2 1.4e-5, fsdp=2 x tp=2
+# 2.6e-5, ep=2 1.5e-6, dp=2 x ep=2 1.8e-5, cp=2 1.9e-5 and tp=2 x cp=2
+# 2.7e-5, and grad norms within 5.6e-5 to 9.3e-5 (tp=2 x cp=2) (H100,
+# 700 W; PERF.md)
 MESH_RANK_STEPS = 3
 MESH_RANK_RTOL = 2e-4
+MESH_RANK_NORM_RTOL = 5e-4
 MESH_TIMEOUT_S = 600.0
+# [moe]: the MoE Llama at llama2_1b width, its depth cut to 8 layers (at
+# 22 its state alone would take ~77 GB of the 80); steps after warm-up
+MOE_LAYERS, MOE_TIMED_STEPS = 8, 3
+# the dispatch against the dense oracle with nothing dropped, fp32:
+# tests/test_moe.py:53's tolerance
+MOE_ORACLE_ATOL = 2e-5
+# [cp]: ring attention against the reference core: fp32 as
+# tests/test_ops.py holds the reference's ring (2e-3); bf16 as the flash
+# forward against its plain version (the reference rounds the
+# probabilities to bf16, the ring keeps them fp32)
+RING_ATOL = {"float32": 2e-3, "bfloat16": FWD_ATOL}
+# dp=2 x ep=2 at 4 layers ran out of the card's memory (4 ranks of ~22
+# GiB: the optimizer holds fp32 copies of every leaf at once), so its
+# depth is cut to 2
+EP_DP_LAYERS = 2
 
 
 SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
@@ -586,7 +636,7 @@ def profile_step(trainer, state, batch, fa, per_step, step_s):
     # device-side events, less the GPU images of the trainer's spans
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.name.startswith("trainer.")]
+               and not is_span(e.name)]
     if not kernels:
         raise AssertionError("the profiler saw no device activity")
     by_name = collections.Counter()
@@ -606,21 +656,21 @@ def profile_step(trainer, state, batch, fa, per_step, step_s):
         else:
             families["other (elementwise, reductions, copies)"] += ms
     busy_ms = sum(by_name.values())
-    # a CPU span's device time counts the kernels its own thread launched:
-    # the forward under trainer.forward_backward (the backward, remat
-    # recompute included, runs on autograd's device thread) and the whole
-    # optimizer update under trainer.update
-    spans = {e.key: e.device_time_total / 1e3 for e in prof.key_averages()
-             if e.key.startswith("trainer.")}
-    forward = spans.get("trainer.forward_backward", 0.0)
-    update = spans.get("trainer.update", 0.0)
+    phases, loose = collections.Counter(), collections.Counter()
+    for (phase, part, _), ms in phase_split(prof, busy_ms).items():
+        phases[phase] += ms
+        if phase == "unattributed":
+            loose[part] += ms
     print(f"  profiled step: device busy {busy_ms:.1f} ms = "
           f"{busy_ms / (step_s * 1e3):.3f} of the {step_s * 1e3:.1f} ms "
           f"median step"
           f" (idle share {1 - busy_ms / (step_s * 1e3):.3f})")
-    print(f"    forward {forward:.1f} ms, backward with remat recompute "
-          f"{busy_ms - forward - update:.1f} ms, optimizer update "
-          f"{update:.1f} ms")
+    print(f"    forward {phases['forward']:.1f} ms, backward with remat "
+          f"recompute {phases['backward']:.1f} ms, optimizer update "
+          f"{phases['update']:.1f} ms, outside the step's spans "
+          f"{phases['other']:.1f} ms, launched by ops the trace does not "
+          f"nest {phases['unattributed']:.1f} ms "
+          f"{[(n, round(ms, 2)) for n, ms in loose.most_common(3)]}")
     for family, ms in families.most_common():
         print(f"    {family}: {ms:.1f} ms ({ms / busy_ms:.3f} of busy)")
     for name, ms in by_name.most_common(8):
@@ -727,30 +777,399 @@ def mesh_phase(plain) -> dict:
             dp_workers.train_worker, world, (dict(small, runs=[dict(
                 name=name, axes=axes, steps=MESH_RANK_STEPS)]),),
             backend="gloo", device="cuda", timeout_s=MESH_TIMEOUT_S)
-        recs = [r["runs"][name] for r in ranks]
-        peaks = [round(r["peak_mem_bytes"] / 2**30, 2) for r in recs]
-        loss = recs[0]["loss"]
-        rel = max(abs(a - b) / abs(b) for a, b in zip(loss, ref["loss"]))
-        print(f"  {name}: {world} gloo ranks on the card, mesh "
-              f"{ {k: v for k, v in recs[0]['shape'].items() if v > 1} }, "
-              f"global B={TRAIN_B}; losses {[round(v, 6) for v in loss]} "
-              f"(max rel {rel:.2e} vs one rank); step s "
-              f"{[round(v, 3) for v in recs[0]['step_s']]}; launches per "
-              f"step {recs[0]['flash_launches'][-1]} per rank; per-rank "
-              f"peak GiB {peaks}; {time.perf_counter() - t0:.1f} s with "
+        print(f"  {world} ranks: {time.perf_counter() - t0:.1f} s with "
               "spawn", flush=True)
-        for r in recs:
-            if r["loss"] != loss:
-                raise AssertionError(f"{name}: ranks report different "
-                                     "losses")
-            for counts in r["flash_launches"]:
-                if counts != per_step:
-                    raise AssertionError(f"{name} launched {counts} per "
-                                         f"step, expected {per_step}")
-        if not all(math.isfinite(v) for v in loss) or rel > MESH_RANK_RTOL:
-            raise AssertionError(f"{name}: losses {loss} against one rank's "
-                                 f"{ref['loss']} (tol {MESH_RANK_RTOL})")
+        check_rank_leg(name, [r["runs"][name] for r in ranks], ref,
+                       per_step)
     return launches
+
+
+def moe_phase(fa) -> dict:
+    """The [moe] phase (module docstring); returns the flash launches of
+    its steps."""
+    import numpy as np
+    import torch
+
+    from dlrover_tpu_torch.models.moe import (
+        MoELlamaConfig,
+        MoELlamaForCausalLM,
+        expert_capacity,
+        moe_loss_fn,
+    )
+    from dlrover_tpu_torch.trainer.optim import create_optimizer
+    from dlrover_tpu_torch.trainer.train import Trainer
+
+    cfg = MoELlamaConfig.llama2_1b(attention_impl="flash",
+                                   num_layers=MOE_LAYERS,
+                                   max_seq_len=TRAIN_S)
+    model = MoELlamaForCausalLM(cfg, device="cuda", seed=0)
+    n_params = model.num_params()
+    trainer = Trainer(
+        model,
+        create_optimizer(peak_lr=3e-4, warmup_steps=10, total_steps=10_000,
+                         moment_dtype=torch.bfloat16),
+        loss_fn=moe_loss_fn(model), grads_dtype=torch.bfloat16,
+        device="cuda")
+    state = trainer.create_state()
+    ids = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(TRAIN_B, TRAIN_S + 1))
+    batch = {"input_ids": ids[:, :-1].astype(np.int32),
+             "labels": ids[:, 1:].astype(np.int32)}
+    C = expert_capacity(TRAIN_S, cfg.num_experts, cfg.top_k,
+                        cfg.capacity_factor)
+    L = cfg.num_layers
+    per_step = dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                             L)
+    print(f"  MoE llama2_1b width: {n_params / 1e9:.3f}B params, {L} "
+          f"layers, hidden {cfg.hidden_size}, heads {cfg.num_heads}x"
+          f"{cfg.head_dim}, FFN {cfg.intermediate_size}, vocab "
+          f"{cfg.vocab_size}, E={cfg.num_experts} top-{cfg.top_k} "
+          f"capacity_factor {cfg.capacity_factor} (C={C}); B={TRAIN_B} "
+          f"S={TRAIN_S}; no remat", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    step_s = []
+    for step in range(1 + MOE_TIMED_STEPS):
+        before = dict(fa.launches)
+        t0 = time.perf_counter()
+        state, metrics = trainer.train_step(state, batch)
+        loss = metrics["loss"].item()
+        grad_norm = metrics["grad_norm"].item()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        grown = {k: fa.launches[k] - before[k] for k in per_step}
+        print(f"  step {step}{' (warm-up)' if step == 0 else ''}: "
+              f"loss={loss:.4f} grad_norm={grad_norm:.4f} "
+              f"{dt * 1e3:.1f} ms launches={grown}", flush=True)
+        if not math.isfinite(loss) or not math.isfinite(grad_norm):
+            raise AssertionError(f"[moe] non-finite loss/grad_norm at step "
+                                 f"{step}")
+        if grown != per_step:
+            raise AssertionError(f"[moe] step {step} launched {grown}, "
+                                 f"expected {per_step}")
+        if step == 0 and abs(loss - math.log(cfg.vocab_size)) > 2.0:
+            raise AssertionError(f"[moe] first loss {loss} is far from "
+                                 f"ln({cfg.vocab_size})")
+        if step:
+            step_s.append(dt)
+    mean_s, median_s = sum(step_s) / len(step_s), statistics.median(step_s)
+    state = moe_profile(trainer, state, batch, fa, per_step, median_s)
+    launches = dict(fa.launches)
+    tokens = TRAIN_B * TRAIN_S
+    print(f"  step_ms={mean_s * 1e3:.2f} (mean of {len(step_s)}; median "
+          f"{median_s * 1e3:.2f}; min {min(step_s) * 1e3:.2f}) "
+          f"tokens_per_s={tokens / mean_s:.0f} peak_mem_gb="
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f}; launches over "
+          f"the phase's {2 + MOE_TIMED_STEPS} steps {launches}", flush=True)
+    del trainer, state, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_dispatch_check(cfg)
+    return launches
+
+
+MOE_PARTS = ("moe.routing", "moe.dispatch", "moe.experts", "moe.combine")
+# how far a profiled step's split may stray from its kernel time (a
+# kernel counted twice or lost would show)
+SPLIT_RTOL = 1e-3
+
+
+def kernel_owner(event, parts, part_of):
+    """(phase, part) of the kernels CPU op ``event`` launched: the
+    nearest enclosing span of ``parts`` (its forward), autograd node (the
+    backward; of a part when its forward op was recorded under one, by
+    sequence number), ``trainer.update`` or ``trainer.forward_backward``;
+    ("other", None) under none of them (the batch's copy to the card).
+    The backward (remat's recompute with it) runs on autograd's own
+    thread, under no trainer span."""
+    node = event
+    while node is not None:
+        if node.name in parts:
+            return "forward", node.name
+        if node.name.startswith("autograd::engine::evaluate_function"):
+            return "backward", part_of.get(node.sequence_nr)
+        if node.name == "trainer.update":
+            return "update", None
+        if node.name == "trainer.forward_backward":
+            return "forward", None
+        node = node.cpu_parent
+    return "other", None
+
+
+def is_span(name: str) -> bool:
+    """A span's image on the device timeline, not a kernel."""
+    return name.startswith(("trainer.", "moe."))
+
+
+def phase_split(prof, busy_ms: float, parts=()) -> dict:
+    """{(phase, part, is a flash kernel): device ms} of a profiled step:
+    each device activity of the trace counted once, under the CPU op of
+    its correlation id (``kernel_owner``; the innermost op where two share
+    an id), the spans' own device images left out.  (A CPU op's
+    ``kernels`` list is no count: the [moe] step's lists summed 0.6% over
+    its kernel time.)  ("unattributed", name) holds what was launched by
+    an op the trace names but does not nest under a parent (on the card,
+    some sums, products and quotients: ~2% of a MoE step's kernel time);
+    the rows must add up to ``busy_ms``, the step's kernel time, within
+    SPLIT_RTOL."""
+    import collections
+
+    from torch.autograd import DeviceType
+
+    cpu = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    part_of = {}
+    launcher = {}
+    for e in cpu:
+        span = e.cpu_parent
+        while span is not None and span.name not in parts:
+            span = span.cpu_parent
+        if span is not None and e.sequence_nr >= 0:
+            part_of[e.sequence_nr] = span.name
+        if (e.id not in launcher
+                or e.time_range.start >= launcher[e.id].time_range.start):
+            launcher[e.id] = e
+    trace = prof.profiler.kineto_results.events()
+    op_name = {k.correlation_id(): k.name() for k in trace
+               if k.device_type() == DeviceType.CPU}
+    split = collections.Counter()
+    for k in trace:
+        if k.device_type() != DeviceType.CUDA or is_span(k.name()):
+            continue
+        op = launcher.get(k.linked_correlation_id())
+        phase, part = (kernel_owner(op, parts, part_of) if op is not None
+                       else ("unattributed",
+                             op_name.get(k.linked_correlation_id())))
+        flash = "fa_" in k.name() and "_kernel" in k.name()
+        split[(phase, part, flash)] += k.duration_ns() / 1e6
+    total = sum(split.values())
+    if abs(total - busy_ms) > SPLIT_RTOL * busy_ms:
+        raise AssertionError(f"the split counts {total:.3f} ms of kernels "
+                             f"in a step that ran {busy_ms:.3f} ms of them")
+    return split
+
+
+def moe_profile(trainer, state, batch, fa, per_step, step_s):
+    """One more [moe] step under torch.profiler: the device's busy share
+    and its kernel time split by what launched each kernel
+    (``phase_split``): the flash kernels, each MoE span's forward and the
+    backward of the ops it recorded, the rest of the forward and the
+    backward, the optimizer update, and the kernels outside the step's
+    spans."""
+    import collections
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    before = dict(fa.launches)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, metrics = trainer.train_step(state, batch)
+        metrics["loss"].item()
+        torch.cuda.synchronize()
+    grown = {k: fa.launches[k] - before[k] for k in per_step}
+    if grown != per_step:
+        raise AssertionError(f"[moe] profiled step launched {grown}")
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not is_span(e.name)]
+    if not kernels:
+        raise AssertionError("the profiler saw no device activity")
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    rows, loose = collections.Counter(), collections.Counter()
+    for (phase, part, flash), ms in phase_split(prof, busy,
+                                                MOE_PARTS).items():
+        if phase == "unattributed":
+            loose[part] += ms
+        if flash:
+            rows["flash kernels (fwd, dQ, dK/dV)"] += ms
+        elif phase == "update":
+            rows["optimizer update"] += ms
+        elif phase in ("forward", "backward"):
+            rows[f"{part or 'other'} {phase}"] += ms
+        else:
+            rows[f"{phase} (outside the step's spans)"
+                 if phase == "other" else phase] += ms
+    print(f"  profiled step: device busy {busy:.1f} ms = "
+          f"{busy / (step_s * 1e3):.3f} of the {step_s * 1e3:.1f} ms median "
+          f"step (idle share {1 - busy / (step_s * 1e3):.3f})")
+    labels = (["flash kernels (fwd, dQ, dK/dV)"]
+              + [f"{p} {d}" for p in MOE_PARTS + ("other",)
+                 for d in ("forward", "backward")]
+              + ["optimizer update", "other (outside the step's spans)",
+                 "unattributed"])
+    for label in labels:
+        print(f"    {label}: {rows[label]:.1f} ms "
+              f"({rows[label] / busy:.3f} of busy)")
+    print(f"    (unattributed: launched by ops the trace does not nest, "
+          f"{[(n, round(ms, 2)) for n, ms in loose.most_common(3)]})")
+    by_name = collections.Counter()
+    for e in kernels:
+        by_name[e.name] += e.time_range.elapsed_us() / 1e3
+    for name, ms in by_name.most_common(5):
+        print(f"    top kernel {ms:8.2f} ms  {name[:100]}")
+    return state
+
+
+def moe_dispatch_check(cfg) -> None:
+    """The capacity dispatch against the dense oracle at full width in
+    fp32 with capacity_factor = E / top_k: nothing drops, so the two
+    agree (tests/test_moe.py:53's criterion, atol 2e-5)."""
+    import torch
+
+    from dlrover_tpu_torch.models.moe import MoEMLP
+
+    fields = dict(dtype=torch.float32,
+                  capacity_factor=cfg.num_experts / cfg.top_k)
+    disp = MoEMLP(dataclasses.replace(cfg, router_impl="dispatch",
+                                      **fields), device="cuda")
+    dense = MoEMLP(dataclasses.replace(cfg, router_impl="dense", **fields),
+                   device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    with torch.no_grad():
+        for p in disp.parameters():  # unit-scale activations
+            fan_in = p.shape[-1] if p.dim() == 2 else p.shape[-2]
+            p.normal_(0.0, fan_in ** -0.5, generator=gen)
+        dense.load_state_dict(disp.state_dict())
+        x = torch.randn(2, TRAIN_S, cfg.hidden_size, device="cuda",
+                        generator=gen)
+        got, want = disp(x), dense(x)
+    e = (got - want).abs().max().item()
+    print(f"  dispatch vs dense oracle, fp32, capacity_factor "
+          f"{fields['capacity_factor']} (no drops), x {tuple(x.shape)}: "
+          f"max_abs_err={e:.3e} tol={MOE_ORACLE_ATOL:.0e} (max |dense| "
+          f"{want.abs().max().item():.3e})", flush=True)
+    if not (torch.isfinite(got).all() and e <= MOE_ORACLE_ATOL):
+        raise AssertionError("the dispatch disagrees with the dense oracle")
+
+
+def check_rank_leg(name, recs, ref, flash_per_step) -> None:
+    """Print and check one run of ranks sharing the card: its losses and
+    grad norms equal on every rank and within ``MESH_RANK_RTOL`` and
+    ``MESH_RANK_NORM_RTOL`` relative of ``ref``'s (one rank at the same
+    depth), its flash launches per step per rank."""
+    def rel(key):
+        return max(abs(a - b) / abs(b)
+                   for a, b in zip(recs[0][key], ref[key]))
+
+    loss, norm = recs[0]["loss"], recs[0]["grad_norm"]
+    peaks = [round(r["peak_mem_bytes"] / 2**30, 2) for r in recs]
+    print(f"  {name}: {len(recs)} gloo ranks on the card, mesh "
+          f"{ {k: v for k, v in recs[0]['shape'].items() if v > 1} }, "
+          f"global B={TRAIN_B}; losses {[round(v, 6) for v in loss]} (max "
+          f"rel {rel('loss'):.2e} vs one rank, tol {MESH_RANK_RTOL:.0e}); "
+          f"grad norms {[round(v, 6) for v in norm]} (max rel "
+          f"{rel('grad_norm'):.2e}, tol {MESH_RANK_NORM_RTOL:.0e}); step s "
+          f"{[round(v, 3) for v in recs[0]['step_s']]}; launches per step "
+          f"{recs[0]['flash_launches'][-1]} per rank; per-rank peak GiB "
+          f"{peaks}", flush=True)
+    for r in recs:
+        if r["loss"] != loss or r["grad_norm"] != norm:
+            raise AssertionError(f"{name}: ranks report different losses "
+                                 "or grad norms")
+        for counts in r["flash_launches"]:
+            if counts != flash_per_step:
+                raise AssertionError(f"{name} launched {counts} per step, "
+                                     f"expected {flash_per_step}")
+    if (not all(math.isfinite(v) for v in loss + norm)
+            or rel("loss") > MESH_RANK_RTOL
+            or rel("grad_norm") > MESH_RANK_NORM_RTOL):
+        raise AssertionError(
+            f"{name}: losses {loss} and grad norms {norm} against one "
+            f"rank's {ref['loss']} and {ref['grad_norm']} (tol "
+            f"{MESH_RANK_RTOL}, {MESH_RANK_NORM_RTOL})")
+
+
+def ep_cp_phase() -> None:
+    """The [ep] and [cp] phases: ranks sharing the card over gloo at full
+    width (module docstring)."""
+    import numpy as np
+    import torch
+
+    from dlrover_tpu_torch.parallel import (
+        dp_workers,
+        mesh_workers,
+        process_group,
+    )
+
+    t0 = time.perf_counter()
+    checks = process_group.spawn(
+        mesh_workers.ring_check_worker, 2, (dict(
+            shape=(TRAIN_B, TRAIN_S, 16, 128), seed=5,
+            dtypes=tuple(RING_ATOL)),), backend="gloo", device="cuda",
+        timeout_s=120.0)
+    for rank, rec in enumerate(checks):
+        for dtype, r in rec.items():
+            print(f"  [cp] ring attention, cp=2 rank {rank}, B={TRAIN_B} "
+                  f"S={TRAIN_S} H=16 D=128 causal, {dtype}: max_abs_err vs "
+                  f"reference_attention {r['max_abs_err']:.3e} (tol "
+                  f"{RING_ATOL[dtype]:.0e}); ring forward {r['ring_s']:.3f} "
+                  "s", flush=True)
+            if not (r["finite"] and r["max_abs_err"] <= RING_ATOL[dtype]):
+                raise AssertionError(f"ring attention in {dtype} disagrees "
+                                     "with the reference core")
+    print(f"  the op check took {time.perf_counter() - t0:.1f} s with "
+          "spawn", flush=True)
+
+    ids = np.random.default_rng(0).integers(0, 32000,
+                                            size=(TRAIN_B, TRAIN_S + 1))
+    base = dict(
+        preset="llama2_1b", state_dict=None, seed=0,
+        batch={"input_ids": ids[:, :-1].astype(np.int32),
+               "labels": ids[:, 1:].astype(np.int32)},
+        optimizer=dict(peak_lr=3e-4, warmup_steps=10, total_steps=10_000,
+                       moment_dtype=torch.bfloat16),
+        grads_dtype=torch.bfloat16)
+
+    def model(impl, layers, moe=False):
+        fields = dict(model=dict(num_layers=layers, attention_impl=impl,
+                                 max_seq_len=TRAIN_S))
+        return dict(fields, family="moe") if moe else fields
+
+    # one rank at each leg's depth, the spec the legs are held against
+    refs = {"moe4": model("flash", DP_LAYERS, moe=True),
+            "moe2": model("flash", EP_DP_LAYERS, moe=True),
+            "reference4": model("reference", DP_LAYERS)}
+    ring = model("ring", DP_LAYERS)
+    flash = {layers: dict.fromkeys(("flash_fwd", "flash_bwd_dq",
+                                    "flash_bwd_dkv"), layers)
+             for layers in (0, DP_LAYERS, EP_DP_LAYERS)}
+    # (name, ranks, axes, spec, reference, flash per step): one spawn per
+    # world size runs its legs in turn
+    legs = [("[ep] ep2", 2, dict(dp=1, ep=2), refs["moe4"], "moe4",
+             flash[DP_LAYERS]),
+            ("[cp] cp2", 2, dict(dp=1, cp=2), ring, "reference4", flash[0]),
+            ("[ep] dp2_ep2", 4, dict(dp=2, ep=2), refs["moe2"], "moe2",
+             flash[EP_DP_LAYERS]),
+            ("[cp] tp2_cp2", 4, dict(dp=1, tp=2, cp=2), ring, "reference4",
+             flash[0])]
+    ref_losses = {}
+    for key, spec in refs.items():
+        t0 = time.perf_counter()
+        ref_losses[key] = mesh_workers.reference_losses(
+            dict(base, **spec), MESH_RANK_STEPS, "cuda")
+        print(f"  {spec['model']['num_layers']} layers on one rank, no mesh "
+              f"({key}): losses "
+              f"{[round(v, 6) for v in ref_losses[key]['loss']]}; step s "
+              f"{[round(v, 3) for v in ref_losses[key]['step_s']]}; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"  this process holds "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB", flush=True)
+    for world in sorted({leg[1] for leg in legs}):
+        mine = [leg for leg in legs if leg[1] == world]
+        t0 = time.perf_counter()
+        ranks = process_group.spawn(
+            dp_workers.train_worker, world, (dict(base, runs=[
+                dict(name=name, axes=axes, steps=MESH_RANK_STEPS, spec=spec)
+                for name, _, axes, spec, *_ in mine]),),
+            backend="gloo", device="cuda", timeout_s=MESH_TIMEOUT_S)
+        print(f"  {world} ranks: {time.perf_counter() - t0:.1f} s with "
+              "spawn", flush=True)
+        for name, _, _, _, ref, flash_per_step in mine:
+            check_rank_leg(name, [r["runs"][name] for r in ranks],
+                           ref_losses[ref], flash_per_step)
 
 
 def shm_free_bytes() -> int:
@@ -1485,6 +1904,15 @@ def main() -> int:
     print(f"[mesh] (this process holds "
           f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB)", flush=True)
     mesh_launches = mesh_phase(plain)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("[moe]", flush=True)
+    moe_launches = moe_phase(fa)
+    print("[ep] and [cp]", flush=True)
+    t0 = time.perf_counter()
+    ep_cp_phase()
+    print(f"  [ep] and [cp] took {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     from dlrover_tpu_torch.ops.cuda import ring_reduce_scatter as rrs
 
@@ -1529,6 +1957,7 @@ def main() -> int:
              max_abs_err=errors[name][0], atol=errors[name][1],
              rel_err=errors[name][2], rel_tol=REL_TOL,
              launches_mesh=mesh_launches[name],
+             launches_moe=moe_launches[name],
              sass=sass[SASS_KERNEL[name]], **timings[name])
         for name in REPLACES
     ] + [

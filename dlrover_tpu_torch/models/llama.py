@@ -16,10 +16,25 @@ axis (``parallel/tensor_parallel.py``): each rank keeps its heads
 (``H/tp`` query and ``H_kv/tp`` key/value heads, so the flash kernel runs
 unchanged on the local heads), its ``F/tp`` MLP columns and its ``V/tp``
 vocab rows; the model then returns this rank's vocab shard of the logits.
+
+``set_context_parallel(group)`` runs it over a mesh's ``cp`` axis: each
+rank holds a contiguous chunk of the sequence (``parallel/sharding.py``
+``shard_batch``) and takes the rows of the rotary tables at its chunk's
+global positions.  ``attention_impl="ring"`` then runs ring attention
+(``ops/ring_attention.py``); ``"reference"`` all-gathers the keys and
+values over ``cp`` and masks by global position, which is what GSPMD
+computes for the reference core on a sequence-sharded mesh; ``"flash"``
+is refused (``ROADMAP_FLASH_CP``).  ``"ring"`` without a ``cp`` group
+warns and runs the reference core, as the reference does without a cp
+mesh.  ``shard_expert_parallel`` (the MoE's experts over ``ep``,
+``models/moe.py``) and ``set_data_parallel`` (the groups of a batch
+statistic) do nothing here: the dense model has no expert and no batch
+statistic, and its ``ep`` ranks compute the same step.
 """
 
 import dataclasses
 import math
+import warnings
 
 import torch
 import torch.nn.functional as F
@@ -31,11 +46,15 @@ from dlrover_tpu_torch.ops.attention import (
     flash_attention,
     reference_attention,
 )
+from dlrover_tpu_torch.ops.ring_attention import ring_attention
 from dlrover_tpu_torch.parallel.tensor_parallel import (
     copy_to_tp,
+    gather_seq,
     reduce_from_tp,
     vocab_parallel_embedding,
 )
+
+ROADMAP_FLASH_CP = "ROADMAP queue 1 item 8 (the flash kernels under cp)"
 
 # the dim each parameter is split along over tp (the Megatron layout):
 # 0 = output features (column shards), 1 = input features (row shards);
@@ -60,10 +79,10 @@ class LlamaConfig:
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
     remat: bool = True
-    attention_impl: str = "reference"  # reference | flash
+    attention_impl: str = "reference"  # reference | flash | ring
 
     def __post_init__(self):
-        valid = ("reference", "flash")
+        valid = ("reference", "flash", "ring")
         if self.attention_impl not in valid:
             raise ValueError(
                 f"attention_impl={self.attention_impl!r} not in {valid}"
@@ -77,10 +96,13 @@ class LlamaConfig:
 
     @classmethod
     def llama2_1b(cls, **kw) -> "LlamaConfig":
-        return cls(
+        """The 1B preset; ``kw`` may override any field (a depth cut)."""
+        defaults = dict(
             hidden_size=2048, intermediate_size=5504, num_layers=22,
-            num_heads=16, num_kv_heads=16, head_dim=128, **kw,
+            num_heads=16, num_kv_heads=16, head_dim=128,
         )
+        defaults.update(kw)
+        return cls(**defaults)
 
     @classmethod
     def tiny(cls, **kw) -> "LlamaConfig":
@@ -94,13 +116,16 @@ class LlamaConfig:
         return cls(**defaults)
 
 
-def _rope_tables(seq_len: int, head_dim: int, theta: float, device):
-    """cos/sin of the rotary angles, [1, S, 1, D/2] fp32."""
+def _rope_tables(seq_len: int, head_dim: int, theta: float, device,
+                 offset: int = 0):
+    """cos/sin of the rotary angles at positions ``[offset, offset +
+    seq_len)``, [1, S, 1, D/2] fp32."""
     freq = 1.0 / (theta ** (
         torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
         / head_dim
     ))
-    positions = torch.arange(seq_len, device=device, dtype=torch.float32)
+    positions = torch.arange(offset, offset + seq_len, device=device,
+                             dtype=torch.float32)
     angles = positions[:, None] * freq  # [S, D/2]
     return angles.cos()[None, :, None, :], angles.sin()[None, :, None, :]
 
@@ -117,10 +142,12 @@ def _linear(x: torch.Tensor, weight: torch.Tensor, dtype: torch.dtype):
     return F.linear(x.to(dtype), weight.to(dtype))
 
 
-def _lecun_normal_(weight: torch.Tensor, generator: torch.Generator):
+def _lecun_normal_(weight: torch.Tensor, generator: torch.Generator,
+                   fan_in: int = 0):
     """flax ``lecun_normal``: truncated normal (±2σ), σ = sqrt(1/fan_in)
-    corrected for the truncation."""
-    std = math.sqrt(1.0 / weight.shape[1]) / 0.87962566103423978
+    corrected for the truncation; ``fan_in`` defaults to an ``[out, in]``
+    weight's."""
+    std = math.sqrt(1.0 / (fan_in or weight.shape[1])) / 0.87962566103423978
     nn.init.trunc_normal_(weight, 0.0, std, -2 * std, 2 * std,
                           generator=generator)
 
@@ -157,6 +184,7 @@ class Attention(nn.Module):
         self.v_proj = linear(E, H_kv * D)
         self.o_proj = linear(H * D, E)
         self.tp = None  # the tp group once sharded
+        self.cp = None  # the cp group: this rank holds a sequence chunk
 
     def forward(self, x, cos, sin):
         cfg = self.config
@@ -174,10 +202,23 @@ class Attention(nn.Module):
         return reduce_from_tp(out, self.tp)
 
     def _attend(self, q, k, v):
-        if self.config.attention_impl == "flash":
+        impl, cp = self.config.attention_impl, self.cp
+        if impl == "flash":
             return flash_attention(q, k, v, causal=True)
-        S = q.shape[1]
-        mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+        if impl == "ring":
+            # causal only: the model builds no padding mask
+            if cp is not None:
+                return ring_attention(q, k, v, cp, causal=True)
+            warnings.warn(
+                "attention_impl='ring' without a cp group of more than one "
+                "rank: running reference attention (full S x S scores)",
+                stacklevel=2)
+        # the local queries against every key, masked by global position
+        k, v = gather_seq(k, cp), gather_seq(v, cp)
+        S_q, S = q.shape[1], k.shape[1]
+        offset = 0 if cp is None else cp.rank * S_q
+        rows = torch.arange(offset, offset + S_q, device=q.device)
+        mask = rows[:, None] >= torch.arange(S, device=q.device)[None, :]
         return reference_attention(q, k, v, mask[None, None])
 
 
@@ -268,6 +309,13 @@ class LlamaForCausalLM(nn.Module):
     kernels, unit norm scales); the values differ from JAX's, so a parity
     test loads converted weights (``models/convert.py``)."""
 
+    layer_class = DecoderLayer
+    #: the dims split over tp and over ep, by parameter-name suffix
+    tp_split = TP_DIMS
+    ep_split: dict = {}
+    #: checkpoint each layer when ``config.remat`` (the MoE model never does)
+    remat_layers = True
+
     def __init__(self, config: LlamaConfig, device: DeviceLike = None,
                  seed: int = 0):
         super().__init__()
@@ -278,7 +326,8 @@ class LlamaForCausalLM(nn.Module):
             dtype=config.param_dtype, device=device,
         ))
         self.layers = nn.ModuleList(
-            DecoderLayer(config, device) for _ in range(config.num_layers)
+            self.layer_class(config, device)
+            for _ in range(config.num_layers)
         )
         self.final_norm = RMSNorm(
             config.hidden_size, config.rms_norm_eps, config.dtype,
@@ -286,6 +335,7 @@ class LlamaForCausalLM(nn.Module):
         )
         self.lm_head = LMHead(config, device)
         self.tp = None
+        self.cp = None
         self.init_weights(torch.Generator(device=device).manual_seed(seed))
 
     @torch.no_grad()
@@ -306,18 +356,42 @@ class LlamaForCausalLM(nn.Module):
             x = F.embedding(input_ids, table)
         else:
             x = vocab_parallel_embedding(input_ids, table, self.tp)
-        cos, sin = _rope_tables(S, cfg.head_dim, cfg.rope_theta, x.device)
+        offset = 0 if self.cp is None else self.cp.rank * S
+        cos, sin = _rope_tables(S, cfg.head_dim, cfg.rope_theta, x.device,
+                                offset)
         for layer in self.layers:
-            if cfg.remat and torch.is_grad_enabled():
+            if cfg.remat and self.remat_layers and torch.is_grad_enabled():
                 x = checkpoint(layer, x, cos, sin, use_reentrant=False)
             else:
                 x = layer(x, cos, sin)
         return self.lm_head(self.final_norm(x))
 
+    def _split_dims(self, table):
+        return {name: table[key] for name, _ in self.named_parameters()
+                for key in table if name.endswith(key)}
+
     def tp_dims(self):
         """``{parameter name: dim}`` of the parameters split over tp."""
-        return {name: TP_DIMS[key] for name, _ in self.named_parameters()
-                for key in TP_DIMS if name.endswith(key)}
+        return self._split_dims(self.tp_split)
+
+    def ep_dims(self):
+        """``{parameter name: dim}`` of the parameters split over ep."""
+        return self._split_dims(self.ep_split)
+
+    @torch.no_grad()
+    def _keep_shards(self, dims, group, attr: str) -> None:
+        """Replace each parameter in ``dims`` by this rank's chunk of it
+        along its dim, and hand ``group`` to every module with ``attr``."""
+        for name, param in list(self.named_parameters()):
+            if name not in dims:
+                continue
+            owner, _, leaf = name.rpartition(".")
+            module = self.get_submodule(owner) if owner else self
+            shard = param.chunk(group.world, dim=dims[name])[group.rank]
+            setattr(module, leaf, nn.Parameter(shard.contiguous()))
+        for module in self.modules():
+            if hasattr(module, attr):
+                setattr(module, attr, group)
 
     @torch.no_grad()
     def shard_tensor_parallel(self, group) -> None:
@@ -335,17 +409,29 @@ class LlamaForCausalLM(nn.Module):
                 raise ValueError(f"tp={tp} does not divide {what}={size}: "
                                  "the port does not pad a tensor-parallel "
                                  "shard")
-        dims = self.tp_dims()
-        for name, param in list(self.named_parameters()):
-            if name not in dims:
-                continue
-            owner, _, attr = name.rpartition(".")
-            module = self.get_submodule(owner) if owner else self
-            shard = param.chunk(tp, dim=dims[name])[group.rank]
-            setattr(module, attr, nn.Parameter(shard.contiguous()))
+        self._keep_shards(self.tp_dims(), group, "tp")
+
+    def shard_expert_parallel(self, group) -> None:
+        """Keep this rank's experts (``ep_split``; none in the dense
+        model, whose ``ep`` ranks then compute the same step)."""
+        self._keep_shards(self.ep_dims(), group, "ep")
+
+    def set_context_parallel(self, group) -> None:
+        """Run over ``group``, the cp axis's ``DpGroup`` (module
+        docstring).  Raises ``NotImplementedError`` for the flash kernels,
+        which take the whole sequence."""
+        if self.config.attention_impl == "flash":
+            raise NotImplementedError(
+                f"attention_impl='flash' over cp={group.world}: the flash "
+                f"kernels under cp are not ported yet ({ROADMAP_FLASH_CP}); "
+                "use attention_impl='ring'")
         for module in self.modules():
-            if hasattr(module, "tp"):
-                module.tp = group
+            if hasattr(module, "cp"):
+                module.cp = group
+
+    def set_data_parallel(self, groups) -> None:
+        """The groups of the data axes, for a statistic over the global
+        batch; the dense model has none."""
 
     def num_params(self) -> int:
         cfg = self.config

@@ -63,20 +63,38 @@ def sharding_axes(placements) -> list:
 
 
 def make_model(spec: Dict[str, Any], device, overrides=None):
-    """The port's Llama of ``spec``: ``model`` (``LlamaConfig`` fields and
-    ``overrides``, over the ``preset``'s when one is named), loaded with
-    ``state_dict`` (numpy) or, when that is None, seeded from ``seed``."""
+    """The port's model of ``spec``: the Llama, or the MoE Llama for
+    ``family="moe"``; ``model`` (config fields and ``overrides``, over the
+    ``preset``'s when one is named), loaded with ``state_dict`` (numpy)
+    or, when that is None, seeded from ``seed``."""
     from dlrover_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from dlrover_tpu_torch.models.moe import (
+        MoELlamaConfig,
+        MoELlamaForCausalLM,
+    )
 
+    config_cls, model_cls = ((MoELlamaConfig, MoELlamaForCausalLM)
+                             if spec.get("family") == "moe" else
+                             (LlamaConfig, LlamaForCausalLM))
     preset = spec.get("preset")
     fields = dict(spec["model"], **(overrides or {}))
-    cfg = (dataclasses.replace(getattr(LlamaConfig, preset)(), **fields)
-           if preset else LlamaConfig(**fields))
-    model = LlamaForCausalLM(cfg, device=device, seed=spec.get("seed", 0))
+    cfg = (dataclasses.replace(getattr(config_cls, preset)(), **fields)
+           if preset else config_cls(**fields))
+    model = model_cls(cfg, device=device, seed=spec.get("seed", 0))
     if spec.get("state_dict") is not None:
         model.load_state_dict({k: torch.from_numpy(v) for k, v in
                                spec["state_dict"].items()})
     return model
+
+
+def make_loss(spec: Dict[str, Any], model):
+    """The ``Trainer`` ``loss_fn`` of ``spec``: ``moe_loss_fn`` for
+    ``family="moe"``, else None (the trainer's own)."""
+    if spec.get("family") != "moe":
+        return None
+    from dlrover_tpu_torch.models.moe import moe_loss_fn
+
+    return moe_loss_fn(model)
 
 
 def train_worker(group: DpGroup, spec: Dict[str, Any]) -> Dict[str, Any]:
@@ -89,7 +107,8 @@ def train_worker(group: DpGroup, spec: Dict[str, Any]) -> Dict[str, Any]:
     kwargs: the trainer over the dp group) or ``"axes"`` (``MeshConfig``
     fields: the trainer on ``build_mesh`` of them), and optionally
     ``"grad_accum"``, ``"model"`` fields and ``"grads_dtype"`` over the
-    spec's.
+    spec's, and ``"spec"``, keys that replace the spec's for this run
+    (another ``family``, ``preset`` or ``state_dict``).
 
     Returns, per run: losses, grad norms, step seconds (on the host clock,
     after a device synchronize), the ring and flash kernels' launches per
@@ -105,6 +124,7 @@ def train_worker(group: DpGroup, spec: Dict[str, Any]) -> Dict[str, Any]:
     out: Dict[str, Any] = {"rank": group.rank, "world": group.world,
                            "backend": group.backend, "runs": {}}
     for run in spec["runs"]:
+        run_spec = dict(spec, **run.get("spec", {}))
         if device.type == "cuda":
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(device)
@@ -113,14 +133,15 @@ def train_worker(group: DpGroup, spec: Dict[str, Any]) -> Dict[str, Any]:
                                       device=device)) if on_mesh else
                  dict(grad_sync=collectives.GradSyncPolicy(**run["policy"]),
                       dp_group=group))
+        model = make_model(run_spec, device, run.get("model"))
         trainer = Trainer(
-            make_model(spec, device, run.get("model")),
-            create_optimizer(**spec["optimizer"]),
-            grads_dtype=run.get("grads_dtype", spec.get("grads_dtype")),
+            model, create_optimizer(**run_spec["optimizer"]),
+            loss_fn=make_loss(run_spec, model),
+            grads_dtype=run.get("grads_dtype", run_spec.get("grads_dtype")),
             grad_accum_steps=run.get("grad_accum", 1), device=device,
             **place)
         state = trainer.create_state()
-        batch = trainer.shard_batch(spec["batch"])
+        batch = trainer.shard_batch(run_spec["batch"])
         record = {"loss": [], "grad_norm": [], "step_s": [],
                   "launches": [], "flash_launches": [], "params_agree": []}
         for _ in range(run["steps"]):
@@ -162,7 +183,7 @@ def train_worker(group: DpGroup, spec: Dict[str, Any]) -> Dict[str, Any]:
                                 for n, p in params.items()}
         out["runs"][run["name"]] = record
         trainer.close()
-        del trainer, state, params
+        del trainer, model, state, params
     return out
 
 

@@ -7,14 +7,15 @@ reference's named axes
     dp    — data parallel (params replicated)
     fsdp  — fully-sharded data parallel (params sharded, ZeRO-3 style)
     tp    — tensor parallel (Megatron-style within attention and the MLP)
-    cp    — context parallel (ring attention; not ported yet)
-    ep    — expert parallel (MoE; not ported yet)
+    cp    — context parallel (ring attention over sequence chunks)
+    ep    — expert parallel (the MoE's experts)
     pp    — pipeline parallel (not ported yet)
 
 One rank is one process and one device, so the mesh is a grid of ranks
 (row-major over ``MESH_AXIS_NAMES``): rank ``r`` sits at the coordinates
 of ``r`` in that grid, and each axis has a process group per line of the
-grid (``axis_group``).  ``mesh_shape`` reads a mesh's shape as a dict, as
+grid (``axis_group``); ``axes_group`` flattens several axes into one group.
+``mesh_shape`` reads a mesh's shape as a dict, as
 the JAX ``Mesh.shape`` does.
 
 The two-level slice mesh (``DLROVER_TPU_SLICE_COUNT > 1``) and the hybrid
@@ -24,7 +25,7 @@ DCN mesh (``devices_per_slice``) are not ported yet: both raise
 
 import dataclasses
 import math
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -161,11 +162,24 @@ def mesh_shape(mesh: DeviceMesh) -> Dict[str, int]:
     return dict(zip(mesh.mesh_dim_names, mesh.shape))
 
 
+def _rank_device(mesh: DeviceMesh):
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return mesh.device_type
+
+
 def axis_group(mesh: DeviceMesh, axis: str) -> DpGroup:
     """This rank's group along ``axis`` (the ranks that differ from it in
     that coordinate only), with the port's collectives (``DpGroup``)."""
-    device = mesh.device_type
-    if device == "cuda":
-        device = torch.device("cuda", torch.cuda.current_device())
-    return DpGroup(device, group=mesh.get_group(axis))
+    return DpGroup(_rank_device(mesh), group=mesh.get_group(axis))
+
+
+def axes_group(mesh: DeviceMesh, axes: Sequence[str]) -> DpGroup:
+    """This rank's group along several axes at once (the ranks that
+    differ from it in those coordinates only), as one flattened axis;
+    collective: every rank calls it."""
+    if len(axes) == 1:
+        return axis_group(mesh, axes[0])
+    flat = mesh[tuple(axes)]._flatten("_".join(axes))
+    return DpGroup(_rank_device(mesh), group=flat.get_group())
 

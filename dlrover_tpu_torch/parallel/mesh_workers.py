@@ -7,7 +7,9 @@ through ``trainer/bootstrap.init`` and then trains the mesh runs of
 calls that directly, one process per rank over a ``FileStore``).
 ``reference_losses`` is the plain one-device run a mesh run is held
 against; ``collective_probe_worker`` asks the group's backend whether it
-carries the collectives FSDP2 calls on the rank's device tensors.
+carries the collectives FSDP2 calls on the rank's device tensors;
+``ring_check_worker`` holds ring attention over the group (as cp) against
+the reference core on the whole sequence.
 ``chip_smoke.py`` drives them on the card, the CPU tests at a tiny size.
 """
 
@@ -18,7 +20,11 @@ from typing import Any, Dict
 import torch
 import torch.distributed as dist
 
-from dlrover_tpu_torch.parallel.dp_workers import make_model, train_worker
+from dlrover_tpu_torch.parallel.dp_workers import (
+    make_loss,
+    make_model,
+    train_worker,
+)
 from dlrover_tpu_torch.parallel.mesh import MeshConfig, build_mesh
 from dlrover_tpu_torch.parallel.process_group import (
     DpGroup,
@@ -56,22 +62,24 @@ def bootstrap_worker(spec: Dict[str, Any]) -> Dict[str, Any]:
 
 def reference_losses(spec: Dict[str, Any], steps: int, device) -> Dict:
     """The same model, optimizer and global batch on one device with no
-    mesh, the plain path a mesh run is held against: its losses and step
-    seconds (host clock, to the loss's read)."""
+    mesh, the plain path a mesh run is held against: its losses, grad
+    norms and step seconds (host clock, to the loss's read)."""
     from dlrover_tpu_torch.trainer.optim import create_optimizer
     from dlrover_tpu_torch.trainer.train import Trainer
 
-    trainer = Trainer(make_model(spec, device),
-                      create_optimizer(**spec["optimizer"]),
+    model = make_model(spec, device)
+    trainer = Trainer(model, create_optimizer(**spec["optimizer"]),
+                      loss_fn=make_loss(spec, model),
                       grads_dtype=spec.get("grads_dtype"), device=device)
     state = trainer.create_state()
-    losses, step_s = [], []
+    losses, norms, step_s = [], [], []
     for _ in range(steps):
         t0 = time.perf_counter()
         state, metrics = trainer.train_step(state, spec["batch"])
         losses.append(metrics["loss"].item())  # waits for the step
         step_s.append(time.perf_counter() - t0)
-    return {"loss": losses, "step_s": step_s}
+        norms.append(metrics["grad_norm"].item())
+    return {"loss": losses, "grad_norm": norms, "step_s": step_s}
 
 
 def collective_probe_worker(group: DpGroup) -> Dict[str, str]:
@@ -123,3 +131,44 @@ def _probe_all_reduce(x):
     y = x.clone()
     dist.all_reduce(y)
     return y
+
+
+def ring_check_worker(group: DpGroup, spec: Dict[str, Any]) -> Dict:
+    """Ring attention over ``group`` as the cp axis against
+    ``reference_attention`` on the whole sequence, per dtype of
+    ``spec["dtypes"]``: seeded q, k, v of ``spec["shape"]`` ([B, S, H, D],
+    made whole on every rank from ``spec["seed"]``), this rank's chunk
+    through the ring (causal), its rows of the reference.  Returns, per
+    dtype, the largest absolute difference and the ring's forward seconds
+    (host clock around a synchronized call)."""
+    from dlrover_tpu_torch.ops.attention import reference_attention
+    from dlrover_tpu_torch.ops.ring_attention import ring_attention
+
+    dev = group.device
+    B, S, H, D = spec["shape"]
+    gen = torch.Generator(device=dev).manual_seed(spec["seed"])
+    whole = [torch.randn(B, S, H, D, generator=gen, device=dev)
+             for _ in range(3)]
+    rows = slice(group.rank * S // group.world,
+                 (group.rank + 1) * S // group.world)
+    mask = torch.ones(S, S, dtype=torch.bool, device=dev).tril()
+    out = {}
+    for name in spec["dtypes"]:
+        dtype = getattr(torch, name)
+        q, k, v = (t.to(dtype) for t in whole)
+        want = reference_attention(q, k, v, mask[None, None])[:, rows]
+        _sync(dev)
+        t0 = time.perf_counter()
+        got = ring_attention(q[:, rows], k[:, rows], v[:, rows], group,
+                             causal=True)
+        _sync(dev)
+        out[name] = dict(
+            max_abs_err=(got.float() - want.float()).abs().max().item(),
+            ring_s=time.perf_counter() - t0, finite=bool(
+                torch.isfinite(got).all().item()))
+    return out
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)

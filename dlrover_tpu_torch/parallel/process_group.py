@@ -25,6 +25,7 @@ the CPU (``device="cpu"``), and raise without one.
 import datetime
 import multiprocessing
 import os
+import pickle
 import queue as queue_lib
 import socket
 import tempfile
@@ -170,10 +171,12 @@ def check_placement(backend: str, device: str, world: int) -> None:
 
 
 def _rank_main(fn, rank: int, world: int, backend: str, device: str,
-               store_path: str, timeout_s: float, args: Sequence[Any],
+               store_path: str, timeout_s: float, args_path: str,
                results) -> None:
     torch.set_num_threads(1)
     try:
+        with open(args_path, "rb") as f:
+            args = pickle.load(f)
         dev = rank_device(backend, device, rank)
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
@@ -200,16 +203,24 @@ def spawn(fn: Callable, world: int, args: Sequence[Any] = (),
     be importable by its module path, and its arguments and result
     picklable.  Raises with the first failing rank's traceback, and kills
     every rank and raises ``TimeoutError`` if they have not all finished
-    within ``timeout_s``."""
+    within ``timeout_s``.
+
+    The arguments reach the ranks through a file: a process's start
+    blocks until the child has read what it was handed through its pipe
+    (after the child's imports), so large arguments handed that way would
+    start the ranks one after the other."""
     check_placement(backend, device, world)
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
     with tempfile.TemporaryDirectory(prefix="dp_store_") as tmp:
         store_path = os.path.join(tmp, "store")
+        args_path = os.path.join(tmp, "args.pkl")
+        with open(args_path, "wb") as f:
+            pickle.dump(tuple(args), f, protocol=pickle.HIGHEST_PROTOCOL)
         procs = [
             ctx.Process(target=_rank_main, daemon=True, args=(
                 fn, rank, world, backend, device, store_path, timeout_s,
-                tuple(args), results))
+                args_path, results))
             for rank in range(world)
         ]
         return _run(procs, results, timeout_s)

@@ -13,13 +13,15 @@ those annotations; here the table decides where each tensor is split:
   on the mesh, one per mesh axis: ``Shard(dim)`` on the axes that split
   the tensor, ``Replicate()`` on the others;
 * ``param_logical_axes`` is the table of every parameter of the port's
-  Llama (``models/llama.py``) to its logical axes, in the port's
-  ``[out, in]`` weight layout, taken from the reference model's
+  Llama (``models/llama.py``) and MoE Llama (``models/moe.py``) to its
+  logical axes, in the port's layout (``[out, in]`` linear weights, the
+  experts' ``[E, in, out]``), taken from the reference models'
   ``with_logical_partitioning`` calls.  The port's params are plain
   tensors, so there is nothing to unbox (the reference's
   ``unbox_params``);
 * ``shard_batch`` gives this rank its rows of the global batch over the
-  data axes.
+  data axes and, where the rules split the sequence (``cp``), its chunk
+  of their sequence.
 """
 
 import re
@@ -97,9 +99,11 @@ def logical_to_mesh_sharding(
                  for a in mesh_axis_names)
 
 
-# the port's Llama, parameter name -> logical axes of its [out, in] weight
-# (the reference's kernels are [in, *out]: q_proj ("embed", "heads",
-# "head_dim") is the port's [heads * head_dim, embed])
+# the port's Llama and MoE Llama, parameter name -> logical axes of its
+# weight (the reference's dense kernels are [in, *out]: q_proj ("embed",
+# "heads", "head_dim") is the port's [out, in] [heads * head_dim, embed],
+# and the router's ("embed", "expert") its [E, D]; the experts keep the
+# reference's [E, in, out])
 _LLAMA_AXES = (
     (r"embed_tokens", ("vocab", "embed")),
     (r"layers\.\d+\.attn\.q_proj\.weight", ("heads", "embed")),
@@ -107,6 +111,9 @@ _LLAMA_AXES = (
     (r"layers\.\d+\.attn\.o_proj\.weight", ("embed", "heads")),
     (r"layers\.\d+\.mlp\.(gate|up)_proj\.weight", ("mlp", "embed")),
     (r"layers\.\d+\.mlp\.down_proj\.weight", ("embed", "mlp")),
+    (r"layers\.\d+\.moe_mlp\.router\.weight", ("expert", "embed")),
+    (r"layers\.\d+\.moe_mlp\.(gate|up)_proj", ("expert", "embed", "mlp")),
+    (r"layers\.\d+\.moe_mlp\.down_proj", ("expert", "mlp", "embed")),
     (r"layers\.\d+\.(input_norm|post_attn_norm)\.scale", ("embed",)),
     (r"final_norm\.scale", ("embed",)),
     (r"lm_head\.weight", ("vocab", "embed")),
@@ -114,8 +121,8 @@ _LLAMA_AXES = (
 
 
 def param_logical_axes(names) -> Dict[str, Tuple[str, ...]]:
-    """Logical axes of each named parameter of the port's Llama; raises
-    for a name the table does not know."""
+    """Logical axes of each named parameter of the port's Llama or MoE
+    Llama; raises for a name the table does not know."""
     out = {}
     for name in names:
         for pattern, axes in _LLAMA_AXES:
@@ -142,16 +149,29 @@ def _data_index(mesh, data_axes: Sequence[str] = ("dp", "fsdp")
 
 
 def shard_batch(mesh, batch, data_axes: Tuple[str, ...] = ("dp", "fsdp")):
-    """This rank's rows of the global ``batch`` (a dict of arrays or
-    tensors with the batch leading): the batch split into as many equal
-    blocks as the data axes hold ranks, block ``index`` for this rank;
-    ranks that differ only in other axes (tp) get the same rows."""
+    """This rank's block of the global ``batch`` (a dict of arrays or
+    tensors, [B, S, ...] with the batch leading): the batch split into as
+    many equal blocks of rows as the data axes hold ranks, block ``index``
+    for this rank; and, over the axis the rules give ``seq`` (cp), the
+    sequence split into contiguous chunks, chunk ``r`` for cp rank ``r``
+    (the ring's order).  Ranks that differ only in other axes (tp, ep)
+    get the same block."""
     index, count = _data_index(mesh, data_axes)
+    seq_axis = rules_to_dict(DEFAULT_LOGICAL_RULES)["seq"]
+    chunk, chunks = _data_index(mesh, (seq_axis,))
     out = {}
     for k, v in batch.items():
         if v.shape[0] % count:
             raise ValueError(f"batch {k!r} of {v.shape[0]} rows does not "
                              f"split over {count} data ranks")
         n = v.shape[0] // count
-        out[k] = v[index * n:(index + 1) * n]
+        v = v[index * n:(index + 1) * n]
+        if chunks > 1:
+            if v.ndim < 2 or v.shape[1] % chunks:
+                raise ValueError(f"batch {k!r} of shape {tuple(v.shape)} "
+                                 f"does not split its sequence over "
+                                 f"{chunks} {seq_axis} ranks")
+            s = v.shape[1] // chunks
+            v = v[:, chunk * s:(chunk + 1) * s]
+        out[k] = v
     return out

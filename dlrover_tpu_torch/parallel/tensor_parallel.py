@@ -18,6 +18,22 @@ Two autograd functions carry the exchange (``parallel/process_group.py``
 ``vocab_parallel_cross_entropy`` is the next-token loss from vocab-sharded
 logits: the row max, the sum of exponentials and the target logit are
 each reduced over ``tp``, so no rank ever holds the full logits.
+
+The pair serves any axis whose ranks hold partial sums of one value: the
+MoE combine over ``ep`` (``models/moe.py``) uses it too.  Three more
+functions carry the other axes' exchanges:
+
+* ``gather_seq``: all-gather along the sequence, reduce-scatter backward
+  (the keys and values of reference attention over ``cp``: each rank's
+  queries give a gradient for every key, summed on the key's owner);
+* ``gather_rows``: all-gather along dim 0, local slice backward (the MoE
+  router split over ``ep``: every rank computes the same gradient of the
+  whole router, so a shard's gradient is its slice, not a sum);
+* ``all_reduce_sum``: all-reduce forward and backward (a batch statistic
+  over the data ranks, the MoE aux loss's sums: every rank's loss reads
+  the global sum, and the trainer weights each rank's loss so that the
+  weights sum to one, so the sum's gradient reaches each rank's own
+  terms summed over the ranks).
 """
 
 from typing import Optional
@@ -47,12 +63,67 @@ class _ReduceFromTP(torch.autograd.Function):
         return grad, None
 
 
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return torch.cat(list(group.all_gather(x)), dim=1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        group = ctx.group
+        chunks = torch.stack(grad.chunk(group.world, dim=1))
+        return group.reduce_scatter(chunks)[0], None
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group, ctx.rows = group, x.shape[0]
+        return group.all_gather(x).flatten(0, 1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        start = ctx.group.rank * ctx.rows
+        return grad[start:start + ctx.rows], None
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return group.all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.group.all_reduce(grad), None
+
+
 def copy_to_tp(x: torch.Tensor, group) -> torch.Tensor:
     return x if group is None else _CopyToTP.apply(x, group)
 
 
 def reduce_from_tp(x: torch.Tensor, group) -> torch.Tensor:
     return x if group is None else _ReduceFromTP.apply(x, group)
+
+
+def gather_seq(x: torch.Tensor, group) -> torch.Tensor:
+    """[B, S_local, ...] on each rank -> [B, world * S_local, ...], the
+    chunks in rank order."""
+    return x if group is None else _GatherSeq.apply(x, group)
+
+
+def gather_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """[rows, ...] on each rank -> [world * rows, ...], in rank order."""
+    return x if group is None else _GatherRows.apply(x, group)
+
+
+def all_reduce_sum(x: torch.Tensor, groups) -> torch.Tensor:
+    """The sum of ``x`` over every rank of ``groups`` (a sequence of
+    groups over disjoint axes)."""
+    for group in groups:
+        x = _AllReduceSum.apply(x, group)
+    return x
 
 
 def vocab_parallel_embedding(ids: torch.Tensor, weight: torch.Tensor,

@@ -52,15 +52,32 @@ The mesh (``Trainer(model, opt, mesh=build_mesh(...))``,
   backward so that FSDP's mean over the data ranks is the global token
   mean;
 * ``dp`` alone (no fsdp): the dp grad sync above over the mesh's dp group,
-  every ``grad_sync`` mode with it.
+  every ``grad_sync`` mode with it;
+* ``cp``: each rank holds a contiguous chunk of its rows' sequence
+  (``shard_batch``) and the model attends across the chunks
+  (``models/llama.py`` ``set_context_parallel``: ring attention, or the
+  reference core over gathered keys).  Every parameter is replicated over
+  cp, but the cp ranks hold different tokens, so every gradient is summed
+  over cp: with the data ranks in one group (``dp`` and ``cp`` flattened)
+  outside FSDP, after FSDP's reduce under it, each rank's loss weighted by
+  its tokens over the global tokens;
+* ``ep``: the MoE model keeps E/ep experts on each rank
+  (``models/moe.py``); the ep ranks see the same tokens, and the model's
+  own exchanges make every non-expert gradient equal on them, so no sync
+  runs over ep.
+
+Each (micro)batch's loss is weighted by its tokens before its backward: on
+a mesh a rank's loss reaches the other ranks' parameters (through the ring,
+the gathered keys, the MoE aux loss's global sums), so its weight must ride
+the gradient it sends them.
 
 Each rank's ``TrainState`` holds its local shards (the masters and, since
 the optimizer's ``init`` maps over them, the moments); the update is
 elementwise and runs on them with no communication; the global norm
 all-reduces each leaf's partial sum over the axes that shard it
 (``optim.sharded_leaves``).  ``placements`` records each parameter's DTensor
-placements on the mesh; ``full_params`` gathers the whole leaves.  ``cp``,
-``ep`` and ``pp`` are not ported yet (ROADMAP queue 1 items 4 and 5).
+placements on the mesh; ``full_params`` gathers the whole leaves.  ``pp``
+is not ported yet (ROADMAP queue 1 item 5).
 """
 
 import dataclasses
@@ -82,6 +99,7 @@ from dlrover_tpu_torch.parallel.bucketing import BucketLayout
 from dlrover_tpu_torch.parallel.collectives import GradSyncPolicy
 from dlrover_tpu_torch.parallel.mesh import (
     MESH_AXIS_NAMES,
+    axes_group,
     axis_group,
     mesh_shape,
 )
@@ -98,8 +116,9 @@ logger = logging.getLogger(__name__)
 # the mesh axes the batch is split over (the reference's default)
 DATA_AXES = ("dp", "fsdp")
 
-ROADMAP_MODEL_AXES = ("ROADMAP queue 1 items 4 (ring attention over cp) "
-                      "and 5 (ep for MoE, pp for the pipeline)")
+ROADMAP_PIPELINE = "ROADMAP queue 1 item 5 (the pipeline over pp)"
+# the axes whose shards the trainer gathers, in the order they were taken
+SPLIT_AXES = ("fsdp", "tp", "ep")
 
 
 @dataclasses.dataclass
@@ -129,6 +148,17 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
         mask = mask.to(token_loss.dtype)
         return (token_loss * mask).sum() / mask.sum().clamp(min=1)
     return token_loss.mean()
+
+
+def lm_loss(model: torch.nn.Module, logits: torch.Tensor,
+            batch) -> torch.Tensor:
+    """The next-token loss of ``model``'s logits: over this rank's vocab
+    shard when the model is split over tp."""
+    tp = getattr(model, "tp", None)
+    if tp is not None:
+        return vocab_parallel_cross_entropy(
+            logits, batch["labels"], tp, batch.get("mask"))
+    return cross_entropy_loss(logits, batch["labels"], batch.get("mask"))
 
 
 class Trainer:
@@ -174,8 +204,11 @@ class Trainer:
         ``mesh`` (``parallel/mesh.build_mesh``; not with ``dp_group``)
         places the model and its state by ``sharding.DEFAULT_LOGICAL_RULES``
         (module docstring); each rank's ``train_step`` takes its rows of
-        the global batch over ``DATA_AXES`` (``shard_batch``).  A non-exact
-        ``grad_sync`` needs a pure data-parallel mesh (only dp active)."""
+        the global batch over ``DATA_AXES`` and its chunk of their sequence
+        over cp (``shard_batch``).  A non-exact ``grad_sync`` needs a pure
+        data-parallel mesh (only dp active).  ``dp_group`` is then the
+        group the gradients are summed over outside FSDP: dp, cp, or both
+        flattened into one."""
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.optimizer = optimizer
@@ -190,6 +223,7 @@ class Trainer:
         self._shard_groups: Dict[str, Tuple[DpGroup, ...]] = {}
         self.placements: Dict[str, Tuple] = {}
         self._data_groups: Tuple[DpGroup, ...] = ()
+        self._cp: Optional[DpGroup] = None
         self._fsdp = False
         if mesh is not None:
             if dp_group is not None:
@@ -212,17 +246,16 @@ class Trainer:
     # -- the mesh ----------------------------------------------------------
 
     def _configure_mesh(self) -> Optional[DpGroup]:
-        """Check the mesh against what the port runs, split the model over
-        tp (its Megatron shards) and fsdp (the dim the rules give fsdp),
-        and return the dp group of a mesh whose only data axis is dp (None
-        otherwise)."""
+        """Check the mesh against what the port runs; split the model over
+        tp (its Megatron shards), ep (its experts) and fsdp (the dim the
+        rules give fsdp); hand it the cp group and the data groups; and
+        return the group the gradients are summed over outside FSDP (dp,
+        cp or both; None under FSDP or with neither)."""
         shape = mesh_shape(self.mesh)
-        model_axes = [a for a in ("cp", "ep", "pp") if shape[a] > 1]
-        if model_axes:
+        if shape["pp"] > 1:
             raise NotImplementedError(
-                f"mesh axes {model_axes} are active: the port runs dp, fsdp "
-                f"and tp only; the others are not ported yet "
-                f"({ROADMAP_MODEL_AXES})")
+                f"pp={shape['pp']}: the pipeline is not ported yet "
+                f"({ROADMAP_PIPELINE})")
         active = [a for a in DATA_AXES if shape[a] > 1]
         if self.grad_sync.active:
             # the reference's refusals (_configure_grad_sync)
@@ -240,25 +273,37 @@ class Trainer:
                     f"params over the sync axes; active data axes {bad} "
                     "shard params (use grad_sync='exact' with fsdp)")
         groups = {a: axis_group(self.mesh, a)
-                  for a in ("fsdp", "tp") if shape[a] > 1}
-        tp_dims = self.model.tp_dims() if "tp" in groups else {}
+                  for a in ("fsdp", "tp", "cp", "ep") if shape[a] > 1}
+        dims = {"tp": self.model.tp_dims() if "tp" in groups else {},
+                "ep": self.model.ep_dims() if "ep" in groups else {}}
         if "tp" in groups:
             self.model.shard_tensor_parallel(groups["tp"])
+        if "ep" in groups:
+            self.model.shard_expert_parallel(groups["ep"])
+        self._cp = groups.get("cp")
+        if self._cp is not None:
+            self.model.set_context_parallel(self._cp)
+        self._data_groups = tuple(axis_group(self.mesh, a) for a in active)
+        self.model.set_data_parallel(self._data_groups)
         if "fsdp" in groups:
             self._fully_shard(shape["fsdp"])
-        # what was applied: the model's tp shards, FSDP's placements
+        # what was applied: the model's tp and ep shards, FSDP's placements
         for n, p in self.model.named_parameters():
             place = dict.fromkeys(MESH_AXIS_NAMES, Replicate())
-            if n in tp_dims:
-                place["tp"] = Shard(tp_dims[n])
+            for axis in ("tp", "ep"):
+                if n in dims[axis]:
+                    place[axis] = Shard(dims[axis][n])
             if self._fsdp:
                 place["fsdp"] = p.placements[
                     p.device_mesh.mesh_dim_names.index("fsdp")]
             self.placements[n] = tuple(place.values())
             self._shard_groups[n] = tuple(
-                groups[a] for a in groups if isinstance(place[a], Shard))
-        self._data_groups = tuple(axis_group(self.mesh, a) for a in active)
-        return self._data_groups[0] if active == ["dp"] else None
+                groups[a] for a in SPLIT_AXES
+                if a in groups and isinstance(place[a], Shard))
+        if self._fsdp:
+            return None
+        summed = [a for a in ("dp", "cp") if shape[a] > 1]
+        return axes_group(self.mesh, summed) if summed else None
 
     def _fully_shard(self, fsdp: int) -> None:
         """FSDP2 over ``DATA_AXES`` (HSDP) or ``fsdp`` alone: each decoder
@@ -327,12 +372,12 @@ class Trainer:
 
     def full_params(self, state: "TrainState") -> Dict[str, torch.Tensor]:
         """The whole fp32 masters, gathered from every shard (collective
-        over the mesh's fsdp and tp groups)."""
-        groups = {a: axis_group(self.mesh, a) for a in ("fsdp", "tp")
+        over the mesh's fsdp, tp and ep groups)."""
+        groups = {a: axis_group(self.mesh, a) for a in SPLIT_AXES
                   if self.mesh is not None and mesh_shape(self.mesh)[a] > 1}
         out = {}
         for n, t in state.params.items():
-            for axis, group in groups.items():  # fsdp split the tp shard
+            for axis, group in groups.items():  # fsdp split the others
                 place = self.placements[n][MESH_AXIS_NAMES.index(axis)]
                 if isinstance(place, Shard):
                     parts = group.all_gather(t.contiguous())
@@ -455,19 +500,17 @@ class Trainer:
     # -- train step ----------------------------------------------------------
 
     def _default_loss(self, batch):
-        logits = self.model(batch["input_ids"])
-        tp = getattr(self.model, "tp", None)
-        if tp is not None:  # this rank's vocab shard of the logits
-            return vocab_parallel_cross_entropy(
-                logits, batch["labels"], tp, batch.get("mask"))
-        return cross_entropy_loss(logits, batch["labels"], batch.get("mask"))
+        return lm_loss(self.model, self.model(batch["input_ids"]), batch)
 
-    def _grad_fn(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    def _grad_fn(self, batch, weight: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(loss, grads) w.r.t. the model's parameters (the bf16 copy when
-        ``grads_dtype`` is set)."""
+        ``grads_dtype`` is set); with ``weight``, the grads of the loss
+        times ``weight``."""
         names = list(self._named)
         loss = self._loss_fn(batch)
-        grads = torch.autograd.grad(loss, [self._named[n] for n in names])
+        target = loss if weight is None else loss * weight
+        grads = torch.autograd.grad(target, [self._named[n] for n in names])
         return loss.detach(), dict(zip(names, grads))
 
     def _to_device(self, batch) -> Dict[str, torch.Tensor]:
@@ -570,7 +613,7 @@ class Trainer:
         mbs = [{k: v[i * micro:(i + 1) * micro] for k, v in batch.items()}
                for i in range(accum)]
         weights = [self._mb_weight(mb, micro, self.device) for mb in mbs]
-        w_global = self._data_all_reduce(torch.stack(weights).sum())
+        w_global = self._token_all_reduce(torch.stack(weights).sum())
         w_global = w_global.clamp(min=1e-8)
         scale = self._data_world() / w_global
         loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
@@ -580,9 +623,12 @@ class Trainer:
             (loss * (w * scale)).backward()
             loss_sum = loss_sum + loss.detach().float() * w
             for n, p in self._named.items():
-                # FSDP reduces in fp32 into the fp32 shard: round to
-                # grads_dtype, the gradients the other paths update with
+                # FSDP reduces in fp32 into the fp32 shard (over the data
+                # ranks; the sum over cp follows): round to grads_dtype,
+                # the gradients the other paths update with
                 g = p.grad.to_local()
+                if self._cp is not None:
+                    g = self._cp.all_reduce(g)
                 if self.grads_dtype is not None:
                     g = g.to(self.grads_dtype)
                 if accum == 1:
@@ -592,10 +638,12 @@ class Trainer:
                 else:
                     grads[n] = g.to(self.accum_dtype or torch.float32)
                 p.grad = None
-        return self._data_all_reduce(loss_sum) / w_global, grads
+        return self._token_all_reduce(loss_sum) / w_global, grads
 
-    def _data_all_reduce(self, t: torch.Tensor) -> torch.Tensor:
-        for group in self._data_groups:
+    def _token_all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum over every rank that holds other tokens: the data
+        ranks and the cp ranks."""
+        for group in self._data_groups + ((self._cp,) if self._cp else ()):
             t = group.all_reduce(t)
         return t
 
@@ -608,8 +656,8 @@ class Trainer:
         if self.grad_accum_steps == 1:
             w = self._mb_weight(batch, next(iter(batch.values())).shape[0],
                                 self.device)
-            loss, grads = self._grad_fn(batch)
-            return loss * w, {n: g.float() * w for n, g in grads.items()}, w
+            loss, grads = self._grad_fn(batch, w)
+            return loss * w, {n: g.float() for n, g in grads.items()}, w
         return self._accumulate(batch)
 
     def _gather(self, tree):
@@ -709,10 +757,10 @@ class Trainer:
         for i in range(accum):
             mb = {k: v[i * micro:(i + 1) * micro] for k, v in batch.items()}
             w = self._mb_weight(mb, micro, self.device)
-            loss, grads = self._grad_fn(mb)
+            loss, grads = self._grad_fn(mb, w)
             loss_sum = loss_sum + loss * w
             for n, g in grads.items():
                 acc = grad_sum[n]
-                acc += g.to(acc.dtype) * w.to(acc.dtype)
+                acc += g.to(acc.dtype)
             w_sum = w_sum + w
         return loss_sum, grad_sum, w_sum

@@ -11,8 +11,9 @@ started as the agent starts workers, through bootstrap.init over a tcp
 coordinator).  Also: every leaf (each param and its two moments) is split
 over the set of mesh axes the rules give in JAX, and its local shard has
 the shape that split implies; adjust_accum_for_world; and the refusals
-that need ranks (a quantized sync with tp > 1 or with fsdp > 1, and
-cp/ep/pp > 1).
+that need ranks (a quantized sync with tp > 1 or with fsdp > 1, pp > 1,
+the flash kernels and the MoE under cp, an ep that does not divide the
+experts), beside the cp and ep meshes the trainer now takes.
 
 The meshes are run in fp32, and dp=2 x fsdp=2 x tp=2 once more with bf16
 compute and bf16 grads on the fp32 masters (FSDP's mixed precision: it
@@ -284,19 +285,26 @@ def test_adjust_accum_for_world(runs, refusals):
 
 def test_refusals_on_ranks(refusals):
     """A quantized sync needs a pure dp mesh (ValueError, the reference's
-    two messages); cp, ep and pp raise NotImplementedError naming their
-    ROADMAP items; a mesh and a dp group together raise ValueError, and so
-    does a tp that does not divide the kv heads; the flash checkpoint
-    refuses a world of more than one rank (a rank's state holds shards)."""
+    two messages); cp and ep are taken (the dense Llama's ep ranks compute
+    the same step), pp raises NotImplementedError naming its ROADMAP item,
+    and so do the flash kernels and the MoE model under cp; a mesh and a
+    dp group together raise ValueError, and so do a tp that does not
+    divide the kv heads and an ep that does not divide the experts; the
+    flash checkpoint refuses a world of more than one rank (a rank's state
+    holds shards)."""
     want = {
         "int8 on tp=2": ("ValueError", "non-data axes ['tp']"),
         "int8 on fsdp=2": ("ValueError", "active data axes ['fsdp']"),
-        "cp=2": ("NotImplementedError", "items 4"),
-        "ep=2": ("NotImplementedError", "items 4"),
-        "pp=2": ("NotImplementedError", "and 5"),
+        "cp=2": ("accepted", ""),
+        "ep=2": ("accepted", ""),
+        "pp=2": ("NotImplementedError", "queue 1 item 5"),
         "mesh and dp_group": ("ValueError", "not both"),
         "tp=4 over 2 kv heads": ("ValueError",
                                  "tp=4 does not divide num_kv_heads=2"),
+        "flash on cp=2": ("NotImplementedError", "queue 1 item 8"),
+        "moe on cp=2": ("NotImplementedError", "queue 1 item 9"),
+        "ep=8 over 4 experts": ("ValueError",
+                                "ep=8 does not divide num_experts=4"),
         "flash checkpoint": ("NotImplementedError", "world of 8 ranks"),
     }
     for rank in refusals:

@@ -9,6 +9,7 @@ from typing import Dict, Tuple
 import torch
 
 from dlrover_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+from dlrover_tpu_torch.models.moe import MoELlamaConfig, MoELlamaForCausalLM
 from dlrover_tpu_torch.parallel.mesh import MeshConfig, build_mesh
 from dlrover_tpu_torch.parallel.process_group import DpGroup
 from dlrover_tpu_torch.trainer.flash_checkpoint.engine import (
@@ -18,16 +19,17 @@ from dlrover_tpu_torch.trainer.optim import create_optimizer
 from dlrover_tpu_torch.trainer.train import Trainer
 
 
-def _trainer(axes: Dict[str, int], **kw) -> Trainer:
+def _trainer(axes: Dict[str, int], model=None, **kw) -> Trainer:
     mesh = build_mesh(MeshConfig.from_dict(axes), device="cpu")
-    model = LlamaForCausalLM(LlamaConfig.tiny(dtype=torch.float32),
-                             device="cpu")
+    model = model or LlamaForCausalLM(LlamaConfig.tiny(dtype=torch.float32),
+                                      device="cpu")
     return Trainer(model, create_optimizer(), mesh=mesh, device="cpu", **kw)
 
 
 def refusal_worker(group: DpGroup) -> Dict[str, Tuple[str, str]]:
     """On 8 ranks: ``{case: (exception type, message)}`` of each refused
-    trainer and of the flash checkpoint, and ``adjust_accum_for_world``'s
+    trainer (``("accepted", "")`` for a mesh the trainer takes) and of the
+    flash checkpoint, and ``adjust_accum_for_world``'s
     answer for 64 rows at 1 per device on dp=4 x fsdp=2."""
     cases = {
         "int8 on tp=2": (dict(dp=4, tp=2), dict(grad_sync="int8")),
@@ -37,6 +39,13 @@ def refusal_worker(group: DpGroup) -> Dict[str, Tuple[str, str]]:
         "pp=2": (dict(dp=4, pp=2), {}),
         "mesh and dp_group": (dict(dp=8), dict(dp_group=group)),
         "tp=4 over 2 kv heads": (dict(dp=2, tp=4), {}),
+        "flash on cp=2": (dict(dp=4, cp=2), dict(model=LlamaForCausalLM(
+            LlamaConfig.tiny(attention_impl="flash"), device="cpu"))),
+        "moe on cp=2": (dict(dp=4, cp=2), dict(model=MoELlamaForCausalLM(
+            MoELlamaConfig.tiny_moe(), device="cpu"))),
+        "ep=8 over 4 experts": (dict(dp=1, ep=8), dict(
+            model=MoELlamaForCausalLM(MoELlamaConfig.tiny_moe(),
+                                      device="cpu"))),
     }
     out = {}
     for case, (axes, kw) in cases.items():
