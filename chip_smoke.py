@@ -103,6 +103,33 @@ then runs, in order, failing on the first phase that fails:
    flash launches one forward, one
    dQ and one dK/dV per layer per rank a step on ep (none through the
    ring), its step seconds and per-rank peak GiB;
+   [gpt]: a tiny GPT's fp32 logits on the card against the same weights
+   on the CPU (within 1e-4); then GPTConfig.gpt2_xl at full width and
+   depth (48 layers, n_embd 1600, 25 heads of 64, vocab 50304, 1.558B
+   params), B=12, S=1024 (nanoGPT's config/train_gpt2.py), seeded numpy
+   tokens, the [training] optimizer and dtypes, remat: one warm-up and 4
+   timed steps, each with a finite loss (the first near ln(vocab)) and no
+   flash launch (the reference attends through the plain core); the
+   mean, median and shortest step, tokens/s, MFU as [training] computes
+   it and the peak; one more step under torch.profiler split by
+   phase_split into the attention core (reference_attention under its
+   span: the forward with remat's recompute, and its backward), the rest
+   of forward and backward, and the optimizer update;
+   [vit]: the same for a tiny ViT (a seeded head) and for ViTConfig.large
+   at full width and depth (24 layers, hidden 1024, 16 heads of 64, 224^2
+   images, patch 16, 197 tokens, 1000 classes), B=64 seeded normal images
+   and labels, vit_loss_fn (the zero head's first loss is ln(1000)):
+   images/s;
+   [pp]: PipelinedLlama (models/pipeline_llama.py) at llama2_1b width cut
+   to 4 layers (2 a stage), flash, S=2048, 4 microbatches, gloo ranks on
+   the card, function-style steps (mesh_workers.pipeline_worker) with the
+   rank legs' optimizer: pp=2 at B=4 and dp=2 x pp=2 at B=8, 3 steps each,
+   each held against one rank's unpipelined LlamaForCausalLM with the same
+   weights, batch and steps (losses within 2e-4, grad norms within 5e-4,
+   equal on every rank), each rank's flash launches a step equal to the
+   schedule's: 16 forwards, 8 dQ and 8 dK/dV (2 layers x 4 microbatches,
+   the forward again in remat's recompute; a bubble computes nothing);
+   microbatch_efficiency and each rank's step seconds;
 5. ring kernels vs plain versions: the fused quantize (int8, int4) and
    dequant-accumulate (int8, int4, also in place) of the ring_pallas_q
    grad sync against their plain PyTorch versions, torch.equal (tolerance
@@ -165,8 +192,9 @@ over the path that runs it here: the single-device training (flash), the
 dp leg (the ring_pallas_q and ring_pallas kernels), and for the rdma ring
 its one-card path (``launches_dp_leg`` beside it: 0, as the dp leg's ranks
 share the card); each flash kernel's ``launches_mesh`` is its count over
-the [mesh] phase's world-1 run, and ``launches_moe`` over the [moe]
-phase's steps.  Without a CUDA device it exits 1 and
+the [mesh] phase's world-1 run, ``launches_moe`` over the [moe]
+phase's steps, and ``launches_pp`` over every rank's steps of the [pp]
+legs.  Without a CUDA device it exits 1 and
 prints no result.
 """
 
@@ -300,6 +328,21 @@ RING_ATOL = {"float32": 2e-3, "bfloat16": FWD_ATOL}
 # GiB: the optimizer holds fp32 copies of every leaf at once), so its
 # depth is cut to 2
 EP_DP_LAYERS = 2
+# [gpt]: GPTConfig.gpt2_xl at full width and depth; B and S are nanoGPT's
+# config/train_gpt2.py batch_size and block_size (the reference's
+# canonical demo job)
+GPT_B, GPT_S = 12, 1024
+# [vit]: ViTConfig.large at full width and depth, B seeded normal images
+VIT_B = 64
+# a tiny model's fp32 logits on the card against the same weights on the
+# CPU: one function, only the summation order differs (no TF32)
+CARD_CPU_ATOL = 1e-4
+# [pp]: llama2_1b width cut to DP_LAYERS layers (2 a stage on pp=2), S =
+# TRAIN_S, PP_MICROBATCHES microbatches; the legs' global batch (pp=2 at
+# B=4, dp=2 x pp=2 at B=8)
+PP_MICROBATCHES = 4
+PP_LEGS = (("pp2", dict(dp=1, pp=2), 2, TRAIN_B),
+           ("dp2_pp2", dict(dp=2, pp=2), 4, 2 * TRAIN_B))
 
 
 SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
@@ -899,7 +942,7 @@ def kernel_owner(event, parts, part_of):
 
 def is_span(name: str) -> bool:
     """A span's image on the device timeline, not a kernel."""
-    return name.startswith(("trainer.", "moe."))
+    return name.startswith(("trainer.", "moe.", "attention."))
 
 
 def phase_split(prof, busy_ms: float, parts=()) -> dict:
@@ -1043,7 +1086,8 @@ def moe_dispatch_check(cfg) -> None:
         raise AssertionError("the dispatch disagrees with the dense oracle")
 
 
-def check_rank_leg(name, recs, ref, flash_per_step) -> None:
+def check_rank_leg(name, recs, ref, flash_per_step,
+                   batch_rows: int = TRAIN_B) -> None:
     """Print and check one run of ranks sharing the card: its losses and
     grad norms equal on every rank and within ``MESH_RANK_RTOL`` and
     ``MESH_RANK_NORM_RTOL`` relative of ``ref``'s (one rank at the same
@@ -1056,7 +1100,7 @@ def check_rank_leg(name, recs, ref, flash_per_step) -> None:
     peaks = [round(r["peak_mem_bytes"] / 2**30, 2) for r in recs]
     print(f"  {name}: {len(recs)} gloo ranks on the card, mesh "
           f"{ {k: v for k, v in recs[0]['shape'].items() if v > 1} }, "
-          f"global B={TRAIN_B}; losses {[round(v, 6) for v in loss]} (max "
+          f"global B={batch_rows}; losses {[round(v, 6) for v in loss]} (max "
           f"rel {rel('loss'):.2e} vs one rank, tol {MESH_RANK_RTOL:.0e}); "
           f"grad norms {[round(v, 6) for v in norm]} (max rel "
           f"{rel('grad_norm'):.2e}, tol {MESH_RANK_NORM_RTOL:.0e}); step s "
@@ -1170,6 +1214,268 @@ def ep_cp_phase() -> None:
         for name, _, _, _, ref, flash_per_step in mine:
             check_rank_leg(name, [r["runs"][name] for r in ranks],
                            ref_losses[ref], flash_per_step)
+
+
+def card_vs_cpu(make, inputs, label: str) -> None:
+    """``make(device)`` builds a tiny fp32 model; the same weights on the
+    card and on the CPU give the same logits for ``inputs`` within
+    CARD_CPU_ATOL."""
+    import torch
+
+    cpu = make("cpu")
+    card = make("cuda")
+    card.load_state_dict(cpu.state_dict())
+    with torch.no_grad():
+        want = cpu(inputs)
+        got = card(inputs.cuda()).cpu()
+    e = (got - want).abs().max().item()
+    print(f"  tiny {label} fp32 logits on the card vs the CPU, same "
+          f"weights: max_abs_err={e:.3e} tol={CARD_CPU_ATOL:.0e} (max "
+          f"|logit| {want.abs().max().item():.3e}) shape "
+          f"{tuple(got.shape)}", flush=True)
+    if not (torch.isfinite(got).all() and e <= CARD_CPU_ATOL):
+        raise AssertionError(f"tiny {label} logits differ on the card")
+
+
+def family_train(name, trainer, batch, tokens: int, first_loss: float,
+                 flops_per_step=None):
+    """The [gpt] and [vit] steps: one warm-up and TIMED_STEPS timed steps
+    (finite losses, the first near ``first_loss``), no flash launch, the
+    mean, median and shortest step, the rate, MFU when ``flops_per_step``
+    is given and the peak; then one step under torch.profiler, its device
+    time split by ``phase_split``."""
+    import collections
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dlrover_tpu_torch.models.gpt import ATTENTION_SPAN
+    from dlrover_tpu_torch.ops.cuda import flash_attention as fa
+
+    state = trainer.create_state()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    step_s = []
+    for step in range(1 + TIMED_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = trainer.train_step(state, batch)
+        loss = metrics["loss"].item()
+        grad_norm = metrics["grad_norm"].item()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        print(f"  step {step}{' (warm-up)' if step == 0 else ''}: "
+              f"loss={loss:.4f} grad_norm={grad_norm:.4f} "
+              f"{dt * 1e3:.1f} ms", flush=True)
+        if not (math.isfinite(loss) and math.isfinite(grad_norm)):
+            raise AssertionError(f"[{name}] non-finite loss/grad_norm at "
+                                 f"step {step}")
+        if step == 0 and abs(loss - first_loss) > 2.0:
+            raise AssertionError(f"[{name}] first loss {loss} is far from "
+                                 f"{first_loss:.4f}")
+        if step:
+            step_s.append(dt)
+    if any(fa.launches.values()):
+        raise AssertionError(f"[{name}] launched flash kernels "
+                             f"{dict(fa.launches)}: the reference attends "
+                             "through the plain core")
+    mean_s, median_s = sum(step_s) / len(step_s), statistics.median(step_s)
+    mfu = ("" if flops_per_step is None else
+           f" mfu={flops_per_step / mean_s / PEAK_BF16_FLOPS:.4f} "
+           "[(6N + 6*L*h*S)*tokens / 989e12, remat not counted]")
+    unit = "tokens" if name == "gpt" else "images"
+    print(f"  step_ms={mean_s * 1e3:.2f} (mean of {len(step_s)}; median "
+          f"{median_s * 1e3:.2f}; min {min(step_s) * 1e3:.2f}) "
+          f"{unit}_per_s={tokens / mean_s:.0f}{mfu} peak_mem_gb="
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f}", flush=True)
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, metrics = trainer.train_step(state, batch)
+        metrics["loss"].item()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not is_span(e.name)]
+    if not kernels:
+        raise AssertionError("the profiler saw no device activity")
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    rows = collections.Counter()
+    for (phase, part, _), ms in phase_split(prof, busy,
+                                            (ATTENTION_SPAN,)).items():
+        if phase == "update":
+            rows["optimizer update"] += ms
+        elif phase in ("forward", "backward"):
+            what = "attention core" if part else "the rest of"
+            rows[f"{what} {phase}"] += ms
+        else:
+            rows[phase] += ms
+    print(f"  profiled step: device busy {busy:.1f} ms = "
+          f"{busy / (median_s * 1e3):.3f} of the {median_s * 1e3:.1f} ms "
+          f"median step (idle share {1 - busy / (median_s * 1e3):.3f})")
+    for label in ("attention core forward", "attention core backward",
+                  "the rest of forward", "the rest of backward",
+                  "optimizer update", "other", "unattributed"):
+        print(f"    {label}: {rows[label]:.1f} ms "
+              f"({rows[label] / busy:.3f} of busy)")
+    print("    (attention core: reference_attention under its span, the "
+          "forward with remat's recompute; the rest of backward holds the "
+          "other recompute)")
+    by_name = collections.Counter()
+    for e in kernels:
+        by_name[e.name] += e.time_range.elapsed_us() / 1e3
+    for kname, ms in by_name.most_common(5):
+        print(f"    top kernel {ms:8.2f} ms  {kname[:100]}")
+    return state
+
+
+def gpt_phase() -> None:
+    """The [gpt] phase (module docstring)."""
+    import numpy as np
+    import torch
+
+    from dlrover_tpu_torch.models.gpt import GPT, GPTConfig
+    from dlrover_tpu_torch.trainer.optim import create_optimizer
+    from dlrover_tpu_torch.trainer.train import Trainer
+
+    tiny = GPTConfig.tiny(dtype=torch.float32)
+    ids = torch.from_numpy(np.random.default_rng(1).integers(
+        0, tiny.vocab_size, size=(2, tiny.block_size)))
+    card_vs_cpu(lambda dev: GPT(tiny, device=dev, seed=1), ids, "GPT")
+
+    cfg = GPTConfig.gpt2_xl()
+    model = GPT(cfg, device="cuda", seed=0)
+    n_params = model.num_params()
+    trainer = Trainer(
+        model,
+        create_optimizer(peak_lr=3e-4, warmup_steps=10, total_steps=10_000,
+                         moment_dtype=torch.bfloat16),
+        grads_dtype=torch.bfloat16, device="cuda")
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                            size=(GPT_B, GPT_S + 1))
+    batch = {"input_ids": ids[:, :-1].astype(np.int32),
+             "labels": ids[:, 1:].astype(np.int32)}
+    print(f"  gpt2_xl: {n_params / 1e9:.3f}B params, {cfg.n_layer} layers, "
+          f"n_embd {cfg.n_embd}, heads {cfg.n_head}x"
+          f"{cfg.n_embd // cfg.n_head}, vocab {cfg.vocab_size}, block "
+          f"{cfg.block_size}; B={GPT_B} S={GPT_S}; remat, the plain "
+          "attention core", flush=True)
+    tokens = GPT_B * GPT_S
+    flops = (6 * n_params + 6 * cfg.n_layer * cfg.n_embd * GPT_S) * tokens
+    family_train("gpt", trainer, batch, tokens, math.log(cfg.vocab_size),
+                 flops)
+    del trainer, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def vit_phase() -> None:
+    """The [vit] phase (module docstring)."""
+    import numpy as np
+    import torch
+
+    from dlrover_tpu_torch.models.vit import (
+        ViTConfig,
+        ViTForImageClassification,
+        vit_loss_fn,
+    )
+    from dlrover_tpu_torch.trainer.optim import create_optimizer
+    from dlrover_tpu_torch.trainer.train import Trainer
+
+    tiny = ViTConfig.tiny(dtype=torch.float32)
+
+    def make(dev):
+        model = ViTForImageClassification(tiny, device=dev, seed=1)
+        with torch.no_grad():  # a nonzero head, so the logits say more
+            model.head.weight.normal_(
+                0.0, 0.1, generator=torch.Generator(dev).manual_seed(2))
+        return model
+
+    images = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (2, tiny.image_size, tiny.image_size, 3)).astype(np.float32))
+    card_vs_cpu(make, images, "ViT")
+
+    cfg = ViTConfig.large()
+    model = ViTForImageClassification(cfg, device="cuda", seed=0)
+    n_params = model.num_params()
+    trainer = Trainer(
+        model,
+        create_optimizer(peak_lr=3e-4, warmup_steps=10, total_steps=10_000,
+                         moment_dtype=torch.bfloat16),
+        loss_fn=vit_loss_fn(model), grads_dtype=torch.bfloat16,
+        device="cuda")
+    rng = np.random.default_rng(0)
+    batch = {"images": rng.standard_normal(
+        (VIT_B, cfg.image_size, cfg.image_size, 3)).astype(np.float32),
+        "labels": rng.integers(0, cfg.num_classes, VIT_B).astype(np.int32)}
+    print(f"  ViT-L/16: {n_params / 1e6:.1f}M params, {cfg.num_layers} "
+          f"layers, hidden {cfg.hidden_size}, heads {cfg.num_heads}x"
+          f"{cfg.hidden_size // cfg.num_heads}, {cfg.image_size}^2 images, "
+          f"patch {cfg.patch_size}, {cfg.num_patches + 1} tokens, "
+          f"{cfg.num_classes} classes; B={VIT_B}; remat", flush=True)
+    # the zero-initialised head gives zero logits: the first loss is
+    # ln(classes)
+    family_train("vit", trainer, batch, VIT_B, math.log(cfg.num_classes))
+    del trainer, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def pp_phase() -> dict:
+    """The [pp] phase (module docstring); returns the flash launches over
+    every rank's steps of its legs."""
+    import numpy as np
+    import torch
+
+    from dlrover_tpu_torch.parallel import mesh_workers, process_group
+    from dlrover_tpu_torch.parallel.pipeline import microbatch_efficiency
+
+    spec = dict(preset="llama2_1b", state_dict=None, seed=0,
+                model=dict(num_layers=DP_LAYERS, attention_impl="flash",
+                           max_seq_len=TRAIN_S),
+                optimizer=dict(peak_lr=3e-4, warmup_steps=10,
+                               total_steps=10_000,
+                               moment_dtype=torch.bfloat16))
+    total = dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), 0)
+    for name, axes, world, batch_rows in PP_LEGS:
+        ids = np.random.default_rng(0).integers(
+            0, 32000, size=(batch_rows, TRAIN_S + 1))
+        run = dict(name=name, axes=axes, num_microbatches=PP_MICROBATCHES,
+                   steps=MESH_RANK_STEPS,
+                   batch={"input_ids": ids[:, :-1].astype(np.int32),
+                          "labels": ids[:, 1:].astype(np.int32)})
+        t0 = time.perf_counter()
+        ref = mesh_workers.reference_pipeline(spec, run, "cuda")
+        print(f"  {DP_LAYERS} layers on one rank, no pipeline, B="
+              f"{batch_rows}: losses {[round(v, 6) for v in ref['loss']]}; "
+              f"step s {[round(v, 3) for v in ref['step_s']]}; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = process_group.spawn(
+            mesh_workers.pipeline_worker, world, (dict(spec, runs=[run]),),
+            backend="gloo", device="cuda", timeout_s=MESH_TIMEOUT_S)
+        print(f"  {world} ranks: {time.perf_counter() - t0:.1f} s with "
+              "spawn", flush=True)
+        recs = [r["runs"][name] for r in ranks]
+        # per rank a step: each stage's layers once per microbatch, and
+        # the forward again in remat's recompute; bubbles compute nothing
+        per = DP_LAYERS // axes["pp"] * PP_MICROBATCHES
+        want = {"flash_fwd": 2 * per, "flash_bwd_dq": per,
+                "flash_bwd_dkv": per}
+        check_rank_leg(f"[pp] {name}", recs, ref, want,
+                       batch_rows=batch_rows)
+        for r in recs:
+            for counts in r["flash_launches"]:
+                for k in total:
+                    total[k] += counts[k]
+        print(f"  microbatch_efficiency(M={PP_MICROBATCHES}, "
+              f"P={axes['pp']}) = "
+              f"{microbatch_efficiency(PP_MICROBATCHES, axes['pp']):.3f}; "
+              f"step s per rank {[[round(v, 3) for v in r['step_s']] for r in recs]}",
+              flush=True)
+    return total
 
 
 def shm_free_bytes() -> int:
@@ -1913,6 +2219,17 @@ def main() -> int:
     ep_cp_phase()
     print(f"  [ep] and [cp] took {time.perf_counter() - t0:.1f} s",
           flush=True)
+    for name, phase in (("gpt", gpt_phase), ("vit", vit_phase)):
+        print(f"[{name}]", flush=True)
+        t0 = time.perf_counter()
+        phase()
+        print(f"  [{name}] took {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    print("[pp]", flush=True)
+    t0 = time.perf_counter()
+    pp_launches = pp_phase()
+    print(f"  [pp] took {time.perf_counter() - t0:.1f} s; flash launches "
+          f"over every rank's steps {pp_launches}", flush=True)
 
     from dlrover_tpu_torch.ops.cuda import ring_reduce_scatter as rrs
 
@@ -1958,6 +2275,7 @@ def main() -> int:
              rel_err=errors[name][2], rel_tol=REL_TOL,
              launches_mesh=mesh_launches[name],
              launches_moe=moe_launches[name],
+             launches_pp=pp_launches[name],
              sass=sass[SASS_KERNEL[name]], **timings[name])
         for name in REPLACES
     ] + [

@@ -48,6 +48,7 @@ from dlrover_tpu_torch.ops.attention import (
 )
 from dlrover_tpu_torch.ops.ring_attention import ring_attention
 from dlrover_tpu_torch.parallel.tensor_parallel import (
+    SplitModel,
     copy_to_tp,
     gather_seq,
     reduce_from_tp,
@@ -303,16 +304,16 @@ class LMHead(nn.Module):
         return logits.view(*x.shape[:-1], -1)
 
 
-class LlamaForCausalLM(nn.Module):
+class LlamaForCausalLM(SplitModel, nn.Module):
     """Decoder-only LM.  Weights are drawn from ``seed`` on ``device`` with
     the JAX model's initializers (embedding N(0, 0.02), lecun-normal dense
     kernels, unit norm scales); the values differ from JAX's, so a parity
     test loads converted weights (``models/convert.py``)."""
 
     layer_class = DecoderLayer
-    #: the dims split over tp and over ep, by parameter-name suffix
+    #: the dims split over tp (``SplitModel``; the dense model splits
+    #: nothing over ep)
     tp_split = TP_DIMS
-    ep_split: dict = {}
     #: checkpoint each layer when ``config.remat`` (the MoE model never does)
     remat_layers = True
 
@@ -366,33 +367,6 @@ class LlamaForCausalLM(nn.Module):
                 x = layer(x, cos, sin)
         return self.lm_head(self.final_norm(x))
 
-    def _split_dims(self, table):
-        return {name: table[key] for name, _ in self.named_parameters()
-                for key in table if name.endswith(key)}
-
-    def tp_dims(self):
-        """``{parameter name: dim}`` of the parameters split over tp."""
-        return self._split_dims(self.tp_split)
-
-    def ep_dims(self):
-        """``{parameter name: dim}`` of the parameters split over ep."""
-        return self._split_dims(self.ep_split)
-
-    @torch.no_grad()
-    def _keep_shards(self, dims, group, attr: str) -> None:
-        """Replace each parameter in ``dims`` by this rank's chunk of it
-        along its dim, and hand ``group`` to every module with ``attr``."""
-        for name, param in list(self.named_parameters()):
-            if name not in dims:
-                continue
-            owner, _, leaf = name.rpartition(".")
-            module = self.get_submodule(owner) if owner else self
-            shard = param.chunk(group.world, dim=dims[name])[group.rank]
-            setattr(module, leaf, nn.Parameter(shard.contiguous()))
-        for module in self.modules():
-            if hasattr(module, attr):
-                setattr(module, attr, group)
-
     @torch.no_grad()
     def shard_tensor_parallel(self, group) -> None:
         """Keep this rank's shard of every parameter that ``TP_DIMS``
@@ -400,15 +374,11 @@ class LlamaForCausalLM(nn.Module):
         whole.  Raises ``ValueError`` where tp does not divide the heads,
         the MLP width or the vocab: GSPMD would pad there, the port does
         not."""
-        cfg, tp = self.config, group.world
-        for what, size in (("num_kv_heads", cfg.num_kv_heads),
-                           ("num_heads", cfg.num_heads),
-                           ("intermediate_size", cfg.intermediate_size),
-                           ("vocab_size", cfg.vocab_size)):
-            if size % tp:
-                raise ValueError(f"tp={tp} does not divide {what}={size}: "
-                                 "the port does not pad a tensor-parallel "
-                                 "shard")
+        cfg = self.config
+        self._check_tp_divides(group, (
+            ("num_kv_heads", cfg.num_kv_heads), ("num_heads", cfg.num_heads),
+            ("intermediate_size", cfg.intermediate_size),
+            ("vocab_size", cfg.vocab_size)))
         self._keep_shards(self.tp_dims(), group, "tp")
 
     def shard_expert_parallel(self, group) -> None:

@@ -62,20 +62,35 @@ def sharding_axes(placements) -> list:
             if isinstance(p, Shard)]
 
 
-def make_model(spec: Dict[str, Any], device, overrides=None):
-    """The port's model of ``spec``: the Llama, or the MoE Llama for
-    ``family="moe"``; ``model`` (config fields and ``overrides``, over the
-    ``preset``'s when one is named), loaded with ``state_dict`` (numpy)
-    or, when that is None, seeded from ``seed``."""
+def _family(name: str):
+    """(config class, model class) of a model family: ``llama`` (the
+    default), ``moe``, ``gpt`` or ``vit``."""
+    if name == "moe":
+        from dlrover_tpu_torch.models.moe import (
+            MoELlamaConfig,
+            MoELlamaForCausalLM,
+        )
+        return MoELlamaConfig, MoELlamaForCausalLM
+    if name == "gpt":
+        from dlrover_tpu_torch.models.gpt import GPT, GPTConfig
+        return GPTConfig, GPT
+    if name == "vit":
+        from dlrover_tpu_torch.models.vit import (
+            ViTConfig,
+            ViTForImageClassification,
+        )
+        return ViTConfig, ViTForImageClassification
     from dlrover_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
-    from dlrover_tpu_torch.models.moe import (
-        MoELlamaConfig,
-        MoELlamaForCausalLM,
-    )
+    return LlamaConfig, LlamaForCausalLM
 
-    config_cls, model_cls = ((MoELlamaConfig, MoELlamaForCausalLM)
-                             if spec.get("family") == "moe" else
-                             (LlamaConfig, LlamaForCausalLM))
+
+def make_model(spec: Dict[str, Any], device, overrides=None):
+    """The port's model of ``spec``: the family ``family`` names (the
+    Llama by default; ``moe``, ``gpt``, ``vit``); ``model`` (config fields
+    and ``overrides``, over the ``preset``'s when one is named), loaded
+    with ``state_dict`` (numpy) or, when that is None, seeded from
+    ``seed``."""
+    config_cls, model_cls = _family(spec.get("family", "llama"))
     preset = spec.get("preset")
     fields = dict(spec["model"], **(overrides or {}))
     cfg = (dataclasses.replace(getattr(config_cls, preset)(), **fields)
@@ -89,12 +104,16 @@ def make_model(spec: Dict[str, Any], device, overrides=None):
 
 def make_loss(spec: Dict[str, Any], model):
     """The ``Trainer`` ``loss_fn`` of ``spec``: ``moe_loss_fn`` for
-    ``family="moe"``, else None (the trainer's own)."""
-    if spec.get("family") != "moe":
-        return None
-    from dlrover_tpu_torch.models.moe import moe_loss_fn
-
-    return moe_loss_fn(model)
+    ``family="moe"``, ``vit_loss_fn`` for ``"vit"``, else None (the
+    trainer's own LM loss)."""
+    family = spec.get("family")
+    if family == "moe":
+        from dlrover_tpu_torch.models.moe import moe_loss_fn
+        return moe_loss_fn(model)
+    if family == "vit":
+        from dlrover_tpu_torch.models.vit import vit_loss_fn
+        return vit_loss_fn(model)
+    return None
 
 
 def train_worker(group: DpGroup, spec: Dict[str, Any]) -> Dict[str, Any]:

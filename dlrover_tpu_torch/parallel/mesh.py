@@ -9,7 +9,8 @@ reference's named axes
     tp    — tensor parallel (Megatron-style within attention and the MLP)
     cp    — context parallel (ring attention over sequence chunks)
     ep    — expert parallel (the MoE's experts)
-    pp    — pipeline parallel (not ported yet)
+    pp    — pipeline parallel (``models/pipeline_llama.PipelinedLlama``,
+            function-style; the ``Trainer`` does not pipeline)
 
 One rank is one process and one device, so the mesh is a grid of ranks
 (row-major over ``MESH_AXIS_NAMES``): rank ``r`` sits at the coordinates

@@ -9,7 +9,11 @@ calls that directly, one process per rank over a ``FileStore``).
 against; ``collective_probe_worker`` asks the group's backend whether it
 carries the collectives FSDP2 calls on the rank's device tensors;
 ``ring_check_worker`` holds ring attention over the group (as cp) against
-the reference core on the whole sequence.
+the reference core on the whole sequence.  ``pipeline_worker`` trains the
+pipelined Llama over ``pp`` (and ``dp``) function-style, as the reference
+trains its ``PipelinedLlama`` (the ``Trainer`` does not pipeline);
+``reference_pipeline`` runs the same steps on one rank without the
+pipeline.
 ``chip_smoke.py`` drives them on the card, the CPU tests at a tiny size.
 """
 
@@ -25,7 +29,7 @@ from dlrover_tpu_torch.parallel.dp_workers import (
     make_model,
     train_worker,
 )
-from dlrover_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+from dlrover_tpu_torch.parallel.mesh import MeshConfig, build_mesh, mesh_shape
 from dlrover_tpu_torch.parallel.process_group import (
     DpGroup,
     _all_gather,
@@ -80,6 +84,102 @@ def reference_losses(spec: Dict[str, Any], steps: int, device) -> Dict:
         step_s.append(time.perf_counter() - t0)
         norms.append(metrics["grad_norm"].item())
     return {"loss": losses, "grad_norm": norms, "step_s": step_s}
+
+
+def _function_steps(forward, model, spec, run, sync=None, data=None
+                    ) -> Dict[str, Any]:
+    """``run["steps"]`` function-style steps of ``model`` (the reference's
+    hand-written ``value_and_grad`` + optax step): ``forward(input_ids)``,
+    the fp32 cross entropy, ``backward``, ``sync()`` (the pipeline's
+    gradient sums), the global norm and the optimizer on the whole state.
+    The optimizer is ``adamw`` at the constant rate ``run["adamw_lr"]``
+    or, without it, ``create_optimizer(**spec["optimizer"])``.  ``data``:
+    the dp group the loss is averaged over.  Returns losses, grad norms,
+    step seconds (host clock, after a device synchronize), each step's
+    flash launches, the peak device memory and, as ``run`` asks, step 0's
+    logits and gradients (numpy)."""
+    from dlrover_tpu_torch.ops.cuda import flash_attention as fa
+    from dlrover_tpu_torch.trainer import optim
+    from dlrover_tpu_torch.trainer.train import cross_entropy_loss
+
+    device = next(model.parameters()).device
+    params = dict(model.named_parameters())
+    opt = (optim.adamw(lambda count: run["adamw_lr"]) if "adamw_lr" in run
+           else optim.create_optimizer(**spec["optimizer"]))
+    opt_state = opt.init({n: p.detach() for n, p in params.items()})
+    batch = {k: torch.as_tensor(v).to(device) for k, v in run["batch"].items()}
+    rec: Dict[str, Any] = {"loss": [], "grad_norm": [], "step_s": [],
+                           "flash_launches": []}
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    for step in range(run["steps"]):
+        fa.reset_launches()
+        _sync(device)
+        t0 = time.perf_counter()
+        for p in params.values():
+            p.grad = None
+        logits = forward(batch["input_ids"])
+        loss = cross_entropy_loss(logits, batch["labels"])
+        loss.backward()
+        if sync is not None:
+            sync()
+        grads = {n: p.grad for n, p in params.items()}
+        norm = optim.global_norm(grads)
+        updates, opt_state = opt.update(grads, opt_state, params)
+        optim.apply_updates(params, updates)
+        loss = loss.detach()
+        if data is not None:
+            loss = data.all_reduce(loss) / data.world
+        rec["loss"].append(loss.item())
+        rec["grad_norm"].append(norm.item())
+        _sync(device)
+        rec["step_s"].append(time.perf_counter() - t0)
+        rec["flash_launches"].append(dict(fa.launches))
+        if step == 0 and run.get("return_logits"):
+            rec["logits"] = logits.detach().cpu().numpy()
+        if step == 0 and run.get("return_grads"):
+            rec["grads"] = {n: g.cpu().numpy() for n, g in grads.items()}
+    rec["peak_mem_bytes"] = (torch.cuda.max_memory_allocated(device)
+                             if device.type == "cuda" else None)
+    return rec
+
+
+def pipeline_worker(group: DpGroup, spec: Dict[str, Any]) -> Dict[str, Any]:
+    """Train ``PipelinedLlama`` over the mesh of each of ``spec["runs"]``,
+    each from the same start: a run is ``{"name", "axes"`` (``MeshConfig``
+    fields with ``pp``), ``"num_microbatches"``, ``"steps"``, ``"batch"``
+    (the global numpy batch; this rank takes its rows over dp), and the
+    options of ``_function_steps``}``; the Llama is ``make_model(spec)``.
+    Returns, per run, ``_function_steps``' record with the mesh's shape
+    and this rank's pp and dp coordinates (the logits are this rank's
+    rows)."""
+    from dlrover_tpu_torch.models.pipeline_llama import PipelinedLlama
+
+    out = {"rank": group.rank, "runs": {}}
+    for run in spec["runs"]:
+        if group.device.type == "cuda":
+            torch.cuda.empty_cache()
+        mesh = build_mesh(MeshConfig.from_dict(run["axes"]),
+                          device=group.device)
+        pipe = PipelinedLlama(make_model(spec, group.device), mesh,
+                              run["num_microbatches"])
+        rec = _function_steps(pipe, pipe.model, spec,
+                              dict(run, batch=pipe.shard_batch(run["batch"])),
+                              sync=pipe.sync_grads, data=pipe.dp)
+        rec.update(shape=mesh_shape(mesh), pp_rank=pipe.pp.rank,
+                   dp_rank=0 if pipe.dp is None else pipe.dp.rank)
+        out["runs"][run["name"]] = rec
+        del pipe, mesh
+    return out
+
+
+def reference_pipeline(spec: Dict[str, Any], run: Dict[str, Any],
+                       device) -> Dict[str, Any]:
+    """``run``'s steps on one rank with the unpipelined
+    ``LlamaForCausalLM``: the same weights, batch and step as
+    ``pipeline_worker``'s."""
+    model = make_model(spec, device)
+    return _function_steps(model, model, spec, run)
 
 
 def collective_probe_worker(group: DpGroup) -> Dict[str, str]:

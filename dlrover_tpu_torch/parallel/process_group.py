@@ -4,7 +4,8 @@ The port's counterpart of the ``dp`` mesh axis of the JAX package.  Each
 rank is one process; ``DpGroup`` holds its rank, world, backend and
 device, and the few collectives the grad sync needs: ``all_reduce``, ``reduce_scatter``,
 ``all_gather``, ``all_to_all`` and ``shift`` (the ``lax.ppermute`` of the
-quantized ring).
+quantized ring), and the point-to-point ``send`` and ``recv`` of the
+pipeline's stages.
 
 On an NCCL group the primitives pass device tensors.  On a gloo group,
 whose support for CUDA tensors is partial, a CUDA tensor goes to host
@@ -111,6 +112,25 @@ class DpGroup:
         dist.all_to_all_single(out, buf, group=self.group)
         return self._back(out, t)
 
+    def _global(self, rank: int) -> int:
+        """The world rank of this group's rank ``rank`` (P2P ops take
+        world ranks)."""
+        if self.group is None:
+            return rank
+        return dist.get_global_rank(self.group, rank)
+
+    def send(self, t: torch.Tensor, dst: int) -> None:
+        """Send ``t`` to the group's rank ``dst``; returns once it is
+        sent."""
+        dist.send(self._send(t), self._global(dst), group=self.group)
+
+    def recv(self, like: torch.Tensor, src: int) -> torch.Tensor:
+        """Receive from the group's rank ``src`` a tensor of ``like``'s
+        shape and dtype, on ``like``'s device."""
+        out = self._empty(tuple(like.shape), like)
+        dist.recv(out, self._global(src), group=self.group)
+        return self._back(out, like)
+
     def shift(self, tensors: Dict[str, torch.Tensor],
               d: int) -> Dict[str, torch.Tensor]:
         """Rank ``i`` sends each tensor to rank ``(i - d) mod world`` and
@@ -120,9 +140,7 @@ class DpGroup:
         src = (self.rank + d) % self.world
         if dst == self.rank:
             return {k: v.clone() for k, v in tensors.items()}
-        if self.group is not None:  # P2P ops take global ranks
-            dst = dist.get_global_rank(self.group, dst)
-            src = dist.get_global_rank(self.group, src)
+        dst, src = self._global(dst), self._global(src)
         ops, received = [], {}
         for tag, (name, t) in enumerate(tensors.items()):
             buf = self._send(t)

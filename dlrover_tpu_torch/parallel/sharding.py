@@ -13,12 +13,14 @@ those annotations; here the table decides where each tensor is split:
   on the mesh, one per mesh axis: ``Shard(dim)`` on the axes that split
   the tensor, ``Replicate()`` on the others;
 * ``param_logical_axes`` is the table of every parameter of the port's
-  Llama (``models/llama.py``) and MoE Llama (``models/moe.py``) to its
-  logical axes, in the port's layout (``[out, in]`` linear weights, the
-  experts' ``[E, in, out]``), taken from the reference models'
-  ``with_logical_partitioning`` calls.  The port's params are plain
-  tensors, so there is nothing to unbox (the reference's
-  ``unbox_params``);
+  Llama (``models/llama.py``), MoE Llama (``models/moe.py``), GPT
+  (``models/gpt.py``) and ViT (``models/vit.py``) to its logical axes, in
+  the port's layout (``[*out, in]`` linear weights, the experts' ``[E, in,
+  out]``), taken from the reference models' ``with_logical_partitioning``
+  calls.  GPT's and ViT's LayerNorm scales and biases and their Dense
+  biases carry no annotation in the reference, so their axes are empty:
+  replicated over every mesh axis.  The port's params are plain tensors,
+  so there is nothing to unbox (the reference's ``unbox_params``);
 * ``shard_batch`` gives this rank its rows of the global batch over the
   data axes and, where the rules split the sequence (``cp``), its chunk
   of their sequence.
@@ -119,13 +121,33 @@ _LLAMA_AXES = (
     (r"lm_head\.weight", ("vocab", "embed")),
 )
 
+# the port's GPT and ViT (the reference's attn_qkv ("embed", None, "heads",
+# "head_dim") is the port's [3, heads * head_dim, embed]; the patch conv's
+# (None, None, None, "embed") the patch rows' [D, P*P*C])
+_GPT_VIT_AXES = (
+    (r"wte", ("vocab", "embed")),
+    (r"wpe", (None, "embed")),
+    (r"layers\.\d+\.attn_qkv\.weight", (None, "heads", "embed")),
+    (r"layers\.\d+\.attn_proj\.weight", ("embed", "heads")),
+    (r"layers\.\d+\.(mlp_fc|mlp_in)\.weight", ("mlp", "embed")),
+    (r"layers\.\d+\.(mlp_proj|mlp_out)\.weight", ("embed", "mlp")),
+    (r"patch_embed\.weight", ("embed", None)),
+    (r"cls_token|pos_embed", (None, None, "embed")),
+    (r"head\.weight", ("vocab", "embed")),
+    # no annotation in the reference: replicated
+    (r"layers\.\d+\.(attn_qkv|attn_proj|mlp_fc|mlp_proj|mlp_in|mlp_out)"
+     r"\.bias", ()),
+    (r"(layers\.\d+\.ln_[12]|ln_f)\.(scale|bias)", ()),
+    (r"(patch_embed|head)\.bias", ()),
+)
+
 
 def param_logical_axes(names) -> Dict[str, Tuple[str, ...]]:
-    """Logical axes of each named parameter of the port's Llama or MoE
-    Llama; raises for a name the table does not know."""
+    """Logical axes of each named parameter of the port's Llama, MoE
+    Llama, GPT or ViT; raises for a name the table does not know."""
     out = {}
     for name in names:
-        for pattern, axes in _LLAMA_AXES:
+        for pattern, axes in _LLAMA_AXES + _GPT_VIT_AXES:
             if re.fullmatch(pattern, name):
                 out[name] = axes
                 break

@@ -34,6 +34,16 @@ functions carry the other axes' exchanges:
   the global sum, and the trainer weights each rank's loss so that the
   weights sum to one, so the sum's gradient reaches each rank's own
   terms summed over the ranks).
+
+``slice_to_tp`` serves a replicated tensor read per shard: the bias of a
+column shard (GPT's and ViT's Dense biases carry no logical axis, so they
+stay whole on every rank, as the reference keeps them): the forward takes
+this rank's chunk, the backward all-gathers the chunks' gradients, so
+every rank holds the whole gradient of the whole bias.
+
+``SplitModel`` is what the models share to be split: the tables of the
+dims each parameter is split along over tp and ep (by name suffix), and
+the swap of each such parameter for this rank's chunk.
 """
 
 from typing import Optional
@@ -88,6 +98,18 @@ class _GatherRows(torch.autograd.Function):
         return grad[start:start + ctx.rows], None
 
 
+class _SliceToTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return x.chunk(group.world, dim=dim)[group.rank].contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        parts = ctx.group.all_gather(grad.contiguous())
+        return torch.cat(list(parts), dim=ctx.dim), None, None
+
+
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -116,6 +138,11 @@ def gather_seq(x: torch.Tensor, group) -> torch.Tensor:
 def gather_rows(x: torch.Tensor, group) -> torch.Tensor:
     """[rows, ...] on each rank -> [world * rows, ...], in rank order."""
     return x if group is None else _GatherRows.apply(x, group)
+
+
+def slice_to_tp(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's chunk along ``dim`` of ``x``, whole on every rank."""
+    return x if group is None else _SliceToTP.apply(x, group, dim)
 
 
 def all_reduce_sum(x: torch.Tensor, groups) -> torch.Tensor:
@@ -166,3 +193,49 @@ def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
         mask = mask.to(token_loss.dtype)
         return (token_loss * mask).sum() / mask.sum().clamp(min=1)
     return token_loss.mean()
+
+
+class SplitModel:
+    """The parameters a model splits over ``tp`` and ``ep``: ``tp_split``
+    and ``ep_split`` map a parameter-name suffix to the dim it is split
+    along.  ``_keep_shards`` replaces each such parameter by this rank's
+    chunk and hands the group to every module with the axis's attribute
+    (``tp``, ``ep``)."""
+
+    tp_split: dict = {}
+    ep_split: dict = {}
+
+    def _split_dims(self, table):
+        return {name: table[key] for name, _ in self.named_parameters()
+                for key in table if name.endswith(key)}
+
+    def tp_dims(self):
+        """``{parameter name: dim}`` of the parameters split over tp."""
+        return self._split_dims(self.tp_split)
+
+    def ep_dims(self):
+        """``{parameter name: dim}`` of the parameters split over ep."""
+        return self._split_dims(self.ep_split)
+
+    @torch.no_grad()
+    def _keep_shards(self, dims, group, attr: str) -> None:
+        for name, param in list(self.named_parameters()):
+            if name not in dims:
+                continue
+            owner, _, leaf = name.rpartition(".")
+            module = self.get_submodule(owner) if owner else self
+            shard = param.chunk(group.world, dim=dims[name])[group.rank]
+            setattr(module, leaf, torch.nn.Parameter(shard.contiguous()))
+        for module in self.modules():
+            if hasattr(module, attr):
+                setattr(module, attr, group)
+
+    def _check_tp_divides(self, group, sizes) -> None:
+        """Raise ``ValueError`` where tp does not divide one of ``sizes``
+        (``(name, size)`` pairs): GSPMD would pad there, the port does
+        not."""
+        for what, size in sizes:
+            if size % group.world:
+                raise ValueError(f"tp={group.world} does not divide "
+                                 f"{what}={size}: the port does not pad a "
+                                 "tensor-parallel shard")

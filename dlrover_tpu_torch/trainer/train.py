@@ -41,16 +41,20 @@ The mesh (``Trainer(model, opt, mesh=build_mesh(...))``,
 * ``tp``: the model keeps its Megatron shards (heads, MLP columns, vocab
   rows; ``models/llama.py`` ``shard_tensor_parallel``) and the loss is the
   vocab-parallel cross entropy;
-* ``fsdp``: FSDP2 ``fully_shard`` on each decoder layer and on the root,
-  over the ``DATA_AXES`` submesh (HSDP: replicated over dp, sharded
-  over fsdp), each parameter split along the dim the rules give ``fsdp``.
+* ``fsdp``: FSDP2 ``fully_shard`` on each layer and on the root, over
+  the ``DATA_AXES`` submesh (HSDP: replicated over dp, sharded over
+  fsdp), each parameter split along the dim the rules give ``fsdp``.
   The sharded fp32 parameters are the masters; FSDP casts them to
   ``grads_dtype`` when it gathers a layer (the compute copy), reduces the
   gradients in fp32, and the trainer rounds each reduced shard to
   ``grads_dtype``, so the norm, the clip and the update see the gradients
   of that dtype, as on one device.  The loss is weighted before the
   backward so that FSDP's mean over the data ranks is the global token
-  mean;
+  mean.  A parameter the rules replicate over fsdp (GPT's and ViT's norms
+  and biases) stays whole outside FSDP (``ignored_params``): it is its own
+  fp32 master, the model casts it where it reads it, and the trainer
+  takes the mean of its gradient over the data ranks itself.  GPT's tied
+  ``wte`` sits in the root's unit with both of its uses;
 * ``dp`` alone (no fsdp): the dp grad sync above over the mesh's dp group,
   every ``grad_sync`` mode with it;
 * ``cp``: each rank holds a contiguous chunk of its rows' sequence
@@ -76,8 +80,13 @@ the optimizer's ``init`` maps over them, the moments); the update is
 elementwise and runs on them with no communication; the global norm
 all-reduces each leaf's partial sum over the axes that shard it
 (``optim.sharded_leaves``).  ``placements`` records each parameter's DTensor
-placements on the mesh; ``full_params`` gathers the whole leaves.  ``pp``
-is not ported yet (ROADMAP queue 1 item 5).
+placements on the mesh; ``full_params`` gathers the whole leaves.
+
+The trainer takes the Llama, the MoE Llama, GPT (its default LM loss) and
+ViT (``models/vit.vit_loss_fn``) on dp, fsdp and tp; GPT and ViT refuse
+cp and ep in their forward (``models/gpt.py``).  It does not pipeline,
+as the reference's ``Trainer`` does not: ``pp`` > 1 raises, naming
+``models/pipeline_llama.PipelinedLlama``, the function-style pp path.
 """
 
 import dataclasses
@@ -89,7 +98,7 @@ from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
-from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.profiler import record_function
 
 from dlrover_tpu_torch.device import DeviceLike, resolve_device
@@ -116,7 +125,6 @@ logger = logging.getLogger(__name__)
 # the mesh axes the batch is split over (the reference's default)
 DATA_AXES = ("dp", "fsdp")
 
-ROADMAP_PIPELINE = "ROADMAP queue 1 item 5 (the pipeline over pp)"
 # the axes whose shards the trainer gathers, in the order they were taken
 SPLIT_AXES = ("fsdp", "tp", "ep")
 
@@ -254,8 +262,9 @@ class Trainer:
         shape = mesh_shape(self.mesh)
         if shape["pp"] > 1:
             raise NotImplementedError(
-                f"pp={shape['pp']}: the pipeline is not ported yet "
-                f"({ROADMAP_PIPELINE})")
+                f"pp={shape['pp']}: the Trainer does not pipeline, as the "
+                "reference's Trainer does not; pipeline a Llama over pp "
+                "function-style with models.pipeline_llama.PipelinedLlama")
         active = [a for a in DATA_AXES if shape[a] > 1]
         if self.grad_sync.active:
             # the reference's refusals (_configure_grad_sync)
@@ -293,7 +302,7 @@ class Trainer:
             for axis in ("tp", "ep"):
                 if n in dims[axis]:
                     place[axis] = Shard(dims[axis][n])
-            if self._fsdp:
+            if isinstance(p, DTensor):  # FSDP's; else whole over fsdp
                 place["fsdp"] = p.placements[
                     p.device_mesh.mesh_dim_names.index("fsdp")]
             self.placements[n] = tuple(place.values())
@@ -306,19 +315,22 @@ class Trainer:
         return axes_group(self.mesh, summed) if summed else None
 
     def _fully_shard(self, fsdp: int) -> None:
-        """FSDP2 over ``DATA_AXES`` (HSDP) or ``fsdp`` alone: each decoder
-        layer, then the root, every parameter split along the dim the rules
-        give fsdp."""
+        """FSDP2 over ``DATA_AXES`` (HSDP) or ``fsdp`` alone: each layer,
+        then the root, every parameter split along the dim the rules give
+        fsdp; the parameters the rules replicate over fsdp are left out."""
         from torch.distributed.fsdp import MixedPrecisionPolicy, fully_shard
 
         named = dict(self.model.named_parameters())
         fsdp_index = MESH_AXIS_NAMES.index("fsdp")
-        by_id = {}
+        by_id, whole = {}, set()
         for n, axes in sharding.param_logical_axes(named).items():
             p = named[n]
             place = sharding.logical_to_mesh_sharding(
                 axes, MESH_AXIS_NAMES)[fsdp_index]
-            if not isinstance(place, Shard) or p.shape[place.dim] % fsdp:
+            if not isinstance(place, Shard):
+                whole.add(p)
+                continue
+            if p.shape[place.dim] % fsdp:
                 raise ValueError(
                     f"fsdp={fsdp} must split {n} {tuple(p.shape)} evenly "
                     f"along the dim the rules give it ({place}): the port "
@@ -332,7 +344,8 @@ class Trainer:
             mp_policy=MixedPrecisionPolicy(
                 param_dtype=self.grads_dtype,
                 reduce_dtype=self.accum_dtype or torch.float32,
-                cast_forward_inputs=False))
+                cast_forward_inputs=False),
+            ignored_params=whole)
         for layer in self.model.layers:
             fully_shard(layer, **kw)
         fully_shard(self.model, **kw)
@@ -471,7 +484,7 @@ class Trainer:
             if self._fsdp:
                 # FSDP's sharded fp32 params are the masters (views: the
                 # update lands where the next gather reads)
-                masters = {n: p.to_local().detach()
+                masters = {n: _local(p).detach()
                            for n, p in self._named.items()}
             else:
                 masters = {n: p.detach().float().clone()
@@ -586,7 +599,7 @@ class Trainer:
         if self._fsdp:
             with torch.no_grad():
                 for n, p in self._named.items():
-                    local = p.to_local()
+                    local = _local(p)
                     if local.data_ptr() != state.params[n].data_ptr():
                         local.copy_(state.params[n])
         elif self.grads_dtype is not None:
@@ -626,9 +639,13 @@ class Trainer:
                 # FSDP reduces in fp32 into the fp32 shard (over the data
                 # ranks; the sum over cp follows): round to grads_dtype,
                 # the gradients the other paths update with
-                g = p.grad.to_local()
-                if self._cp is not None:
-                    g = self._cp.all_reduce(g)
+                if not isinstance(p.grad, DTensor):
+                    # whole, outside FSDP: the same mean and sum, here
+                    g = self._token_all_reduce(p.grad) / self._data_world()
+                else:
+                    g = p.grad.to_local()
+                    if self._cp is not None:
+                        g = self._cp.all_reduce(g)
                 if self.grads_dtype is not None:
                     g = g.to(self.grads_dtype)
                 if accum == 1:
@@ -764,3 +781,8 @@ class Trainer:
                 acc += g.to(acc.dtype)
             w_sum = w_sum + w
         return loss_sum, grad_sum, w_sum
+
+
+def _local(p: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of an FSDP parameter; a whole one as it is."""
+    return p.to_local() if isinstance(p, DTensor) else p

@@ -286,8 +286,10 @@ def test_adjust_accum_for_world(runs, refusals):
 def test_refusals_on_ranks(refusals):
     """A quantized sync needs a pure dp mesh (ValueError, the reference's
     two messages); cp and ep are taken (the dense Llama's ep ranks compute
-    the same step), pp raises NotImplementedError naming its ROADMAP item,
-    and so do the flash kernels and the MoE model under cp; a mesh and a
+    the same step), pp raises NotImplementedError naming the function-style
+    pp path (the Trainer does not pipeline, as the reference's does not),
+    the flash kernels and the MoE model under cp raise it naming their
+    ROADMAP items; a mesh and a
     dp group together raise ValueError, and so do a tp that does not
     divide the kv heads and an ep that does not divide the experts; the
     flash checkpoint refuses a world of more than one rank (a rank's state
@@ -297,7 +299,7 @@ def test_refusals_on_ranks(refusals):
         "int8 on fsdp=2": ("ValueError", "active data axes ['fsdp']"),
         "cp=2": ("accepted", ""),
         "ep=2": ("accepted", ""),
-        "pp=2": ("NotImplementedError", "queue 1 item 5"),
+        "pp=2": ("NotImplementedError", "models.pipeline_llama.PipelinedLlama"),
         "mesh and dp_group": ("ValueError", "not both"),
         "tp=4 over 2 kv heads": ("ValueError",
                                  "tp=4 does not divide num_kv_heads=2"),
