@@ -77,7 +77,18 @@ then runs, in order, failing on the first phase that fails:
    each run's losses and grad norms equal on every rank, within 2e-4
    (losses) and 5e-4 (grad norms) relative of the same depth on one rank
    without a mesh, and its flash launches 8 / 4 / 4 per rank a step (each
-   launch on the rank's local heads);
+   launch on the rank's local heads).  Each leg then checkpoints (/dev/shm
+   checked first): every rank makes an async memory save, staged, and an
+   async storage save of its local shards (dp_workers.save_and_restore),
+   takes the uninterrupted next step, restores from shm and from storage
+   (a fresh scope) into a fresh state, each restore torch.equal leaf by
+   leaf to a copy taken on the card at the save, and steps from each: the
+   loss within 1e-6 relative of the uninterrupted next step's, the flash
+   launches 8 / 4 / 4; each rank's blocking_save_s, restore_shm_s and
+   restore_storage_s are printed.  The fsdp=2 leg runs after
+   fsdp=2 x tp=2 and then restores that leg's stored step across meshes
+   and steps: loss and grad norm within 2e-4 and 5e-4 of fsdp=2 x tp=2's
+   uninterrupted next step;
    [moe]: the MoE Llama (models/moe.py) at llama2_1b width, 8 layers (its
    depth cut: at 22 the state alone would take ~77 GB), E=8, top-2,
    capacity factor 1.25 (C=640), flash attention, moe_loss_fn, B=4,
@@ -175,7 +186,16 @@ then runs, in order, failing on the first phase that fails:
    buckets, accumulate = buckets x 3; the exact ring: add = 3 per bucket
    whose width is a multiple of 1024; no other ring kernel, and never the
    rdma ring, which needs a card per rank) or whose flash launches differ
-   from 2 forwards, one dQ and one dK/dV per layer;
+   from 2 forwards, one dQ and one dK/dV per layer.  The int8_sharded run
+   ends with the ranks' checkpoint of their states, residuals included,
+   held as the [mesh] legs' (the steps after the restores launching the
+   ring kernels as the uninterrupted step does); then 2 new ranks restore
+   it from storage with Trainer.load_state and take one int8_sharded
+   step: the step saved, the sum over the replicas of their residuals
+   within 1e-6 of the saved residuals' norm of the saved sum (seeded
+   projections, dp_workers.ef_digest), zero where dp=4 stored none, a
+   finite loss, and the int8 encode and accumulate kernels launched as
+   the new degree's buckets need;
 10. the ring kernels at the dp leg's largest and smallest bucket shapes:
    torch.equal against the plain versions (the JSON line's max_abs_err is
    the largest |kernel - plain| over every comparison), then time per
@@ -192,10 +212,12 @@ over the path that runs it here: the single-device training (flash), the
 dp leg (the ring_pallas_q and ring_pallas kernels), and for the rdma ring
 its one-card path (``launches_dp_leg`` beside it: 0, as the dp leg's ranks
 share the card); each flash kernel's ``launches_mesh`` is its count over
-the [mesh] phase's world-1 run, ``launches_moe`` over the [moe]
+the [mesh] phase's world-1 run, ``launches_ckpt`` over every rank's
+steps after the [mesh] legs' restores, ``launches_moe`` over the [moe]
 phase's steps, and ``launches_pp`` over every rank's steps of the [pp]
-legs.  Without a CUDA device it exits 1 and
-prints no result.
+legs; each ring kernel's ``launches_load_state`` is its count over the
+step after the dp leg's ``load_state`` at 2 ranks.  Without a CUDA
+device it exits 1 and prints no result.
 """
 
 import dataclasses
@@ -313,6 +335,17 @@ MESH_RANK_STEPS = 3
 MESH_RANK_RTOL = 2e-4
 MESH_RANK_NORM_RTOL = 5e-4
 MESH_TIMEOUT_S = 600.0
+# the checkpoint of the ranks' legs: bytes of /dev/shm a rank leg's state
+# takes per parameter (fp32 masters, two bf16 moments), and a dp rank's
+# (fp32 masters and residuals, its ZeRO-1 quarter of the moments), beside
+# each segment's meta
+MESH_CKPT_BYTES_PER_PARAM = 8
+DP_CKPT_BYTES_PER_PARAM = 9
+# the dp leg's restore at a smaller dp degree (Trainer.load_state), and
+# the sum over the replicas of its error-feedback residuals against the
+# sum saved (fp32 rows summed in numpy and halved: rounding only)
+DP_RESUME_WORLD = 2
+EF_SUM_RTOL = 1e-6
 # [moe]: the MoE Llama at llama2_1b width, its depth cut to 8 layers (at
 # 22 its state alone would take ~77 GB of the 80); steps after warm-up
 MOE_LAYERS, MOE_TIMED_STEPS = 8, 3
@@ -721,23 +754,15 @@ def profile_step(trainer, state, batch, fa, per_step, step_s):
     return state
 
 
-def mesh_phase(plain) -> dict:
-    """The [mesh] phase: the worker bootstrap, the mesh and the mesh path
-    of the Trainer (module docstring).  Returns the flash launches of the
-    world-1 run."""
+def mesh_spec() -> dict:
+    """[mesh]'s model and data (``dp_workers.train_worker``'s spec): the
+    [training] configuration, seed and batch."""
     import numpy as np
     import torch
 
-    from dlrover_tpu_torch.models.llama import LlamaConfig
-    from dlrover_tpu_torch.parallel import (
-        dp_workers,
-        mesh_workers,
-        process_group,
-    )
-
     ids = np.random.default_rng(0).integers(0, 32000,
                                             size=(TRAIN_B, TRAIN_S + 1))
-    spec = dict(
+    return dict(
         preset="llama2_1b",
         model=dict(attention_impl="flash", max_seq_len=TRAIN_S),
         state_dict=None, seed=0,
@@ -745,8 +770,19 @@ def mesh_phase(plain) -> dict:
                "labels": ids[:, 1:].astype(np.int32)},
         optimizer=dict(peak_lr=3e-4, warmup_steps=10, total_steps=10_000,
                        moment_dtype=torch.bfloat16),
-        grads_dtype=torch.bfloat16,
-        runs=[dict(name="world1", axes=dict(dp=-1), steps=MESH_STEPS)])
+        grads_dtype=torch.bfloat16)
+
+
+def mesh_phase(plain):
+    """The [mesh] phase: the worker bootstrap, the mesh and the mesh path
+    of the Trainer, and the flash checkpoint of the ranks' legs (module
+    docstring).  Returns the flash launches of the world-1 run and of the
+    steps after the legs' restores."""
+    from dlrover_tpu_torch.models.llama import LlamaConfig
+    from dlrover_tpu_torch.parallel import mesh_workers, process_group
+
+    spec = dict(mesh_spec(), runs=[
+        dict(name="world1", axes=dict(dp=-1), steps=MESH_STEPS)])
     t0 = time.perf_counter()
     (worker,) = process_group.launch(mesh_workers.bootstrap_worker, 1,
                                      (spec,), timeout_s=MESH_TIMEOUT_S)
@@ -801,10 +837,30 @@ def mesh_phase(plain) -> dict:
           f"(rank 1 {probe[1]}); the fsdp legs "
           f"{'run' if fsdp_ok else 'are left out: FSDP2 calls these'}",
           flush=True)
+    return launches, rank_legs(spec, fsdp_ok)
+
+
+def rank_legs(spec, fsdp_ok: bool) -> dict:
+    """[mesh]'s legs of ranks that share the card, each with its flash
+    checkpoint (module docstring).  Returns the flash launches of the
+    steps after their restores."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from dlrover_tpu_torch.models.llama import LlamaConfig
+    from dlrover_tpu_torch.parallel import (
+        dp_workers,
+        mesh_workers,
+        process_group,
+    )
+
+    # fsdp2_tp2 saves the checkpoint that fsdp2 restores across meshes
     legs = [("tp2", dict(dp=1, tp=2), 2)]
     if fsdp_ok:
-        legs += [("fsdp2", dict(dp=1, fsdp=2), 2),
-                 ("fsdp2_tp2", dict(dp=1, fsdp=2, tp=2), 4)]
+        legs += [("fsdp2_tp2", dict(dp=1, fsdp=2, tp=2), 4),
+                 ("fsdp2", dict(dp=1, fsdp=2), 2)]
     small = dict(spec, model=dict(num_layers=DP_LAYERS, attention_impl="flash",
                                   max_seq_len=TRAIN_S))
     ref = mesh_workers.reference_losses(small, MESH_RANK_STEPS, "cuda")
@@ -814,17 +870,139 @@ def mesh_phase(plain) -> dict:
     torch.cuda.empty_cache()
     per_step = {"flash_fwd": 2 * DP_LAYERS, "flash_bwd_dq": DP_LAYERS,
                 "flash_bwd_dkv": DP_LAYERS}
-    for name, axes, world in legs:
-        t0 = time.perf_counter()
-        ranks = process_group.spawn(
-            dp_workers.train_worker, world, (dict(small, runs=[dict(
-                name=name, axes=axes, steps=MESH_RANK_STEPS)]),),
-            backend="gloo", device="cuda", timeout_s=MESH_TIMEOUT_S)
-        print(f"  {world} ranks: {time.perf_counter() - t0:.1f} s with "
-              "spawn", flush=True)
-        check_rank_leg(name, [r["runs"][name] for r in ranks], ref,
-                       per_step)
-    return launches
+    need = MESH_CKPT_BYTES_PER_PARAM * llama_param_count(
+        LlamaConfig.llama2_1b(num_layers=DP_LAYERS)) + CKPT_META_MARGIN
+    check_shm(need, "a rank leg's checkpoint")
+    root = tempfile.mkdtemp(prefix="mesh_ckpt_")
+    ckpt_launches = dict.fromkeys(per_step, 0)
+    try:
+        for name, axes, world in legs:
+            runs = [dict(name=name, axes=axes, steps=MESH_RANK_STEPS,
+                         save=dict(dir=os.path.join(root, name),
+                                   scope=f"mesh{os.getpid()}{name}"))]
+            if name == "fsdp2":
+                runs.append(dict(
+                    name="fsdp2_tp2_to_fsdp2", axes=axes, steps=1,
+                    resume=dict(dir=os.path.join(root, "fsdp2_tp2"),
+                                scope=f"mesh{os.getpid()}cross")))
+            t0 = time.perf_counter()
+            ranks = process_group.spawn(
+                dp_workers.train_worker, world, (dict(small, runs=runs),),
+                backend="gloo", device="cuda", timeout_s=MESH_TIMEOUT_S)
+            print(f"  {world} ranks: {time.perf_counter() - t0:.1f} s with "
+                  "spawn, the checkpoint and its restores", flush=True)
+            recs = [r["runs"][name] for r in ranks]
+            check_rank_leg(name, recs, ref, per_step)
+            saved = [r["ckpt"] for r in recs]
+            check_ckpt_leg(name, saved, per_step, ckpt_launches)
+            if name == "fsdp2_tp2":
+                cross_want = saved[0]
+            if len(runs) > 1:
+                check_cross_restore(
+                    [r["runs"][runs[1]["name"]] for r in ranks], cross_want,
+                    per_step, ckpt_launches)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if not fsdp_ok:
+        print("  the cross-mesh restore is left out with the fsdp legs")
+    print(f"  flash launches over the steps after the restores, every "
+          f"rank: {ckpt_launches}", flush=True)
+    if not all(ckpt_launches.values()):
+        raise AssertionError(f"the steps after the restores launched "
+                             f"{ckpt_launches}")
+    return ckpt_launches
+
+
+def llama_param_count(cfg) -> int:
+    """The parameters of a port Llama of ``cfg``: the embedding, each
+    layer's attention, SwiGLU and two norms, the final norm and the
+    head."""
+    E, D = cfg.hidden_size, cfg.head_dim
+    attn = E * D * (2 * cfg.num_heads + 2 * cfg.num_kv_heads)
+    layer = attn + 3 * E * cfg.intermediate_size + 2 * E
+    return 2 * cfg.vocab_size * E + cfg.num_layers * layer + E
+
+
+def check_shm(need: int, what: str) -> None:
+    """Print /dev/shm's free bytes beside what a checkpoint needs; fail
+    when they do not fit."""
+    free = shm_free_bytes()
+    print(f"  /dev/shm free {free / 1e9:.1f} GB; {what} needs "
+          f"{need / 1e9:.1f} GB", flush=True)
+    if free < need:
+        raise AssertionError(f"/dev/shm has {free / 1e9:.2f} GB free, "
+                             f"{what} needs {need / 1e9:.2f} GB")
+
+
+def check_ckpt_leg(name, saved, per_step, launches) -> None:
+    """Print and check the flash checkpoint of one leg of ranks
+    (``dp_workers.save_and_restore``'s records, by rank): each rank's
+    restores from shm and from storage ``torch.equal`` to the state
+    saved, the step saved, the step after each restore with the loss of
+    the uninterrupted run's next step (1e-6 relative) and the flash
+    launches of a step; each rank's save and restore seconds.  Adds the
+    flash launches of the steps after the restores to ``launches``."""
+    for rank, c in enumerate(saved):
+        want = c["next"]["loss"][0]
+        print(f"  {name} rank {rank}: step {c['step']} blocking_save_s "
+              f"{c['blocking_save_s']:.4f} (memory save "
+              f"{c['memory_save_s']:.4f}) restore_shm_s "
+              f"{c['restore_shm_s']:.3f} restore_storage_s "
+              f"{c['restore_storage_s']:.3f}; next loss {want:.6f}, after "
+              f"the restores {c['shm']['loss'][0]:.6f} (shm) "
+              f"{c['storage']['loss'][0]:.6f} (storage)", flush=True)
+        if not c["persisted"]:
+            raise AssertionError(f"{name} rank {rank}: the storage save "
+                                 "was not persisted")
+        for source in ("shm", "storage"):
+            if c[f"{source}_step"] != c["step"] or not c[f"{source}_equal"]:
+                raise AssertionError(
+                    f"{name} rank {rank}: the {source} restore gave step "
+                    f"{c[f'{source}_step']} (saved {c['step']}), "
+                    f"torch.equal {c[f'{source}_equal']}")
+            loss = c[source]["loss"][0]
+            if not math.isfinite(loss) or \
+                    abs(loss - want) > RESTORED_LOSS_RTOL * abs(want):
+                raise AssertionError(
+                    f"{name} rank {rank}: the step after the {source} "
+                    f"restore lost {loss}, the uninterrupted run {want} "
+                    f"(tol {RESTORED_LOSS_RTOL})")
+            counts = c[source]["flash_launches"][0]
+            if counts != per_step:
+                raise AssertionError(f"{name} rank {rank}: the step after "
+                                     f"the {source} restore launched "
+                                     f"{counts}, expected {per_step}")
+            for k in launches:
+                launches[k] += counts[k]
+
+
+def check_cross_restore(recs, want, per_step, launches) -> None:
+    """The fsdp=2 ranks' restore of fsdp=2 x tp=2's stored step: the step
+    saved, and the next step's loss and grad norm within the rank legs'
+    limits of the uninterrupted fsdp=2 x tp=2 run's."""
+    for rank, r in enumerate(recs):
+        loss, norm = r["loss"][0], r["grad_norm"][0]
+        next_loss = want["next"]["loss"][0]
+        next_norm = want["next"]["grad_norm"][0]
+        rel = abs(loss - next_loss) / abs(next_loss)
+        rel_norm = abs(norm - next_norm) / abs(next_norm)
+        print(f"  fsdp2_tp2 -> fsdp2 rank {rank}: restored step "
+              f"{r['resumed_step']} from storage in {r['restore_s']:.3f} s;"
+              f" next loss {loss:.6f} (fsdp2_tp2 uninterrupted "
+              f"{next_loss:.6f}, rel {rel:.2e}, tol "
+              f"{MESH_RANK_RTOL:.0e}); grad norm rel {rel_norm:.2e} (tol "
+              f"{MESH_RANK_NORM_RTOL:.0e})", flush=True)
+        if r["resumed_step"] != want["step"] or rel > MESH_RANK_RTOL or \
+                rel_norm > MESH_RANK_NORM_RTOL or not math.isfinite(loss):
+            raise AssertionError(f"fsdp2_tp2 -> fsdp2 rank {rank}: step "
+                                 f"{r['resumed_step']}, loss {loss}, grad "
+                                 f"norm {norm} against {next_loss}, "
+                                 f"{next_norm}")
+        if r["flash_launches"][0] != per_step:
+            raise AssertionError(f"the cross-mesh step launched "
+                                 f"{r['flash_launches'][0]}")
+        for k in launches:
+            launches[k] += r["flash_launches"][0][k]
 
 
 def moe_phase(fa) -> dict:
@@ -2049,9 +2227,13 @@ def expected_ring_launches(mode: str, transport: str, widths,
 
 def dp_leg():
     """The 4-rank data-parallel leg on the one card (phase 9)."""
+    import shutil
+    import tempfile
+
     import numpy as np
     import torch
 
+    from dlrover_tpu_torch.models.llama import LlamaConfig
     from dlrover_tpu_torch.parallel import dp_workers, process_group
 
     ids = np.random.default_rng(0).integers(0, 32000,
@@ -2071,6 +2253,14 @@ def dp_leg():
                                clip_norm=1.0, transport=transport))
               for name, mode, transport, steps in DP_RUNS],
     )
+    # the first run (int8_sharded over ring_pallas_q) ends with a flash
+    # checkpoint of every rank's state, residuals included
+    first = spec["runs"][0]
+    root = tempfile.mkdtemp(prefix="dp_ckpt_")
+    first["save"] = dict(dir=root, scope=f"dp{os.getpid()}")
+    check_shm(DP_WORLD * DP_CKPT_BYTES_PER_PARAM * llama_param_count(
+        LlamaConfig.llama2_1b(num_layers=DP_LAYERS)) + CKPT_META_MARGIN,
+        "the dp leg's checkpoint")
     print(f"  {DP_WORLD} rank processes share the one card over a gloo "
           f"group: every exchange is host-staged (device -> host -> "
           f"device); llama2_1b at full width, {DP_LAYERS} layers, B=1 per "
@@ -2078,13 +2268,17 @@ def dp_leg():
           f"{[(name, transport) for name, _, transport, _ in DP_RUNS]}",
           flush=True)
     t0 = time.perf_counter()
-    ranks = process_group.spawn(dp_workers.train_worker, DP_WORLD, (spec,),
-                                backend="gloo", device="cuda",
-                                timeout_s=DP_TIMEOUT_S)
-    print(f"  the leg took {time.perf_counter() - t0:.1f} s with spawn and "
-          "model set-up", flush=True)
-    records = {name: [r["runs"][name] for r in ranks]
-               for name, _, _, _ in DP_RUNS}
+    try:
+        ranks = process_group.spawn(dp_workers.train_worker, DP_WORLD,
+                                    (spec,), backend="gloo", device="cuda",
+                                    timeout_s=DP_TIMEOUT_S)
+        print(f"  the leg took {time.perf_counter() - t0:.1f} s with spawn "
+              "and model set-up", flush=True)
+        records = {name: [r["runs"][name] for r in ranks]
+                   for name, _, _, _ in DP_RUNS}
+        resume = dp_resume(spec, first, records[first["name"]])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     summary = records["int8_sharded"][0]["summary"]
     widths = summary["bucket_widths"]
     print(f"  buckets: {len(widths)}, signature {summary['signature']}, row "
@@ -2151,7 +2345,89 @@ def dp_leg():
     print("  params bit-identical across ranks after every step; step "
           "times are for the record only (4 processes time-slice the card, "
           "the exchange goes through the host)")
-    return launches, widths
+    return launches, widths, resume
+
+
+def dp_resume(spec, first, saved_recs) -> dict:
+    """The dp leg's checkpoint: every rank's restores at its own degree
+    (``check_ckpt_leg``: torch.equal, the next step's loss and launches),
+    then DP_RESUME_WORLD new ranks restore it from storage with
+    ``Trainer.load_state`` and take one step of the same policy.  Their
+    residuals must sum to the residuals saved (EF_SUM_RTOL of the saved
+    residuals' norm, through ``dp_workers.ef_digest``'s projections), the
+    leaves the saving degree did not quantize must be zero, the loss
+    finite, and the int8 encode and accumulate kernels must launch as the
+    new degree's buckets need.  Returns the ring kernels' launches of the
+    step after the restore at the new degree."""
+    from dlrover_tpu_torch.parallel import dp_workers, process_group
+
+    saved = [r["ckpt"] for r in saved_recs]
+    flash_per_step = {"flash_fwd": 2 * DP_LAYERS, "flash_bwd_dq": DP_LAYERS,
+                      "flash_bwd_dkv": DP_LAYERS}
+    check_ckpt_leg(first["name"], saved, flash_per_step,
+                   dict.fromkeys(flash_per_step, 0))
+    for c in saved:
+        for source in ("shm", "storage"):
+            if c[source]["launches"] != c["next"]["launches"]:
+                raise AssertionError(
+                    f"the step after the {source} restore launched "
+                    f"{c[source]['launches']}, the uninterrupted step "
+                    f"{c['next']['launches']}")
+    run = dict(first, name="int8_resume", steps=1,
+               resume=dict(dir=first["save"]["dir"],
+                           scope=first["save"]["scope"] + "r"))
+    del run["save"]
+    t0 = time.perf_counter()
+    ranks = process_group.spawn(
+        dp_workers.train_worker, DP_RESUME_WORLD, (dict(spec, runs=[run]),),
+        backend="gloo", device="cuda", timeout_s=DP_TIMEOUT_S)
+    recs = [r["runs"]["int8_resume"] for r in ranks]
+    ring_launches = dict.fromkeys(recs[0]["launches"][0], 0)
+    widths = recs[0]["summary"]["bucket_widths"]
+    want = {k: 0 for k in recs[0]["launches"][0]}
+    want["q8_encode"] = len(widths)
+    want["q8_accum"] = len(widths) * (DP_RESUME_WORLD - 1)
+    before, after = {}, {}
+    for c in saved:
+        for leaf, (proj, sq) in c["ef_digest"].items():
+            p, n = before.get(leaf, (0.0, 0.0))
+            before[leaf] = (p + proj, n + math.sqrt(sq))
+    for r in recs:
+        for leaf, (proj, _) in r["ef_digest"].items():
+            after[leaf] = after.get(leaf, 0.0) + proj
+    worst = 0.0
+    for leaf, total in after.items():
+        proj, norm = before.get(leaf, (0.0, 0.0))
+        if leaf not in before and total != 0.0:
+            raise AssertionError(f"{leaf}: no residual was saved, the "
+                                 f"restore gave one ({total})")
+        if leaf in before:
+            worst = max(worst, abs(total - proj) / max(norm, 1e-30))
+    print(f"  load_state at dp={DP_RESUME_WORLD} from the dp={DP_WORLD} "
+          f"checkpoint: {time.perf_counter() - t0:.1f} s with spawn; step "
+          f"{[r['resumed_step'] for r in recs]} restored in "
+          f"{[round(r['restore_s'], 3) for r in recs]} s; residual stacks "
+          f"saved {len(before)}, restored {len(after)} (the rest zero); "
+          f"sum over the replicas vs saved: max |diff| / norm {worst:.2e} "
+          f"(tol {EF_SUM_RTOL:.0e}); next loss {recs[0]['loss'][0]:.6f}; "
+          f"launches {recs[0]['launches'][0]} {recs[0]['flash_launches'][0]}",
+          flush=True)
+    if [r["resumed_step"] for r in recs] != [saved[0]["step"]] * len(recs):
+        raise AssertionError("load_state restored another step")
+    if worst > EF_SUM_RTOL or not set(before) <= set(after):
+        raise AssertionError(f"the restored residuals' sum is {worst:.2e} "
+                             "of the saved norm off, or a stack is missing")
+    for r in recs:
+        if not math.isfinite(r["loss"][0]) or r["params_agree"] != [True]:
+            raise AssertionError(f"after load_state: loss {r['loss']}, "
+                                 f"params agree {r['params_agree']}")
+        if r["launches"][0] != want or \
+                r["flash_launches"][0] != flash_per_step:
+            raise AssertionError(f"the step after load_state launched "
+                                 f"{r['launches'][0]}, expected {want}")
+        for k in ring_launches:
+            ring_launches[k] += r["launches"][0][k]
+    return ring_launches
 
 
 def main() -> int:
@@ -2209,7 +2485,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"[mesh] (this process holds "
           f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB)", flush=True)
-    mesh_launches = mesh_phase(plain)
+    mesh_launches, ckpt_launches = mesh_phase(plain)
     gc.collect()
     torch.cuda.empty_cache()
     print("[moe]", flush=True)
@@ -2256,7 +2532,7 @@ def main() -> int:
     peer_window_leg()
     print(f"[dp leg: {DP_WORLD} ranks on one card] (this process holds "
           f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB)", flush=True)
-    ring_launches, widths = dp_leg()
+    ring_launches, widths, resume_launches = dp_leg()
 
     block = 256
     largest, smallest = max(widths), min(widths)
@@ -2274,6 +2550,7 @@ def main() -> int:
              max_abs_err=errors[name][0], atol=errors[name][1],
              rel_err=errors[name][2], rel_tol=REL_TOL,
              launches_mesh=mesh_launches[name],
+             launches_ckpt=ckpt_launches[name],
              launches_moe=moe_launches[name],
              launches_pp=pp_launches[name],
              sass=sass[SASS_KERNEL[name]], **timings[name])
@@ -2281,6 +2558,7 @@ def main() -> int:
     ] + [
         dict(name=name, route="cuda", source=RING_SOURCE,
              replaces=RING_REPLACES[name], launches=ring_launches[name],
+             launches_load_state=resume_launches[name],
              max_abs_err=ring_errors[name], atol=0.0,
              **ring_timings[name])
         for name in RING_REPLACES

@@ -15,9 +15,10 @@ Save-on-failure: when the agent detects worker death it calls
 ``save_shm_on_failure`` which persists any shm snapshot newer than the
 last committed step.
 
-Not ported (ROADMAP queue 1 item 6): the distributed persister (a ``dist``
-save event) and the peer-restore announcement (``DLROVER_TPU_PEER_RESTORE``);
-both raise ``NotImplementedError``.  A failed persist is logged and kept
+Not ported: the distributed persister (a ``dist`` save event; ROADMAP
+queue 1 item 6a-ii) and the peer-restore announcement
+(``DLROVER_TPU_PEER_RESTORE``; item 6b); both raise
+``NotImplementedError``.  A failed persist is logged and kept
 (``take_error``): the engine raises it to the training thread.
 """
 
@@ -48,7 +49,9 @@ from dlrover_tpu_torch.common.storage import (
 )
 from dlrover_tpu_torch.trainer.flash_checkpoint import snapshot
 
-ROADMAP_MULTI_HOST = "ROADMAP queue 1 item 6"
+# the refused paths' ROADMAP items
+ROADMAP_DIST_PERSIST = "ROADMAP queue 1 item 6a-ii"
+ROADMAP_REPLICAS = "ROADMAP queue 1 item 6b"
 
 
 class AsyncCheckpointSaver:
@@ -263,11 +266,11 @@ class AsyncCheckpointSaver:
         if event.get("dist"):
             raise NotImplementedError(
                 "a distributed-persist save event: the distributed "
-                f"persister is not ported yet ({ROADMAP_MULTI_HOST})")
+                f"persister is not ported yet ({ROADMAP_DIST_PERSIST})")
         if envs.get_bool("DLROVER_TPU_PEER_RESTORE"):
             raise NotImplementedError(
                 "DLROVER_TPU_PEER_RESTORE is set: the peer-restore "
-                f"announcement is not ported yet ({ROADMAP_MULTI_HOST})")
+                f"announcement is not ported yet ({ROADMAP_REPLICAS})")
         process_id = int(event["process_id"])
         self._tracked[process_id] = dict(event)
         step = int(event["step"])

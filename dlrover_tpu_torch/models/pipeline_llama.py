@@ -92,8 +92,15 @@ class PipelinedLlama:
         return model.lm_head(model.final_norm(x))
 
     def shard_batch(self, batch):
+        """What this rank computes on of its own rows ``batch``: the rows
+        as they are, as the reference's ``shard_batch`` takes each
+        process's local data (the pp ranks of one dp rank pass the same
+        rows; ``rows_of_global_batch`` cuts them from a global batch)."""
+        return sharding.shard_batch(self.mesh, batch)
+
+    def rows_of_global_batch(self, batch):
         """This rank's rows of the global ``batch`` over dp."""
-        return sharding.shard_batch(self.mesh, batch, ("dp",))
+        return sharding.rows_of_global_batch(self.mesh, batch, ("dp",))
 
     @torch.no_grad()
     def sync_grads(self) -> None:

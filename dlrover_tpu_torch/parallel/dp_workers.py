@@ -14,12 +14,14 @@ right neighbour through it.
 
 import dataclasses
 import time
+import zlib
 from typing import Any, Dict, List
 
 import numpy as np
 import torch
 from torch.distributed.tensor import Shard
 
+from dlrover_tpu_torch.common.pytree import flatten_with_path
 from dlrover_tpu_torch.ops.cuda import flash_attention as fa
 from dlrover_tpu_torch.ops.cuda import rdma_ring
 from dlrover_tpu_torch.ops.cuda import ring_reduce_scatter as ring
@@ -126,8 +128,11 @@ def train_worker(group: DpGroup, spec: Dict[str, Any]) -> Dict[str, Any]:
     kwargs: the trainer over the dp group) or ``"axes"`` (``MeshConfig``
     fields: the trainer on ``build_mesh`` of them), and optionally
     ``"grad_accum"``, ``"model"`` fields and ``"grads_dtype"`` over the
-    spec's, and ``"spec"``, keys that replace the spec's for this run
-    (another ``family``, ``preset`` or ``state_dict``).
+    spec's, ``"spec"``, keys that replace the spec's for this run (another
+    ``family``, ``preset`` or ``state_dict``), and the flash checkpoint's
+    ``"resume"`` and ``"save"`` (``{"dir", "scope"}`` each): ``resume``
+    starts the run from ``Trainer.load_state`` of that directory instead
+    of a fresh state, ``save`` ends it with ``save_and_restore``.
 
     Returns, per run: losses, grad norms, step seconds (on the host clock,
     after a device synchronize), the ring and flash kernels' launches per
@@ -135,58 +140,22 @@ def train_worker(group: DpGroup, spec: Dict[str, Any]) -> Dict[str, Any]:
     final params (gathered whole on a mesh).  A dp run adds whether every
     rank's params were bit-identical after every step and the sync
     summary; a mesh run adds the mesh's shape, each parameter's local
-    shape and the sharding axes of each param and moment leaf."""
-    from dlrover_tpu_torch.trainer.optim import create_optimizer
-    from dlrover_tpu_torch.trainer.train import Trainer
-
-    device = group.device
+    shape and the sharding axes of each param and moment leaf.  A resumed
+    run adds ``resumed_step``, ``restore_s`` and ``ef_digest`` (of the
+    restored residuals); a saved one, ``ckpt`` (``save_and_restore``)."""
     out: Dict[str, Any] = {"rank": group.rank, "world": group.world,
                            "backend": group.backend, "runs": {}}
     for run in spec["runs"]:
         run_spec = dict(spec, **run.get("spec", {}))
-        if device.type == "cuda":
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats(device)
-        on_mesh = "axes" in run
-        place = (dict(mesh=build_mesh(MeshConfig.from_dict(run["axes"]),
-                                      device=device)) if on_mesh else
-                 dict(grad_sync=collectives.GradSyncPolicy(**run["policy"]),
-                      dp_group=group))
-        model = make_model(run_spec, device, run.get("model"))
-        trainer = Trainer(
-            model, create_optimizer(**run_spec["optimizer"]),
-            loss_fn=make_loss(run_spec, model),
-            grads_dtype=run.get("grads_dtype", run_spec.get("grads_dtype")),
-            grad_accum_steps=run.get("grad_accum", 1), device=device,
-            **place)
-        state = trainer.create_state()
-        batch = trainer.shard_batch(run_spec["batch"])
-        record = {"loss": [], "grad_norm": [], "step_s": [],
-                  "launches": [], "flash_launches": [], "params_agree": []}
-        for _ in range(run["steps"]):
-            reset_launch_counts()
-            fa.reset_launches()
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            t0 = time.perf_counter()
-            state, metrics = trainer.train_step(state, batch)
-            loss = metrics["loss"].item()
-            grad_norm = metrics["grad_norm"].item()
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            record["step_s"].append(time.perf_counter() - t0)
-            record["launches"].append(launch_counts())
-            record["flash_launches"].append(dict(fa.launches))
-            record["loss"].append(loss)
-            record["grad_norm"].append(grad_norm)
-            if not on_mesh:
-                sums = group.all_gather(torch.tensor(
-                    [params_checksum(state.params)], dtype=torch.int64,
-                    device=device))
-                record["params_agree"].append(
-                    bool((sums == sums[0]).all().item()))
-        record["peak_mem_bytes"] = (torch.cuda.max_memory_allocated(device)
-                                    if device.type == "cuda" else None)
+        trainer, batch = build_trainer(group, run_spec, run)
+        record = new_record()
+        if "resume" in run:
+            state = resume(trainer, group, run["resume"], record)
+        else:
+            state = trainer.create_state()
+        state = train_steps(trainer, state, batch, run["steps"], group,
+                            record)
+        on_mesh = trainer.mesh is not None
         if on_mesh:
             record["shape"] = mesh_shape(trainer.mesh)
             record["axes"] = {k: sharding_axes(v) for k, v in
@@ -200,9 +169,207 @@ def train_worker(group: DpGroup, spec: Dict[str, Any]) -> Dict[str, Any]:
         if spec.get("return_params") and group.rank == 0:
             record["params"] = {n: p.detach().cpu().numpy().copy()
                                 for n, p in params.items()}
+        del params
+        if "save" in run:
+            record["ckpt"] = save_and_restore(trainer, state, batch, group,
+                                              run["save"])
         out["runs"][run["name"]] = record
         trainer.close()
-        del trainer, model, state, params
+        del trainer, state
+    return out
+
+
+def build_trainer(group: DpGroup, run_spec: Dict[str, Any],
+                  run: Dict[str, Any]):
+    """``(trainer, batch)`` of one run of ``train_worker``: the model and
+    ``Trainer`` on the run's mesh or over the dp group, and what this rank
+    computes on of its rows.  Empties the card's cache and resets its peak
+    memory first."""
+    from dlrover_tpu_torch.trainer.optim import create_optimizer
+    from dlrover_tpu_torch.trainer.train import Trainer
+
+    device = group.device
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    place = (dict(mesh=build_mesh(MeshConfig.from_dict(run["axes"]),
+                                  device=device)) if "axes" in run else
+             dict(grad_sync=collectives.GradSyncPolicy(**run["policy"]),
+                  dp_group=group))
+    model = make_model(run_spec, device, run.get("model"))
+    trainer = Trainer(
+        model, create_optimizer(**run_spec["optimizer"]),
+        loss_fn=make_loss(run_spec, model),
+        grads_dtype=run.get("grads_dtype", run_spec.get("grads_dtype")),
+        grad_accum_steps=run.get("grad_accum", 1), device=device,
+        **place)
+    return trainer, trainer.shard_batch(
+        trainer.rows_of_global_batch(run_spec["batch"]))
+
+
+def new_record() -> Dict[str, Any]:
+    return {"loss": [], "grad_norm": [], "step_s": [], "launches": [],
+            "flash_launches": [], "params_agree": []}
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def train_steps(trainer, state, batch, steps: int, group: DpGroup,
+                record: Dict[str, Any]):
+    """``steps`` train steps, each appended to ``record`` (losses, grad
+    norms, step seconds, kernel launches and, over a dp group, whether
+    every rank's params are bit-identical); returns the state.  Records
+    the peak device memory."""
+    device = group.device
+    for _ in range(steps):
+        reset_launch_counts()
+        fa.reset_launches()
+        _sync(device)
+        t0 = time.perf_counter()
+        state, metrics = trainer.train_step(state, batch)
+        loss = metrics["loss"].item()
+        grad_norm = metrics["grad_norm"].item()
+        _sync(device)
+        record["step_s"].append(time.perf_counter() - t0)
+        record["launches"].append(launch_counts())
+        record["flash_launches"].append(dict(fa.launches))
+        record["loss"].append(loss)
+        record["grad_norm"].append(grad_norm)
+        if trainer.mesh is None:
+            sums = group.all_gather(torch.tensor(
+                [params_checksum(state.params)], dtype=torch.int64,
+                device=device))
+            record["params_agree"].append(
+                bool((sums == sums[0]).all().item()))
+    record["peak_mem_bytes"] = (torch.cuda.max_memory_allocated(device)
+                                if device.type == "cuda" else None)
+    return state
+
+
+# -- the flash checkpoint across ranks ---------------------------------------
+
+
+def state_copy(state) -> Dict[str, Any]:
+    """Every leaf of ``state`` by path: tensors cloned where they live."""
+    return {p: v.detach().clone() if torch.is_tensor(v) else v
+            for p, v in flatten_with_path(state)}
+
+
+def state_equal(state, want: Dict[str, Any]) -> bool:
+    """Whether ``state`` holds exactly the leaves of ``want``
+    (``torch.equal`` per tensor)."""
+    got = dict(flatten_with_path(state))
+    return got.keys() == want.keys() and all(
+        torch.equal(v, want[p]) if torch.is_tensor(v) else v == want[p]
+        for p, v in got.items())
+
+
+def ef_digest(ef) -> Dict[str, List[float]]:
+    """``{leaf: [projection, squared norm]}`` of error-feedback residuals,
+    in fp64: the projection on a seeded normal vector of the leaf's size
+    (drawn on the residual's device, the same for a leaf name on every
+    rank and in every run), linear in the residual, so that the sums of
+    two sets of ranks' projections agree when their residuals sum to the
+    same leaf."""
+    out = {}
+    for name, t in sorted((ef or {}).items()):
+        gen = torch.Generator(device=t.device).manual_seed(
+            zlib.crc32(name.encode()))
+        w = torch.randn(t.numel(), generator=gen, device=t.device,
+                        dtype=torch.float32)
+        x = t.detach().reshape(-1).double()
+        out[name] = [float((x * w.double()).sum().item()),
+                     float((x * x).sum().item())]
+    return out
+
+
+def resume(trainer, group: DpGroup, where: Dict[str, str],
+           record: Dict[str, Any]):
+    """``Trainer.load_state`` from ``where["dir"]`` in a scope of its own
+    (``where["scope"]``: no shm of the saving run, so from storage);
+    records the step, the seconds and the restored residuals' digest, and
+    returns the state.  Raises when nothing restores."""
+    from dlrover_tpu_torch.trainer.flash_checkpoint import Checkpointer
+
+    ckpt = Checkpointer(where["dir"], scope=where["scope"],
+                        device=group.device)
+    try:
+        _sync(group.device)
+        t0 = time.perf_counter()
+        state, step = trainer.load_state(ckpt)
+        _sync(group.device)
+        record["restore_s"] = time.perf_counter() - t0
+    finally:
+        ckpt.engine.unlink_memory()
+        ckpt.close()
+    if state is None:
+        raise RuntimeError(f"nothing to resume from in {where['dir']}")
+    record["resumed_step"] = step
+    record["ef_digest"] = ef_digest(state.ef_residual)
+    return state
+
+
+def save_and_restore(trainer, state, batch, group: DpGroup,
+                     where: Dict[str, str]) -> Dict[str, Any]:
+    """The flash checkpoint of this rank's state, held to the state saved.
+
+    An async memory save, staged, and an async storage save of ``state``
+    into ``where["dir"]`` (scope ``where["scope"]``) and the exit barrier;
+    then one step of the saved state (``next``: the uninterrupted run's
+    next step), a restore from shm into a fresh state of the trainer and
+    one step of it (``shm``), and a restore from storage (a fresh scope,
+    so no shm) and one step of it (``storage``).  Every rank calls it.
+    Returns the seconds each save blocked and each restore took, whether
+    each restore equals (``torch.equal``, leaf by leaf) a copy taken where
+    the state lives at the save, the steps restored, each step's
+    ``train_steps`` record under ``next``, ``shm`` and ``storage``, and
+    the saved residuals' digest.  Unlinks every segment it made."""
+    from dlrover_tpu_torch.trainer.flash_checkpoint import (
+        Checkpointer,
+        StorageType,
+    )
+
+    device, step = group.device, int(state.step)
+    out: Dict[str, Any] = {"step": step,
+                           "ef_digest": ef_digest(state.ef_residual)}
+    want = state_copy(state)
+    ckpt = Checkpointer(where["dir"], scope=where["scope"], device=device)
+    fresh = Checkpointer(where["dir"], scope=where["scope"] + "_fresh",
+                         device=device)
+    try:
+        out["memory_save_s"] = ckpt.save_checkpoint(
+            step, state, StorageType.MEMORY, trainer=trainer)
+        # staged before the storage save, whose blocking time would else
+        # hold the wait for the device-copy slot
+        ckpt.wait_latest_checkpoint(timeout=600)
+        out["blocking_save_s"] = ckpt.save_checkpoint(
+            step, state, StorageType.DISK, trainer=trainer)
+        out["persisted"] = ckpt.wait_latest_checkpoint(timeout=600)
+        # process 0 commits the step once every process persisted its part
+        group.all_reduce(torch.zeros(1, device=device))
+        out["next"] = new_record()
+        train_steps(trainer, state, batch, 1, group, out["next"])
+        for name, source in (("shm", ckpt), ("storage", fresh)):
+            _sync(device)
+            t0 = time.perf_counter()
+            restored, got = source.load_checkpoint(trainer.create_state(),
+                                                   trainer=trainer)
+            _sync(device)
+            out[f"restore_{name}_s"] = time.perf_counter() - t0
+            out[f"{name}_step"] = got
+            out[f"{name}_equal"] = (restored is not None
+                                    and state_equal(restored, want))
+            if restored is not None:
+                out[name] = new_record()
+                train_steps(trainer, restored, batch, 1, group, out[name])
+            del restored
+    finally:
+        for c in (ckpt, fresh):
+            c.engine.unlink_memory()
+            c.close()
     return out
 
 

@@ -164,7 +164,8 @@ def pipeline_worker(group: DpGroup, spec: Dict[str, Any]) -> Dict[str, Any]:
         pipe = PipelinedLlama(make_model(spec, group.device), mesh,
                               run["num_microbatches"])
         rec = _function_steps(pipe, pipe.model, spec,
-                              dict(run, batch=pipe.shard_batch(run["batch"])),
+                              dict(run, batch=pipe.shard_batch(
+                                  pipe.rows_of_global_batch(run["batch"]))),
                               sync=pipe.sync_grads, data=pipe.dp)
         rec.update(shape=mesh_shape(mesh), pp_rank=pipe.pp.rank,
                    dp_rank=0 if pipe.dp is None else pipe.dp.rank)

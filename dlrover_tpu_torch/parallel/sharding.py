@@ -21,9 +21,12 @@ those annotations; here the table decides where each tensor is split:
   biases carry no annotation in the reference, so their axes are empty:
   replicated over every mesh axis.  The port's params are plain tensors,
   so there is nothing to unbox (the reference's ``unbox_params``);
-* ``shard_batch`` gives this rank its rows of the global batch over the
-  data axes and, where the rules split the sequence (``cp``), its chunk
-  of their sequence.
+* ``shard_batch`` takes this rank's own rows, as the reference's takes
+  each process's local data (``make_array_from_process_local_data``), and
+  cuts only, where the rules split the sequence (``cp``), its chunk of
+  their sequence: ranks that differ only in cp, tp or ep pass the same
+  rows.  ``rows_of_global_batch`` is what a caller that holds the whole
+  global batch feeds it: this rank's block of rows over the data axes.
 """
 
 import re
@@ -170,30 +173,42 @@ def _data_index(mesh, data_axes: Sequence[str] = ("dp", "fsdp")
     return index, count
 
 
-def shard_batch(mesh, batch, data_axes: Tuple[str, ...] = ("dp", "fsdp")):
-    """This rank's block of the global ``batch`` (a dict of arrays or
-    tensors, [B, S, ...] with the batch leading): the batch split into as
-    many equal blocks of rows as the data axes hold ranks, block ``index``
-    for this rank; and, over the axis the rules give ``seq`` (cp), the
-    sequence split into contiguous chunks, chunk ``r`` for cp rank ``r``
-    (the ring's order).  Ranks that differ only in other axes (tp, ep)
-    get the same block."""
+def rows_of_global_batch(mesh, batch,
+                         data_axes: Tuple[str, ...] = ("dp", "fsdp")):
+    """This rank's rows of the global ``batch`` (a dict of arrays or
+    tensors, [B, ...] with the batch leading): the batch split into as many
+    equal blocks of rows as the data axes hold ranks, block ``index`` for
+    this rank.  Ranks that differ only in other axes (tp, cp, ep) get the
+    same block.  Hand the result to ``shard_batch``."""
     index, count = _data_index(mesh, data_axes)
-    seq_axis = rules_to_dict(DEFAULT_LOGICAL_RULES)["seq"]
-    chunk, chunks = _data_index(mesh, (seq_axis,))
     out = {}
     for k, v in batch.items():
         if v.shape[0] % count:
             raise ValueError(f"batch {k!r} of {v.shape[0]} rows does not "
                              f"split over {count} data ranks")
         n = v.shape[0] // count
-        v = v[index * n:(index + 1) * n]
-        if chunks > 1:
-            if v.ndim < 2 or v.shape[1] % chunks:
-                raise ValueError(f"batch {k!r} of shape {tuple(v.shape)} "
-                                 f"does not split its sequence over "
-                                 f"{chunks} {seq_axis} ranks")
-            s = v.shape[1] // chunks
-            v = v[:, chunk * s:(chunk + 1) * s]
-        out[k] = v
+        out[k] = v[index * n:(index + 1) * n]
+    return out
+
+
+def shard_batch(mesh, batch):
+    """What this rank computes on of its own rows ``batch`` (a dict of
+    arrays or tensors, [B, S, ...] with the batch leading): the rows as
+    they are, as the reference's ``shard_batch`` takes each process's local
+    data, and, over the axis the rules give ``seq`` (cp), their sequence
+    split into contiguous chunks, chunk ``r`` for cp rank ``r`` (the
+    ring's order).  The ranks that differ only in cp, tp or ep pass the
+    same rows (``rows_of_global_batch`` cuts them from a global batch)."""
+    seq_axis = rules_to_dict(DEFAULT_LOGICAL_RULES)["seq"]
+    chunk, chunks = _data_index(mesh, (seq_axis,))
+    if chunks == 1:
+        return dict(batch)
+    out = {}
+    for k, v in batch.items():
+        if v.ndim < 2 or v.shape[1] % chunks:
+            raise ValueError(f"batch {k!r} of shape {tuple(v.shape)} "
+                             f"does not split its sequence over "
+                             f"{chunks} {seq_axis} ranks")
+        s = v.shape[1] // chunks
+        out[k] = v[:, chunk * s:(chunk + 1) * s]
     return out

@@ -9,24 +9,40 @@ loop::
     for step in range(...):
         state, _ = trainer.train_step(state, batch)
         if step % 10 == 0:
-            ckpt.save_checkpoint(step, state)                  # enqueue only
+            ckpt.save_checkpoint(step, state, trainer=trainer)  # enqueue only
         if step % 500 == 0:
-            ckpt.save_checkpoint(step, state, StorageType.DISK)
+            ckpt.save_checkpoint(step, state, StorageType.DISK,
+                                 trainer=trainer)
 
     # restart: a fresh state on the card is the target, filled in place
     state, step = ckpt.load_checkpoint(trainer.create_state(),
                                        trainer=trainer)
 
 The reference's ``load_checkpoint(abstract_state, shardings)`` becomes
-``load_checkpoint(target)``: one device and no mesh, and the port restores
-into a state that already lives on its device rather than allocating a
-second one.
+``load_checkpoint(target, trainer)``: the port restores into a state that
+already lives on its device rather than allocating a second one, and the
+``trainer`` that made the state says where its local tensors sit in the
+global leaves (``Trainer.state_layout``), as a JAX array's sharding does.
+On a mesh or a dp group every rank calls both, with its own state and its
+trainer (a state no trainer made passes its ``layout``: ``{}`` when every
+leaf is whole on every rank); a world refuses a call with neither.  A
+trainer's restore across a change of the dp degree is
+``Trainer.load_state``.
 """
 
 from typing import Any, Dict, Optional, Tuple
 
 from dlrover_tpu_torch.device import DeviceLike
 from dlrover_tpu_torch.trainer.flash_checkpoint.engine import CheckpointEngine
+from dlrover_tpu_torch.trainer.flash_checkpoint.snapshot import Layout
+
+
+def _layout(state: Any, trainer, layout: Optional[Layout]):
+    if trainer is None:
+        return layout
+    if layout is not None:
+        raise ValueError("pass a trainer or a layout, not both")
+    return trainer.state_layout(state)
 
 
 class StorageType:
@@ -74,28 +90,44 @@ class Checkpointer:
         state: Any,
         storage_type: int = StorageType.MEMORY,
         extras: Optional[Dict] = None,
+        trainer=None,
+        layout: Optional[Layout] = None,
     ) -> float:
         """Returns seconds the training loop was blocked.  Raises a
-        failure of an earlier save's background staging or persist."""
+        failure of an earlier save's background staging or persist.
+        ``trainer``: the one that trains ``state``; on a mesh or a dp
+        group its layout places this rank's shards in the global leaves.
+        ``layout``, for a state no trainer made: ``{path: (global shape,
+        box)}`` of this rank's tensors, a leaf it does not name whole.
+        Over a world one of the two is required."""
+        layout = _layout(state, trainer, layout)
         if storage_type == StorageType.DISK:
             if self._async:
-                return self._engine.save_to_storage_async(step, state, extras)
-            return self._engine.save_to_storage(step, state, extras)
+                return self._engine.save_to_storage_async(step, state, extras,
+                                                          layout)
+            return self._engine.save_to_storage(step, state, extras, layout)
         if self._async:
-            return self._engine.save_to_memory_async(step, state, extras)
-        return self._engine.save_to_memory(step, state, extras)
+            return self._engine.save_to_memory_async(step, state, extras,
+                                                     layout)
+        return self._engine.save_to_memory(step, state, extras,
+                                           layout=layout)
 
-    def load_checkpoint(self, target: Any,
-                        trainer=None) -> Tuple[Optional[Any], int]:
+    def load_checkpoint(self, target: Any, trainer=None,
+                        layout: Optional[Layout] = None,
+                        ) -> Tuple[Optional[Any], int]:
         """``(state, step)`` from shm if possible, storage otherwise;
-        ``(None, -1)`` when no checkpoint exists.
+        ``(None, -1)`` when no checkpoint exists.  Collective over a world
+        of ranks.
 
         ``target`` is a state of the saved structure on its device (e.g.
         ``trainer.create_state()``); its tensors are filled in place.
-        Pass the ``trainer`` that trains it: a trainer with
-        ``grads_dtype`` runs on a copy of the masters held by its model,
-        which the restore must refresh."""
-        state, step = self._engine.load(target)
+        Pass the ``trainer`` that trains it: its layout places this rank's
+        shards (a storage restore reshards them from whatever mesh saved
+        them), and a trainer with ``grads_dtype`` runs on a copy of the
+        masters held by its model, which the restore must refresh.
+        ``layout`` is ``save_checkpoint``'s."""
+        layout = _layout(target, trainer, layout)
+        state, step = self._engine.load(target, layout)
         if state is not None and trainer is not None:
             trainer.refresh_compute_copy(state)
         return state, step

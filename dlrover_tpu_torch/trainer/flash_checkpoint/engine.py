@@ -1,10 +1,9 @@
 """Checkpoint engine: the training-process side of Flash Checkpoint.
 
-Port of ``dlrover_tpu/trainer/flash_checkpoint/engine.py``, the
-single-process path.  Save path: device->host copy of the state's tensors
-into shm, then an event to the async saver, which persists shm to storage
-off the training path.  Load path: shm fast path, else the newest readable
-step on storage.
+Port of ``dlrover_tpu/trainer/flash_checkpoint/engine.py``.  Save path:
+device->host copy of the state's tensors into shm, then an event to the
+async saver, which persists shm to storage off the training path.  Load
+path: shm fast path, else the newest readable step on storage.
 
 The async save (``save_to_memory_async`` / ``save_to_storage_async``) must
 deal with what the reference does not have: the port's ``train_step``
@@ -22,13 +21,27 @@ A restore fills the target state's tensors IN PLACE (``load(target)``):
 host-to-device copies from shm or from the files, and no second
 device-resident copy of the state.
 
-Not ported (ROADMAP queue 1 item 6), and refused with
-``NotImplementedError``: ``replica=True``, ``DLROVER_TPU_PEER_RESTORE``,
-``DLROVER_TPU_DIST_PERSIST`` and more than one process (the reference
-agrees on the restore step with ``jax.experimental.multihost_utils``).
-Telemetry (memscope, metrics, trace, timer) is item 7: the engine marks its
-phases with ``torch.profiler.record_function`` spans under the reference's
-names (``flash.save``, ``flash.load``, ``ckpt_device_to_host``,
+Over a ``torch.distributed`` world of N ranks (one process each), the
+process id and count are the rank and the world size.  Each rank writes
+the local tensors of its state into its own segment, each at its box of
+the leaf's global shape (``layout``: ``Trainer.state_layout``;
+``snapshot.py``), and its saver persists them under ``tmp_<step>``; process
+0 commits once every process's done file exists.  A restore is collective,
+with a fixed count of agreements per ``load``: every rank offers its shm
+step (the shm must cover this rank's target boxes), one ``all_gather`` of
+one int64 agrees on it, and only a step that every rank offers wins;
+otherwise every rank scans storage for its newest fully covering step, and
+one more ``all_gather`` agrees on that, or every rank starts fresh.  A
+storage restore may reshard: each target box is read from the stored boxes
+it overlaps, whatever mesh saved them.  Ranks that share one host and no
+agent each run their own in-process saver.
+
+Not ported, and refused with ``NotImplementedError``: ``replica=True`` and
+``DLROVER_TPU_PEER_RESTORE`` (ROADMAP queue 1 item 6b),
+``DLROVER_TPU_DIST_PERSIST`` (item 6a-ii).  Telemetry (memscope, metrics,
+trace, timer) is item 7: the engine marks its phases with
+``torch.profiler.record_function`` spans under the reference's names
+(``flash.save``, ``flash.load``, ``ckpt_device_to_host``,
 ``ckpt_shm_write``, ``ckpt_stream_stage``).
 """
 
@@ -61,7 +74,10 @@ from dlrover_tpu_torch.common.pytree import flatten_with_path, map_with_path
 from dlrover_tpu_torch.common.storage import get_checkpoint_storage
 from dlrover_tpu_torch.device import DeviceLike, resolve_device
 from dlrover_tpu_torch.trainer.flash_checkpoint import snapshot
-from dlrover_tpu_torch.trainer.flash_checkpoint.snapshot import ShardIndexMap
+from dlrover_tpu_torch.trainer.flash_checkpoint.snapshot import (
+    Layout,
+    ShardIndexMap,
+)
 from dlrover_tpu_torch.training_event.emitter import (
     TrainerEvents,
     get_default_emitter,
@@ -75,7 +91,9 @@ CKPT_PROGRESS = "ckpt_progress"
 # (a typed view needs an offset its element size divides)
 _COPY_ALIGN = 256
 
-ROADMAP_MULTI_HOST = "ROADMAP queue 1 item 6"
+# the refused paths' ROADMAP items
+ROADMAP_DIST_PERSIST = "ROADMAP queue 1 item 6a-ii"
+ROADMAP_REPLICAS = "ROADMAP queue 1 item 6b"
 
 
 def default_scope() -> str:
@@ -294,6 +312,57 @@ def _tensor_from_bytes(buf, dtype: str, shape) -> torch.Tensor:
     return raw.view(snapshot.torch_dtype(dtype)).reshape(shape)
 
 
+def process_identity(process_id: Optional[int] = None,
+                     num_processes: Optional[int] = None) -> Tuple[int, int]:
+    """``(process id, process count)`` of this engine: the rank and world
+    size of ``torch.distributed`` when a world is initialised (the restore
+    agreement runs over it), else the arguments or ``NodeEnv``'s
+    ``PROCESS_ID`` and ``NUM_PROCESSES``.  An argument or an env value that
+    names another rank or world raises, and so does a count above one with
+    no world to agree over."""
+    if dist.is_available() and dist.is_initialized():
+        have = {"process_id": dist.get_rank(),
+                "num_processes": dist.get_world_size()}
+        for name, given, env in (
+                ("process_id", process_id, NodeEnv.PROCESS_ID),
+                ("num_processes", num_processes, NodeEnv.NUM_PROCESSES)):
+            claims = [(name, given)]
+            if os.environ.get(env, "") != "":
+                claims.append((env, int(os.environ[env])))
+            for source, value in claims:
+                if value is not None and int(value) != have[name]:
+                    raise ValueError(
+                        f"{source}={value} conflicts with the "
+                        f"torch.distributed world ({name} {have[name]})")
+        return have["process_id"], have["num_processes"]
+    pid = (process_id if process_id is not None
+           else envs.get_int(NodeEnv.PROCESS_ID))
+    count = (num_processes if num_processes is not None
+             else envs.get_int(NodeEnv.NUM_PROCESSES))
+    if count > 1:
+        raise ValueError(
+            f"{count} processes and no torch.distributed world: the "
+            "restore step is agreed over it; initialise it first "
+            "(trainer/bootstrap.init)")
+    return int(pid), int(count)
+
+
+def target_boxes(target: Any, layout: Optional[Layout] = None) -> Dict:
+    """``{path: (global shape, box)}`` of every leaf of ``target`` on this
+    rank: ``layout``'s, or the whole leaf for a leaf it does not name."""
+    layout = layout or {}
+    out = {}
+    for path, leaf in flatten_with_path(target):
+        if path in layout:
+            gshape, box = layout[path]
+            out[path] = ([int(d) for d in gshape],
+                         [[int(a), int(b)] for a, b in box])
+        else:
+            shape = [int(d) for d in snapshot._as_tensor(leaf).shape]
+            out[path] = (shape, [[0, d] for d in shape])
+    return out
+
+
 class CheckpointEngine:
     def __init__(
         self,
@@ -309,39 +378,18 @@ class CheckpointEngine:
             # a concrete index: a tensor's device compares equal to it
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.checkpoint_dir = checkpoint_dir
-        self.process_id = (
-            process_id
-            if process_id is not None
-            else envs.get_int(NodeEnv.PROCESS_ID)
-        )
-        self.num_processes = (
-            num_processes
-            if num_processes is not None
-            else envs.get_int(NodeEnv.NUM_PROCESSES)
-        )
+        self.process_id, self.num_processes = process_identity(
+            process_id, num_processes)
         if replica:
             raise NotImplementedError(
                 "replica=True (peer replicas of the shm snapshot) is not "
-                f"ported yet ({ROADMAP_MULTI_HOST})")
-        if self.num_processes > 1:
-            raise NotImplementedError(
-                f"{self.num_processes} processes: the port's flash "
-                "checkpoint is single-process; the collective restore-step "
-                f"agreement is not ported yet ({ROADMAP_MULTI_HOST})")
-        if dist.is_available() and dist.is_initialized() and \
-                dist.get_world_size() > 1:
-            # a mesh trainer's state holds this rank's shards: saving one
-            # as the whole leaf would be a wrong checkpoint
-            raise NotImplementedError(
-                f"a torch.distributed world of {dist.get_world_size()} "
-                "ranks: the port's flash checkpoint saves one process's "
-                "whole leaves; sharded states and the collective restore "
-                f"are not ported yet ({ROADMAP_MULTI_HOST})")
-        for knob in ("DLROVER_TPU_PEER_RESTORE", "DLROVER_TPU_DIST_PERSIST"):
+                f"ported yet ({ROADMAP_REPLICAS})")
+        for knob, item in (("DLROVER_TPU_PEER_RESTORE", ROADMAP_REPLICAS),
+                           ("DLROVER_TPU_DIST_PERSIST",
+                            ROADMAP_DIST_PERSIST)):
             if envs.get_bool(knob):
                 raise NotImplementedError(
-                    f"{knob} is set: that path is not ported yet "
-                    f"({ROADMAP_MULTI_HOST})")
+                    f"{knob} is set: that path is not ported yet ({item})")
         # URL checkpoint dirs raise here (the fsspec backend is item 7)
         self._storage = get_checkpoint_storage(path=checkpoint_dir)
         self._scope = scope or default_scope()
@@ -366,21 +414,26 @@ class CheckpointEngine:
         queue_name = f"{CKPT_EVENT_QUEUE}_{self._scope}"
         queue_probe = SharedQueue(queue_name, create=False)
         agent_side = queue_probe.is_available()
+        # no agent: persist from a background thread pool in-process.  The
+        # ranks of a world may share a host, so each names its own queue
+        # and progress dict (a rank must not take another's for an agent's)
+        local_scope = (self._scope if self.num_processes <= 1
+                       else f"{self._scope}_local{self.process_id}")
         self._queue = (
-            queue_probe if agent_side else SharedQueue(queue_name, create=True)
+            queue_probe if agent_side else
+            SharedQueue(f"{CKPT_EVENT_QUEUE}_{local_scope}", create=True)
         )
         self._progress = SharedDict(
             f"{CKPT_PROGRESS}_{self._scope}", create=False
         )
         self._local_saver = None
         if not agent_side:
-            # no agent: persist from a background thread pool in-process
             from dlrover_tpu_torch.agent.ckpt_saver import (
                 AsyncCheckpointSaver,
             )
 
             self._local_saver = AsyncCheckpointSaver(
-                scope=self._scope, queue=self._queue
+                scope=local_scope, queue=self._queue
             )
             self._local_saver.start()
         self.latest_memory_step = -1
@@ -505,25 +558,44 @@ class CheckpointEngine:
                     f"leaf {path} is on {leaf.device}; this engine "
                     f"checkpoints a state on {self.device}")
 
+    def _check_layout(self, layout: Optional[Layout]) -> None:
+        """Over a world a rank's tensors may be shards, and only the
+        layout says so: saved or restored as whole leaves they would be a
+        wrong checkpoint.  ``{}`` says every leaf is whole on every
+        rank."""
+        if layout is None and self.num_processes > 1:
+            raise ValueError(
+                f"a world of {self.num_processes} processes needs the "
+                "state's layout (Trainer.state_layout; {} for a state "
+                "whole on every rank): without it every local tensor "
+                "would pass for its whole leaf")
+
     def save_to_memory(
         self,
         step: int,
         state: Any,
         extras: Optional[Dict] = None,
         block_on_busy: bool = False,
+        layout: Optional[Layout] = None,
     ) -> float:
         """Blocking device->host snapshot into shm; returns blocked secs.
 
         When the saver still holds the buffer (persisting the previous
         snapshot), a plain memory save is *skipped* rather than stalling
         the training loop; storage saves pass ``block_on_busy=True``
-        because the caller explicitly asked for durability."""
+        because the caller explicitly asked for durability.  ``layout``
+        places this rank's local tensors in their global leaves
+        (``Trainer.state_layout``); a leaf it does not name is saved
+        whole.  Over a world it is required (``_check_layout``)."""
+        self._check_layout(layout)
         self._raise_background_error()
         self._check_device(state)
         with record_function("flash.save"):
-            return self._save_to_memory(step, state, extras, block_on_busy)
+            return self._save_to_memory(step, state, extras, block_on_busy,
+                                        layout)
 
-    def _save_to_memory(self, step, state, extras, block_on_busy) -> float:
+    def _save_to_memory(self, step, state, extras, block_on_busy,
+                        layout) -> float:
         t0 = time.time()
         if not block_on_busy:
             # cheap skip probe: an in-process stager mid-stream, or the
@@ -541,7 +613,7 @@ class CheckpointEngine:
         self._ensure_registered()
         t_d2h = time.time()
         with record_function("ckpt_device_to_host"):
-            leaves = snapshot.extract_host_shards(state)
+            leaves = snapshot.extract_host_shards(state, layout=layout)
         t_write = time.time()
         # Re-acquire for the write.  A plain memory save must never
         # stall the training loop, so it skips if the stager or saver
@@ -581,15 +653,18 @@ class CheckpointEngine:
         return blocked
 
     def save_to_storage(
-        self, step: int, state: Any, extras: Optional[Dict] = None
+        self, step: int, state: Any, extras: Optional[Dict] = None,
+        layout: Optional[Layout] = None,
     ) -> float:
         """Snapshot to shm + async persist event; returns blocked secs."""
+        self._check_layout(layout)
         # record the durability promise BEFORE attempting the write: if
         # the save is dropped below, the exit barrier must see requested
         # > persisted and report the loss
         with self._persist_mu:
             self._persist_requested = max(self._persist_requested, int(step))
-        blocked = self.save_to_memory(step, state, extras, block_on_busy=True)
+        blocked = self.save_to_memory(step, state, extras, block_on_busy=True,
+                                      layout=layout)
         if blocked < 0:
             # the snapshot was not written (buffer-lock timeout): an event
             # now would persist stale data under this step's name
@@ -603,7 +678,8 @@ class CheckpointEngine:
     # -- async save --------------------------------------------------------
 
     def save_to_memory_async(
-        self, step: int, state: Any, extras: Optional[Dict] = None
+        self, step: int, state: Any, extras: Optional[Dict] = None,
+        layout: Optional[Layout] = None,
     ) -> float:
         """Snapshot with enqueue-only blocking (see module docstring).
 
@@ -611,51 +687,57 @@ class CheckpointEngine:
         memory snapshot is superseded, else this call waits (bounded) for
         the device-copy slot, else it saves synchronously — the recovery
         point always advances to this step."""
-        return self._async_save(step, state, extras, persist=False)
+        return self._async_save(step, state, extras, False, layout)
 
     def save_to_storage_async(
-        self, step: int, state: Any, extras: Optional[Dict] = None
+        self, step: int, state: Any, extras: Optional[Dict] = None,
+        layout: Optional[Layout] = None,
     ) -> float:
         """Storage save with enqueue-only blocking: the persist event is
         enqueued by the background thread AFTER the shm write, preserving
         the snapshot-before-event commit order."""
-        return self._async_save(step, state, extras, persist=True)
+        return self._async_save(step, state, extras, True, layout)
 
     def _on_copy_freed(self):
         with self._copy_cv:
             self._live_copies -= 1
             self._copy_cv.notify_all()
 
-    def _async_save(self, step, state, extras, persist: bool) -> float:
+    def _async_save(self, step, state, extras, persist: bool,
+                    layout) -> float:
+        self._check_layout(layout)
         self._raise_background_error()
         self._check_device(state)
         with record_function("flash.save"):
-            return self._async_save_body(step, state, extras, persist)
+            return self._async_save_body(step, state, extras, persist,
+                                         layout)
 
-    def _sync_save(self, step, state, extras, persist: bool,
+    def _sync_save(self, step, state, extras, persist: bool, layout,
                    block_on_busy: bool = False) -> float:
         if persist:
-            return self.save_to_storage(step, state, extras)
+            return self.save_to_storage(step, state, extras, layout)
         return self.save_to_memory(step, state, extras,
-                                   block_on_busy=block_on_busy)
+                                   block_on_busy=block_on_busy,
+                                   layout=layout)
 
-    def _sync_fallback(self, step, state, extras, persist: bool,
+    def _sync_fallback(self, step, state, extras, persist: bool, layout,
                        block_on_busy: bool) -> float:
         """The async save's synchronous fallback (the recovery point still
         advances); recorded as such in ``save_paths``."""
-        blocked = self._sync_save(step, state, extras, persist,
+        blocked = self._sync_save(step, state, extras, persist, layout,
                                   block_on_busy=block_on_busy)
         if self.save_paths and self.save_paths[-1] == (int(step), "sync"):
             self.save_paths[-1] = (int(step), "sync_fallback")
         return blocked
 
-    def _async_save_body(self, step, state, extras, persist: bool) -> float:
+    def _async_save_body(self, step, state, extras, persist: bool,
+                         layout) -> float:
         t0 = time.time()
-        leaves = snapshot.plan_shards(state)
+        leaves = snapshot.plan_shards(state, layout)
         if snapshot.snapshot_nbytes(leaves) <= self._async_min_bytes:
             # small state: sync staging is ~free and leaves no window
             # where a crash right after save() loses the snapshot
-            return self._sync_save(step, state, extras, persist)
+            return self._sync_save(step, state, extras, persist, layout)
         # Never dispatch a second device copy while one is still live.  A
         # newer snapshot must NEVER lose to an older in-flight one, so when
         # the slot is held we (1) supersede a merely-QUEUED older memory
@@ -689,7 +771,7 @@ class CheckpointEngine:
                 {"step": int(step), "storage": persist},
             )
             return self._sync_fallback(step, state, extras, persist,
-                                       block_on_busy=True)
+                                       layout, block_on_busy=True)
         try:
             snap = self._device_copy(leaves)
         except torch.OutOfMemoryError as e:
@@ -698,7 +780,7 @@ class CheckpointEngine:
                 "on-device snapshot copy failed (%s); sync fallback", e
             )
             return self._sync_fallback(step, state, extras, persist,
-                                       block_on_busy=False)
+                                       layout, block_on_busy=False)
         box = _DeviceCopy(snap, self._on_copy_freed)
         del snap, leaves
         if persist:
@@ -717,7 +799,7 @@ class CheckpointEngine:
                     "storage" if persist else "memory", step,
                 )
                 return self._sync_fallback(step, state, extras, persist,
-                                           block_on_busy=True)
+                                           layout, block_on_busy=True)
             logger.warning(
                 "async snapshot step=%d dropped: stager stopped", step
             )
@@ -957,64 +1039,142 @@ class CheckpointEngine:
             candidates.insert(0, tracked)
         return candidates
 
-    def load(self, target: Any) -> Tuple[Optional[Any], int]:
+    def storage_leaf_sums(self, paths: List[str],
+                          step: int) -> Optional[Dict[str, np.ndarray]]:
+        """``{path: sum of the leaf over its leading axis}`` (fp32 numpy)
+        for ``paths``, read from storage step ``step`` onto the host one
+        leaf at a time, so the host holds one leaf's stack at once: the
+        dp-stacked error-feedback residuals of ``Trainer.load_state`` (the
+        reference's ``storage_leaves_to_host`` with the one transform its
+        caller passes).
+
+        ``step`` is the one a collective load already agreed on: scanning
+        for another here could diverge the ranks.  Paths absent from the
+        step are omitted (a dp shrink can make leaves shardable that the
+        old degree never stored); a step holding none of them, or
+        unreadable, gives None."""
+        step_dir = os.path.join(self.checkpoint_dir, str(step))
+        try:
+            loaded = self._index_maps_from_storage(step_dir)
+        except (ValueError, OSError, KeyError):
+            return None
+        if loaded is None:
+            return None
+        maps, _ = loaded
+        present = [p for p in paths if p in maps]
+        if not present:
+            return None
+        out = {}
+        try:
+            for p in present:
+                stack = maps[p].read(tuple(slice(0, d)
+                                           for d in maps[p].gshape))
+                out[p] = np.asarray(stack.numpy(), np.float32).sum(axis=0)
+        except (ValueError, OSError):
+            return None
+        return out
+
+    def load(self, target: Any, layout: Optional[Layout] = None
+             ) -> Tuple[Optional[Any], int]:
         """Restore ``(state, step)`` into ``target``: shm fast path,
         storage fallback; ``(None, -1)`` when there is no checkpoint.
 
         ``target`` is a state of the saved structure with its tensors on
-        the engine's device (e.g. ``Trainer.create_state()``).  Its
-        tensors are filled IN PLACE (cast to their own dtypes) and
-        returned in a rebuilt tree whose ints (step, counts) are the
-        checkpoint's.  A restore that fails after it began to fill the
-        target raises rather than report "no checkpoint"."""
+        the engine's device (e.g. ``Trainer.create_state()``); ``layout``
+        places its local tensors in their global leaves
+        (``Trainer.state_layout``), and may differ from the layout saved:
+        a storage restore reshards.  Its tensors are filled IN PLACE (cast
+        to their own dtypes) and returned in a rebuilt tree whose ints
+        (step, counts) are the checkpoint's.  Over a world of ranks the
+        choice of shm, storage or a fresh start is agreed collectively
+        (module docstring): every rank calls ``load``, with its
+        ``layout`` (``_check_layout``).  A restore that fails after it
+        began to fill the target raises rather than report "no
+        checkpoint"."""
+        self._check_layout(layout)
         self._raise_background_error()
         self._check_device(target)
         with record_function("flash.load"):
-            return self._load(target)
+            return self._load(target, target_boxes(target, layout))
 
-    def _load(self, target: Any) -> Tuple[Optional[Any], int]:
+    def _load(self, target: Any, boxes: Dict) -> Tuple[Optional[Any], int]:
         # a restore must see the latest snapshot, not race the stager
         self._flush_async()
         self._raise_background_error()
+        # extras describe the checkpoint restored: a memory candidate that
+        # loses the agreement must not leave its extras behind
         self.last_extras = {}
         load_span = self._events.duration(TrainerEvents.CKPT_LOAD).begin()
-        with self._buffer_write_lock(60) as _held:
-            # _held may be False when the saver is persisting: read
-            # lock-free anyway; the seqlock generation check rejects a
-            # torn read
-            restored, touched = self._load_from_shm(target)
-        if restored is not None:
-            state, step = restored
-            logger.info("restored step %d from shared memory", step)
-            load_span.end(step=step, source="memory")
-            return state, step
-        state, step = self._load_from_storage(target, touched)
+        mem_step, maps, extras, gen0 = self._memory_candidate(boxes)
+        agreed = self.agree_on_step(mem_step)
+        touched = False
+        if agreed >= 0 and agreed == mem_step and maps is not None:
+            with self._buffer_write_lock(60) as _held:
+                # the maps are views of the shm itself: the seqlock
+                # generation must not have moved by the end of the copies
+                state = self._assemble(target, maps, boxes)
+                moved = snapshot.read_generation(self._shm) != gen0
+            # the verdict is agreed as well: one rank falling back to
+            # storage alone would diverge the ranks
+            if self.agree_on_step(-1 if moved else agreed) == agreed:
+                self.last_extras = extras
+                logger.info("restored step %d from shared memory", agreed)
+                load_span.end(step=agreed, source="memory")
+                return state, agreed
+            logger.warning(
+                "shm snapshot generation moved during the restore; "
+                "restoring from storage instead"
+            )
+            touched = True
+        maps = None  # drop the views of the shm before reading storage
+        state, step = self._load_from_storage(target, boxes, touched)
         load_span.end(
             step=step, source="storage" if step >= 0 else "fresh"
         )
         return state, step
 
-    def _load_from_shm(self, target) -> Tuple[Optional[Tuple], bool]:
-        """``((state, step), touched)``: the restore from the committed
-        shm snapshot, or None when there is none that covers the target;
-        ``touched`` when the target was filled from a snapshot whose
-        generation moved meanwhile (torn)."""
-        gen0 = snapshot.read_generation(self._shm)
-        loaded = self._index_maps_from_shm()
+    def agree_on_step(self, step: int) -> int:
+        """The step every process reports, when they all report the same
+        non-negative one; else -1.  One ``all_gather`` of one int64 over
+        the world (a CPU tensor under gloo, a CUDA one under NCCL)."""
+        if self.num_processes <= 1:
+            return step
+        try:
+            device = (torch.device("cuda", torch.cuda.current_device())
+                      if str(dist.get_backend()) == "nccl" else "cpu")
+            mine = torch.tensor([int(step)], dtype=torch.int64,
+                                device=device)
+            gathered = [torch.empty_like(mine)
+                        for _ in range(self.num_processes)]
+            dist.all_gather(gathered, mine)
+            steps = [int(t.item()) for t in gathered]
+        except Exception as e:  # noqa: BLE001 - agreement must not crash
+            logger.warning("restore agreement failed (%s); using storage", e)
+            return -1
+        if all(s == steps[0] for s in steps) and steps[0] >= 0:
+            return steps[0]
+        if max(steps) >= 0:
+            logger.info("processes disagree on the restore step (%s)",
+                        steps)
+        return -1
+
+    def _memory_candidate(self, boxes: Dict):
+        """``(step, maps, extras, generation)``: this process's committed
+        shm snapshot when it covers every target box, else
+        ``(-1, None, {}, generation)``.  A pure read: the extras are kept
+        only once the candidate wins the agreement."""
+        with self._buffer_write_lock(60) as _held:
+            # _held may be False when the saver is persisting: read
+            # lock-free anyway; the seqlock generation check rejects a
+            # torn read
+            gen0 = snapshot.read_generation(self._shm)
+            loaded = self._index_maps_from_shm()
         if loaded is None:
-            return None, False
+            return -1, None, {}, gen0
         maps, step, extras = loaded
-        if not self._covers_all(target, maps):
-            return None, False
-        state = self._assemble(target, maps)
-        if snapshot.read_generation(self._shm) != gen0:
-            logger.warning(
-                "shm snapshot generation moved during the restore; "
-                "restoring from storage instead"
-            )
-            return None, True
-        self.last_extras = extras or {}
-        return (state, step), False
+        if not self._covers_all(boxes, maps):
+            return -1, None, {}, gen0
+        return int(step), maps, extras or {}, gen0
 
     def _index_maps_from_shm(self) -> Optional[Tuple[Dict, int, Dict]]:
         """Index maps over views of the committed shm snapshot (no
@@ -1032,12 +1192,15 @@ class CheckpointEngine:
             maps[leaf["path"]] = m
         return maps, meta["step"], meta.get("extras", {})
 
-    def _load_from_storage(self, target, touched: bool):
+    def _load_from_storage(self, target, boxes: Dict, touched: bool):
         # tracked step first, then older committed steps as fallbacks if
         # the tracked one is unreadable (partially deleted / corrupted)
         candidates = self._storage_step_candidates()
         excluded: set = set()
         while True:
+            # this process's newest fully covering step, then ONE
+            # agreement: a fixed collective count per load (the retry below
+            # re-enters only for a single process, whose agreement is local)
             best_step, best_maps, best_extras = -1, None, {}
             for step in candidates:
                 if step in excluded:
@@ -1053,10 +1216,18 @@ class CheckpointEngine:
                 if loaded is None:
                     continue
                 maps, extras = loaded
-                if self._covers_all(target, maps):
+                if self._covers_all(boxes, maps):
                     best_step, best_maps, best_extras = step, maps, extras
                     break
-            if best_maps is None:
+            agreed = self.agree_on_step(best_step)
+            if agreed < 0 or agreed != best_step or best_maps is None:
+                # nothing here, or the processes disagree (a shared-FS
+                # race, one host's corruption): every one starts fresh
+                if best_step >= 0 or agreed >= 0:
+                    logger.warning(
+                        "storage restore not agreed (mine=%d agreed=%d); "
+                        "starting fresh", best_step, agreed,
+                    )
                 if touched:
                     raise RuntimeError(
                         "flash checkpoint restore failed after it had "
@@ -1066,11 +1237,15 @@ class CheckpointEngine:
                 self.last_extras = {}
                 return None, -1
             try:
-                state = self._assemble(target, best_maps)
+                state = self._assemble(target, best_maps, boxes)
             except (OSError, ValueError) as e:
                 # lazy reads surfaced corruption (CRC mismatch, vanished
-                # range) only at assembly: fall back to the next older
-                # candidate, which overwrites every leaf again
+                # range) only at assembly.  One process falls back to the
+                # next older candidate, which overwrites every leaf again;
+                # over a world the agreement already happened, and one
+                # rank falling back alone would diverge the ranks
+                if self.num_processes > 1:
+                    raise
                 logger.error(
                     "checkpoint step %d failed integrity checks at "
                     "assembly (%s); trying an older step", best_step, e,
@@ -1082,16 +1257,21 @@ class CheckpointEngine:
             logger.info("restored step %d from storage", best_step)
             return state, best_step
 
-    def _covers_all(self, target, maps) -> bool:
-        for path, leaf in flatten_with_path(target):
+    @staticmethod
+    def _covers_all(boxes: Dict, maps: Dict) -> bool:
+        """Whether the stored shards cover every target leaf's box on this
+        rank, in a leaf of the same global shape."""
+        for path, (gshape, box) in boxes.items():
             index_map = maps.get(path)
             if index_map is None:
                 return False
-            shape = tuple(snapshot._as_tensor(leaf).shape)
-            if tuple(index_map.gshape) != shape:
-                # a different tensor, not a resharding
+            if [int(d) for d in index_map.gshape] != gshape:
+                # a different tensor, not a resharding: a dp-stacked
+                # residual saved at another dp degree may well cover a
+                # smaller target's rows, and assembling that corner would
+                # be silent corruption
                 return False
-            if not index_map.covers(tuple(slice(0, d) for d in shape)):
+            if not index_map.covers(tuple(slice(a, b) for a, b in box)):
                 return False
         return True
 
@@ -1193,19 +1373,21 @@ class CheckpointEngine:
                     m.add_lazy(shard_meta["index"], load)
         return maps, extras
 
-    def _assemble(self, target, maps: Dict):
-        """Fill the target's tensors in place from the maps (host-to-
-        device copies, cast to each tensor's dtype); ints come back as the
-        checkpoint's."""
+    @staticmethod
+    def _assemble(target, maps: Dict, boxes: Dict):
+        """Fill the target's tensors in place, each from the stored shard
+        of exactly its box or else from the slices of the shards it
+        overlaps (host-to-device copies, cast to each tensor's dtype);
+        ints come back as the checkpoint's."""
 
         def fill(path, leaf):
             index_map = maps.get(path)
             if index_map is None:
                 raise ValueError(f"checkpoint missing leaf {path}")
-            src = index_map.whole()
+            box = boxes[path][1]
+            src = index_map.exact(box)
             if src is None:
-                src = index_map.read(
-                    tuple(slice(0, d) for d in index_map.gshape))
+                src = index_map.read(tuple(slice(a, b) for a, b in box))
             if isinstance(leaf, torch.Tensor):
                 with torch.no_grad():
                     leaf.copy_(src.reshape(leaf.shape))

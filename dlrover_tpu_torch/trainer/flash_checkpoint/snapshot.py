@@ -16,9 +16,15 @@ Dtype strings are the reference's numpy names (``"float32"``,
 the port's own paths (``common/pytree.py``), such as
 ``params/layers.0.attn.q_proj.weight``.
 
-The device side is the port's own.  One device and no mesh: every tensor is
-one shard whose index is the whole tensor, ``[[0, d], ...]``; a Python int
-of the state (the step, an optimizer count) is a 0-d ``int64`` leaf.
+The device side is the port's own.  Each rank writes its own local tensors
+into its own segment.  A leaf that ``layout`` names (``{path: (global shape,
+index box)}``, from ``Trainer.state_layout``) is one shard of that global
+shape at that box: an FSDP2 shard, a Megatron tp shard, a ZeRO-1 moment
+chunk, or a rank's row ``[r, r + 1)`` of the dp-stacked error-feedback
+residual.  Any other tensor is one shard whose index is the whole tensor,
+``[[0, d], ...]``: a replicated leaf is written by every rank, as the
+reference's per-process path does.  A Python int of the state (the step, an
+optimizer count) is a 0-d ``int64`` leaf.
 
 Two write paths share the format:
 
@@ -45,7 +51,16 @@ import json
 import math
 import struct
 import time
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import (
+    Any,
+    Callable,
+    Dict,
+    List,
+    Mapping,
+    Optional,
+    Sequence,
+    Tuple,
+)
 
 import numpy as np
 import torch
@@ -70,6 +85,10 @@ _DEFAULT_CHUNK = 8 << 20
 # jitter as "inflation" and throttle staging to a crawl.  Below the
 # floor the pacer runs unpaced instead.
 _MIN_BASELINE_S = 0.005
+
+# where each named leaf's local tensor sits in its global tensor: path ->
+# (global shape, index box [[start, stop], ...] per dim)
+Layout = Mapping[str, Tuple[Sequence[int], Sequence[Sequence[int]]]]
 
 # the reference's dtype names (numpy's) for the torch dtypes a state holds
 DTYPE_NAMES = {
@@ -278,19 +297,36 @@ def _as_tensor(leaf) -> torch.Tensor:
     return torch.from_numpy(np.asarray(leaf))
 
 
-def _enumerate_shards(state: Any) -> List[Dict]:
+def _enumerate_shards(state: Any, layout: Optional[Layout] = None
+                      ) -> List[Dict]:
     """Flatten the state into its shard list WITHOUT any device->host
-    transfer: ``shard['data']`` stays the tensor (on its device).  One
-    device: each leaf is one shard covering the whole tensor."""
+    transfer: ``shard['data']`` stays the tensor (on its device), viewed
+    with its box's extents.  A leaf ``layout`` names is one shard at its
+    box of its global shape; any other is one shard covering the whole
+    tensor."""
+    layout = layout or {}
     leaves = []
     for path, leaf in flatten_with_path(state):
         data = _as_tensor(leaf)
+        if path in layout:
+            gshape, index = layout[path]
+            gshape = [int(d) for d in gshape]
+            index = [[int(a), int(b)] for a, b in index]
+            extents = [b - a for a, b in index]
+            if len(index) != len(gshape) or \
+                    math.prod(extents) != data.numel():
+                raise ValueError(
+                    f"leaf {path} of shape {tuple(data.shape)} does not fill "
+                    f"its box {index} of {gshape}")
+            data = data.reshape(extents)
+        else:
+            gshape = [int(d) for d in data.shape]
+            index = [[0, d] for d in gshape]
         leaves.append({
             "path": path,
             "dtype": dtype_name(data.dtype),
-            "gshape": [int(d) for d in data.shape],
-            "shards": [{"index": [[0, int(d)] for d in data.shape],
-                        "data": data}],
+            "gshape": gshape,
+            "shards": [{"index": index, "data": data}],
         })
     return leaves
 
@@ -350,6 +386,7 @@ def _to_host(leaves: List[Dict], throttled: bool,
 def extract_host_shards(
     state: Any, throttled: bool = False,
     pacer: Optional["StagePacer"] = None,
+    layout: Optional[Layout] = None,
 ) -> List[Dict]:
     """Flatten the state into its shard list with every tensor on the
     host.
@@ -359,8 +396,9 @@ def extract_host_shards(
     synchronizes once.  ``throttled=True`` (the background stager's
     two-phase path) copies through the auto-pacing ``StagePacer`` in
     chunks, so a train step dispatched mid-staging waits behind at most one
-    chunk.  Host tensors are kept as they are."""
-    return _to_host(_enumerate_shards(state), throttled, pacer)
+    chunk.  Host tensors are kept as they are.  ``layout``: as
+    ``_enumerate_shards``."""
+    return _to_host(_enumerate_shards(state, layout), throttled, pacer)
 
 
 def snapshot_nbytes(leaves: List[Dict]) -> int:
@@ -372,11 +410,11 @@ def _shard_nbytes(data: torch.Tensor) -> int:
     return data.numel() * data.element_size()
 
 
-def plan_shards(state: Any) -> List[Dict]:
+def plan_shards(state: Any, layout: Optional[Layout] = None) -> List[Dict]:
     """Enumerate the shards with NO device->host transfer — the first
     half of the streaming path.  Shapes/dtypes come from tensor metadata,
     so the full shm layout can be computed before a payload byte moves."""
-    return _enumerate_shards(state)
+    return _enumerate_shards(state, layout)
 
 
 def compute_layout(
@@ -684,21 +722,35 @@ def shard_view(shm: SharedMemoryBuffer, shard_meta: Dict,
 
 class ShardIndexMap:
     """Assemble arbitrary slices of a leaf from stored global-index
-    shards (torch CPU tensors)."""
+    shards (torch CPU tensors).
+
+    A box added twice (a replicated leaf, written by every rank into its
+    own file) is kept once: the pieces then never overlap, which the
+    coverage count relies on."""
 
     def __init__(self, dtype: str, gshape: List[int]):
         self.dtype = torch_dtype(dtype)
         self.gshape = gshape
         self._pieces: List[Tuple[List[List[int]], Any]] = []
+        self._boxes: set = set()
+
+    def _new_box(self, index) -> bool:
+        key = tuple(tuple(int(i) for i in box) for box in index)
+        if key in self._boxes:
+            return False
+        self._boxes.add(key)
+        return True
 
     def add(self, index: List[List[int]], data: torch.Tensor):
-        self._pieces.append((index, data))
+        if self._new_box(index):
+            self._pieces.append((index, data))
 
     def add_lazy(self, index: List[List[int]], loader):
         """Register a shard whose bytes are fetched only if a ``read``
         actually needs it.  ``loader`` is a zero-arg callable returning
         the shard tensor."""
-        self._pieces.append((index, loader))
+        if self._new_box(index):
+            self._pieces.append((index, loader))
 
     def covers(self, target: Tuple[slice, ...]) -> bool:
         """Cheap coverage check (no copying) for the given slice."""
@@ -743,12 +795,17 @@ class ShardIndexMap:
         return data
 
     def whole(self) -> Optional[torch.Tensor]:
-        """The leaf itself when one shard covers all of it (the port's
-        own snapshots): no assembly copy."""
-        full = [[0, int(d)] for d in self.gshape]
+        """The leaf itself when one shard covers all of it: no assembly
+        copy."""
+        return self.exact([[0, int(d)] for d in self.gshape])
+
+    def exact(self, box: Sequence[Sequence[int]]) -> Optional[torch.Tensor]:
+        """The stored shard whose box is exactly ``box`` (a restore onto
+        the mesh it was saved from), or None."""
+        box = [[int(a), int(b)] for a, b in box]
         for pos, (index, _) in enumerate(self._pieces):
-            if [list(map(int, i)) for i in index] == full:
-                return self._load(pos).reshape(self.gshape)
+            if [list(map(int, i)) for i in index] == box:
+                return self._load(pos).reshape([b - a for a, b in box])
         return None
 
     def read(self, target: Tuple[slice, ...]) -> torch.Tensor:

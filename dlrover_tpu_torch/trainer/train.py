@@ -80,7 +80,10 @@ the optimizer's ``init`` maps over them, the moments); the update is
 elementwise and runs on them with no communication; the global norm
 all-reduces each leaf's partial sum over the axes that shard it
 (``optim.sharded_leaves``).  ``placements`` records each parameter's DTensor
-placements on the mesh; ``full_params`` gathers the whole leaves.
+placements on the mesh; ``full_params`` gathers the whole leaves;
+``state_layout`` places each local tensor in its global leaf for the flash
+checkpoint, and ``load_state`` restores a state across a change of the dp
+degree (the reference's).
 
 The trainer takes the Llama, the MoE Llama, GPT (its default LM loss) and
 ViT (``models/vit.vit_loss_fn``) on dp, fsdp and tp; GPT and ViT refuse
@@ -101,6 +104,7 @@ import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.profiler import record_function
 
+from dlrover_tpu_torch.common.pytree import flatten_with_path
 from dlrover_tpu_torch.device import DeviceLike, resolve_device
 from dlrover_tpu_torch.ops.cuda import ring_reduce_scatter as ring
 from dlrover_tpu_torch.parallel import collectives, sharding
@@ -211,9 +215,10 @@ class Trainer:
 
         ``mesh`` (``parallel/mesh.build_mesh``; not with ``dp_group``)
         places the model and its state by ``sharding.DEFAULT_LOGICAL_RULES``
-        (module docstring); each rank's ``train_step`` takes its rows of
-        the global batch over ``DATA_AXES`` and its chunk of their sequence
-        over cp (``shard_batch``).  A non-exact ``grad_sync`` needs a pure
+        (module docstring); each rank's ``train_step`` takes its own rows
+        (its block of the global batch over ``DATA_AXES``,
+        ``rows_of_global_batch``) and their sequence's chunk over cp
+        (``shard_batch``).  A non-exact ``grad_sync`` needs a pure
         data-parallel mesh (only dp active).  ``dp_group`` is then the
         group the gradients are summed over outside FSDP: dp, cp, or both
         flattened into one."""
@@ -352,10 +357,20 @@ class Trainer:
         self._fsdp = True
 
     def shard_batch(self, batch):
-        """This rank's rows of the global batch: over the mesh's data axes,
-        or over the dp group; the whole batch on one device."""
+        """What this rank computes on of its own rows ``batch``: the rows
+        as they are, as the reference's ``shard_batch`` takes each
+        process's local data, and on a mesh with cp their sequence's chunk
+        (``sharding.shard_batch``).  ``rows_of_global_batch`` cuts a rank's
+        rows from a global batch."""
         if self.mesh is not None:
-            return sharding.shard_batch(self.mesh, batch, DATA_AXES)
+            return sharding.shard_batch(self.mesh, batch)
+        return batch
+
+    def rows_of_global_batch(self, batch):
+        """This rank's rows of the global ``batch``: over the mesh's data
+        axes, or over the dp group; the whole batch on one device."""
+        if self.mesh is not None:
+            return sharding.rows_of_global_batch(self.mesh, batch, DATA_AXES)
         if self.dp_group is not None:
             g = self.dp_group
             n = next(iter(batch.values())).shape[0] // g.world
@@ -383,6 +398,47 @@ class Trainer:
                     optim.moment_placements(state.opt_state, params).items()})
         return out
 
+    def state_layout(self, state: "TrainState") -> Dict[str, Tuple]:
+        """Where this rank's local tensors of ``state`` sit in their global
+        leaves, by each leaf's path: ``{path: (global shape, index box)}``,
+        the flash checkpoint's ``snapshot.Layout``.  On a mesh, the masters
+        and moments that a mesh axis splits, by their placements at this
+        rank's mesh coordinate (the model's tp and ep shards hold FSDP's
+        inside them); under a sharded dp update, each moment's chunk of its
+        leaf; under a quantized sync, this rank's row ``[r, r + 1)`` of the
+        residual stacked over the dp ranks, ``(dp, *leaf)``, the
+        reference's layout.  A leaf it does not name is whole on every
+        rank."""
+        layout: Dict[str, Tuple] = {}
+        local = dict(flatten_with_path(state))
+        if self.mesh is not None:
+            coord = dict(zip(self.mesh.mesh_dim_names,
+                             self.mesh.get_coordinate()))
+            sizes = mesh_shape(self.mesh)
+            for path, place in self.state_placements(state).items():
+                if any(isinstance(p, Shard) for p in place):
+                    layout[path] = _placed_box(tuple(local[path].shape),
+                                               place, coord, sizes)
+        if self._sync_active:
+            world, rank = self._sync_world, self.dp_group.rank
+            if self.grad_sync.sharded_update:
+                names = optim.moment_placements(
+                    state.opt_state, {n: n for n in self._named})
+                for path, name in names.items():
+                    dim = self._grad_layout.dims.get(name)
+                    if dim is None:
+                        continue
+                    gshape = list(self._named[name].shape)
+                    box = [[0, d] for d in gshape]
+                    chunk = gshape[dim] // world
+                    box[dim] = [rank * chunk, (rank + 1) * chunk]
+                    layout[f"opt_state/{path}"] = (gshape, box)
+            for name, t in (state.ef_residual or {}).items():
+                layout[f"ef_residual/{name}"] = (
+                    [world, *t.shape],
+                    [[rank, rank + 1]] + [[0, d] for d in t.shape])
+        return layout
+
     def full_params(self, state: "TrainState") -> Dict[str, torch.Tensor]:
         """The whole fp32 masters, gathered from every shard (collective
         over the mesh's fsdp, tp and ep groups)."""
@@ -397,6 +453,77 @@ class Trainer:
                     t = torch.cat(list(parts), dim=place.dim)
             out[n] = t
         return out
+
+    # -- elasticity ----------------------------------------------------------
+
+    def load_state(self, checkpointer) -> Tuple[Optional[TrainState], int]:
+        """The flash checkpoint's restore into a fresh state of this
+        trainer (``create_state``, filled in place), surviving a change of
+        the dp degree under a quantized ``grad_sync``: the reference's
+        ``Trainer.load_state``.  Collective: every rank calls it.
+
+        The optimizer moments keep dp-independent global shapes, so the
+        storage restore reshards them.  The error-feedback residuals are
+        the one dp-shaped leaf (``(dp, *leaf)``, ``state_layout``): when
+        the stored degree differs, the stacks are summed on the host and
+        every new replica carries ``sum(old residuals) / dp_new``, which
+        keeps the total error the old fleet still owed.
+
+        Returns ``(state, step)``; ``(None, -1)`` when nothing restores."""
+        target = self.create_state()
+        state, step = checkpointer.load_checkpoint(target, trainer=self)
+        if target.ef_residual is None:
+            return state, step
+        if state is None:
+            return self._load_state_rebuild_ef(checkpointer, target)
+        # the first load covers the EF stacks, so it restored a step saved
+        # at this degree; a newer step saved at another degree was skipped
+        # by its scan.  The newest step is agreed, so that every rank takes
+        # the same branch (a failed agreement keeps this restore)
+        engine = checkpointer.engine
+        newest = engine.agree_on_step(engine.latest_step())
+        if newest <= step:
+            return state, step
+        logger.info("grad-sync restore: step %d restored but step %d exists "
+                    "(saved at another dp degree); restoring the newer step "
+                    "with redistributed error feedback", step, newest)
+        newer_state, newer_step = self._load_state_rebuild_ef(checkpointer,
+                                                              target)
+        if newer_state is None or newer_step <= step:
+            return state, step
+        return newer_state, newer_step
+
+    def _load_state_rebuild_ef(self, checkpointer, target: TrainState):
+        """``load_state``'s fallback: the rest of the state without the
+        residuals (collective), then residuals rebuilt from what the agreed
+        step stores: stacks of another degree redistributed over this one,
+        zero where a leaf has none (a checkpoint of an exact policy, or a
+        leaf that only this degree shards)."""
+        state, step = checkpointer.load_checkpoint(
+            dataclasses.replace(target, ef_residual=None), trainer=self)
+        if state is None:
+            return None, -1
+        paths = {f"ef_residual/{n}": n for n in target.ef_residual}
+        # on the host, summed per leaf as read (as the reference sums, in
+        # numpy): the host holds one leaf's stack at a time
+        stored = checkpointer.engine.storage_leaf_sums(list(paths), step)
+        totals = {n: np.zeros(tuple(t.shape), np.float32)
+                  for n, t in target.ef_residual.items()}
+        for path, total in (stored or {}).items():
+            totals[paths[path]] = total
+        world = self._sync_world
+        logger.info("grad-sync restore at step %d: redistributing the "
+                    "error-feedback residuals over dp=%d (%d/%d stacks "
+                    "stored, the rest zero)", step, world,
+                    len(stored or {}), len(totals))
+        # what convergence needs is the TOTAL un-injected error: each
+        # replica adds its residual back before it quantizes, and the
+        # reduce sums over the replicas; so every replica of the new
+        # degree carries total / world (the reference's
+        # materialize_ef_stack; a rank holds its own row only)
+        ef = {n: torch.from_numpy(total / np.float32(world)).to(self.device)
+              for n, total in totals.items()}
+        return dataclasses.replace(state, ef_residual=ef), step
 
     # -- data-parallel grad sync ---------------------------------------------
 
@@ -781,6 +908,30 @@ class Trainer:
                 acc += g.to(acc.dtype)
             w_sum = w_sum + w
         return loss_sum, grad_sum, w_sum
+
+
+def _placed_box(shape: Tuple[int, ...], placements, coord: Dict[str, int],
+                sizes: Dict[str, int]) -> Tuple[list, list]:
+    """``(global shape, index box)`` of a local tensor of ``shape`` with
+    ``placements`` over ``MESH_AXIS_NAMES`` at mesh coordinate ``coord``.
+    Along a dim split by several axes the model's shards (tp, ep) are the
+    outer split and FSDP's the inner one, as ``full_params`` gathers
+    them."""
+    gshape, box = list(shape), [[0, d] for d in shape]
+    for dim, size in enumerate(shape):
+        axes = [a for a in ("tp", "ep", "fsdp")
+                if isinstance(placements[MESH_AXIS_NAMES.index(a)], Shard)
+                and placements[MESH_AXIS_NAMES.index(a)].dim % len(shape)
+                == dim]
+        if not axes:
+            continue
+        gshape[dim] = size * math.prod(sizes[a] for a in axes)
+        start, length = 0, gshape[dim]
+        for a in axes:
+            length //= sizes[a]
+            start += coord[a] * length
+        box[dim] = [start, start + size]
+    return gshape, box
 
 
 def _local(p: torch.Tensor) -> torch.Tensor:

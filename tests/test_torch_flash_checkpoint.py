@@ -715,23 +715,31 @@ def test_no_checkpoint_returns_none(tmp_path):
     _assert_state_equal(state, before)  # untouched
 
 
+# (Checkpointer kwargs, env, the error and its message): the paths not
+# ported yet name their ROADMAP items; two processes with no
+# torch.distributed world have nothing to agree on a restore step over
 REFUSED = {
-    "replica": (dict(replica=True), {}),
-    "peer_restore": ({}, {"DLROVER_TPU_PEER_RESTORE": "1"}),
-    "dist_persist": ({}, {"DLROVER_TPU_DIST_PERSIST": "1"}),
-    "url_path": (dict(checkpoint_dir="gs://bucket/ckpt"), {}),
-    "two_processes": (dict(num_processes=2), {}),
+    "replica": (dict(replica=True), {}, NotImplementedError,
+                "ROADMAP queue 1 item 6b"),
+    "peer_restore": ({}, {"DLROVER_TPU_PEER_RESTORE": "1"},
+                     NotImplementedError, "ROADMAP queue 1 item 6b"),
+    "dist_persist": ({}, {"DLROVER_TPU_DIST_PERSIST": "1"},
+                     NotImplementedError, "ROADMAP queue 1 item 6a-ii"),
+    "url_path": (dict(checkpoint_dir="gs://bucket/ckpt"), {},
+                 NotImplementedError, "ROADMAP queue 1 item"),
+    "two_processes": (dict(num_processes=2), {}, ValueError,
+                      "no torch.distributed world"),
 }
 
 
 @pytest.mark.parametrize("name", list(REFUSED))
 def test_paths_out_of_scope_raise(tmp_path, monkeypatch, name):
-    kwargs, env = REFUSED[name]
+    kwargs, env, error, match = REFUSED[name]
     for key, value in env.items():
         monkeypatch.setenv(key, value)
     kwargs = dict(dict(checkpoint_dir=str(tmp_path), scope=_scope(),
                        device="cpu"), **kwargs)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
+    with pytest.raises(error, match=match):
         Checkpointer(**kwargs)
 
 

@@ -47,9 +47,14 @@ from dlrover_tpu_torch.models.convert import (  # noqa: E402
 )
 from dlrover_tpu_torch.models.llama import LlamaConfig  # noqa: E402
 from dlrover_tpu_torch.models.moe import MoELlamaConfig  # noqa: E402
-from dlrover_tpu_torch.parallel import dp_workers, process_group  # noqa: E402
+from dlrover_tpu_torch.parallel import (  # noqa: E402
+    dp_workers,
+    mesh_workers,
+    process_group,
+)
 from dlrover_tpu_torch.parallel import sharding  # noqa: E402
 from dlrover_tpu_torch.trainer import optim as toptim  # noqa: E402
+from torch_mesh_checks import own_rows_worker  # noqa: E402
 
 B, S, STEPS = 16, 16, 4
 OPT = dict(peak_lr=1e-3, warmup_steps=1, total_steps=100)
@@ -249,10 +254,57 @@ class _FakeMesh:
         return self._coord
 
 
+OWN_ROWS = {"dp2": (dict(dp=2), 2), "dp2_cp2": (dict(dp=2, cp=2), 4)}
+
+
+@pytest.fixture(scope="module")
+def own_rows():
+    """Each mesh of ``OWN_ROWS`` (one spawn each, at once), every rank fed
+    only its own rows (``own_rows_worker``), and one process on the global
+    batch: the losses."""
+    batch = _batch()
+    spec = dict(preset="tiny", model=dict(dtype=torch.float32),
+                state_dict=None, seed=0, optimizer=OPT, grads_dtype=None,
+                steps=STEPS)
+
+    def rows(world):
+        n, per_dp = B // 2, world // 2
+        return [{k: v[(r // per_dp) * n:(r // per_dp + 1) * n]
+                 for k, v in batch.items()} for r in range(world)]
+
+    with ThreadPoolExecutor(len(OWN_ROWS)) as pool:
+        ranks = {name: pool.submit(
+            process_group.spawn, own_rows_worker, world,
+            (dict(spec, axes=axes, rank_rows=rows(world)),), device="cpu",
+            timeout_s=SPAWN_TIMEOUT_S)
+            for name, (axes, world) in OWN_ROWS.items()}
+        want = mesh_workers.reference_losses(dict(spec, batch=batch), STEPS,
+                                             "cpu")["loss"]
+        return {name: r.result() for name, r in ranks.items()}, want
+
+
+@pytest.mark.parametrize("name", list(OWN_ROWS))
+def test_ranks_fed_their_own_rows_train_as_one_process(own_rows, name):
+    """The reference's way of feeding ranks (examples/train_llama_ckpt.py:
+    47-51, 68): each rank is handed only its own rows of the global batch,
+    its block over the data axes (the cp ranks of a dp rank get the same
+    rows), and passes them to ``Trainer.shard_batch``.  The losses are one
+    process's on the global batch, within 1e-6 relative (fp32: the two
+    differ in summation order only, as tests/test_torch_train_mesh.py
+    states)."""
+    ranks, want = own_rows
+    for losses in ranks[name]:
+        np.testing.assert_allclose(losses, want, rtol=1e-6)
+
+
 def test_shard_batch_splits_rows_over_data_and_sequence_over_cp():
     """dp=2 x tp=2 x cp=2: rank (dp=i, cp=r) holds rows [8i, 8i + 8) and
     positions [8r, 8r + 8) of them, the same on both tp ranks; the JAX
-    rules put "batch" on (dp, fsdp) and "seq" on cp."""
+    rules put "batch" on (dp, fsdp) and "seq" on cp.  The rows are cut
+    from the global batch by ``rows_of_global_batch``, and ``shard_batch``
+    keeps the rows it is given (they are the rank's own, as the
+    reference's ``shard_batch`` takes each process's local data) and cuts
+    their sequence over cp."""
     batch = _batch()
     assert sharding.spec_for_logical_axes(("batch", "seq")) == (
         ("dp", "fsdp"), "cp")
@@ -261,9 +313,15 @@ def test_shard_batch_splits_rows_over_data_and_sequence_over_cp():
             for t in range(2):
                 mesh = _FakeMesh(dict(dp=2, tp=2, cp=2),
                                  dict(dp=i, tp=t, cp=r))
-                block = sharding.shard_batch(mesh, batch)
+                rows = sharding.rows_of_global_batch(mesh, batch)
+                block = sharding.shard_batch(mesh, rows)
                 for k, v in batch.items():
+                    np.testing.assert_array_equal(rows[k],
+                                                  v[8 * i:8 * i + 8])
                     np.testing.assert_array_equal(
                         block[k], v[8 * i:8 * i + 8, 8 * r:8 * r + 8])
     with pytest.raises(ValueError, match="does not split its sequence"):
         sharding.shard_batch(_FakeMesh(dict(cp=3), dict(cp=0)), batch)
+    with pytest.raises(ValueError, match="does not split over 3 data"):
+        sharding.rows_of_global_batch(_FakeMesh(dict(dp=3), dict(dp=0)),
+                                      batch)

@@ -292,8 +292,8 @@ def test_refusals_on_ranks(refusals):
     ROADMAP items; a mesh and a
     dp group together raise ValueError, and so do a tp that does not
     divide the kv heads and an ep that does not divide the experts; the
-    flash checkpoint refuses a world of more than one rank (a rank's state
-    holds shards)."""
+    flash checkpoint takes the world: its process id and count are the
+    rank's and the world's."""
     want = {
         "int8 on tp=2": ("ValueError", "non-data axes ['tp']"),
         "int8 on fsdp=2": ("ValueError", "active data axes ['fsdp']"),
@@ -307,9 +307,10 @@ def test_refusals_on_ranks(refusals):
         "moe on cp=2": ("NotImplementedError", "queue 1 item 9"),
         "ep=8 over 4 experts": ("ValueError",
                                 "ep=8 does not divide num_experts=4"),
-        "flash checkpoint": ("NotImplementedError", "world of 8 ranks"),
+        "flash checkpoint": ("accepted", " of 8"),
     }
-    for rank in refusals:
+    for index, rank in enumerate(refusals):
+        assert rank["flash checkpoint"][1] == f"process {index} of 8"
         assert set(rank) == set(want) | {"accum"}
         for case, (kind, text) in want.items():
             assert rank[case][0] == kind, (case, rank[case])

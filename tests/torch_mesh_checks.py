@@ -3,8 +3,9 @@ not collect it).  ``process_group.spawn`` runs it in gloo ranks on the CPU;
 this module imports torch and the port only, so a spawned rank that
 unpickles the function never imports JAX."""
 
+import os
 import tempfile
-from typing import Dict, Tuple
+from typing import Any, Dict, List, Tuple
 
 import torch
 
@@ -29,7 +30,8 @@ def _trainer(axes: Dict[str, int], model=None, **kw) -> Trainer:
 def refusal_worker(group: DpGroup) -> Dict[str, Tuple[str, str]]:
     """On 8 ranks: ``{case: (exception type, message)}`` of each refused
     trainer (``("accepted", "")`` for a mesh the trainer takes) and of the
-    flash checkpoint, and ``adjust_accum_for_world``'s
+    flash checkpoint (accepted: ``"process <rank> of <world>"``, its
+    identity from the world), and ``adjust_accum_for_world``'s
     answer for 64 rows at 1 per device on dp=4 x fsdp=2."""
     cases = {
         "int8 on tp=2": (dict(dp=4, tp=2), dict(grad_sync="int8")),
@@ -57,10 +59,34 @@ def refusal_worker(group: DpGroup) -> Dict[str, Tuple[str, str]]:
             out[case] = ("accepted", "")
     with tempfile.TemporaryDirectory() as tmp:
         try:
-            CheckpointEngine(tmp, device="cpu")
-        except NotImplementedError as e:
+            engine = CheckpointEngine(tmp, scope=os.path.basename(tmp),
+                                      device="cpu")
+        except (ValueError, NotImplementedError) as e:
             out["flash checkpoint"] = (type(e).__name__, str(e))
         else:
-            out["flash checkpoint"] = ("accepted", "")
+            out["flash checkpoint"] = (
+                "accepted",
+                f"process {engine.process_id} of {engine.num_processes}")
+            engine.close()
     out["accum"] = _trainer(dict(dp=4, fsdp=2)).adjust_accum_for_world(64, 1)
     return out
+
+
+def own_rows_worker(group: DpGroup, spec: Dict[str, Any]) -> List[float]:
+    """A mesh trainer (``spec["axes"]``) of ``dp_workers.make_model(spec)``
+    fed, as the reference's scripts feed each process, only this rank's
+    own rows (``spec["rank_rows"][rank]``) through ``shard_batch``; the
+    losses of ``spec["steps"]`` steps."""
+    from dlrover_tpu_torch.parallel.dp_workers import make_model
+
+    trainer = Trainer(make_model(spec, "cpu"),
+                      create_optimizer(**spec["optimizer"]),
+                      mesh=build_mesh(MeshConfig.from_dict(spec["axes"]),
+                                      device="cpu"), device="cpu")
+    state = trainer.create_state()
+    batch = trainer.shard_batch(spec["rank_rows"][group.rank])
+    losses = []
+    for _ in range(spec["steps"]):
+        state, metrics = trainer.train_step(state, batch)
+        losses.append(metrics["loss"].item())
+    return losses

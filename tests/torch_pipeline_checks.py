@@ -24,9 +24,9 @@ def chain_worker(group: DpGroup, spec: Dict) -> Dict:
     mesh = build_mesh(MeshConfig.from_dict(spec["axes"]), device="cpu")
     pp = dict(zip(mesh.mesh_dim_names, mesh.shape))["pp"]
     w = torch.from_numpy(spec["w"]).requires_grad_()
-    rows = sharding.shard_batch(mesh, {"x": torch.from_numpy(spec["x"]),
-                                       "dy": torch.from_numpy(spec["dy"])},
-                                ("dp",))
+    rows = sharding.rows_of_global_batch(
+        mesh, {"x": torch.from_numpy(spec["x"]),
+               "dy": torch.from_numpy(spec["dy"])}, ("dp",))
     x = rows["x"].clone().requires_grad_()
 
     def stage(sp, h):
