@@ -59,6 +59,23 @@ then runs, in order, failing on the first phase that fails:
    generation is made odd (torn) must restore the storage step.  Every
    shm segment and the checkpoint directory are released at its end, and
    its numbers go to a {"ckpt": {...}} JSON line;
+   [dist persist], on the same trainer and state (cut in depth as above
+   when /dev/shm needs it): a storage save with DLROVER_TPU_DIST_PERSIST=1
+   (distributed.py; synchronous, into a fresh directory, removed after)
+   must seal with bytes_written equal to the state's bytes; a second save
+   of the same state, labelled the next step, must seal writing 0 bytes
+   and reusing all of them; a fresh scope (no shm) restores the sealed
+   step, torch.equal leaf by leaf to a copy taken at the save, and a step
+   from it has the uninterrupted next step's loss (1e-6 relative) and 2
+   steps' flash launches; persist seconds and GB/s, bytes_written,
+   bytes_reused, restore seconds and bytes_read/bytes_total are printed
+   and go to a {"dist_persist": {...}} line;
+   [dist bench]: the reference's persist bench (dist_bench.py: hosts
+   simulated in this process, 1, 2 and 4 of them, one coordinator) at 1024
+   MB when the temp dir's disk and the host's RAM allow (64 MB else), its
+   DIST_CKPT_BENCH line: persist GB/s by host count, the bytes a
+   differential save writes against a full one, and the bytes a
+   half-state read reads (0.5 of the full read);
    [mesh], after that trainer is freed: one worker process started as the
    agent starts it (process_group.launch: DLROVER_TPU_PROCESS_ID=0,
    _NUM_PROCESSES=1, a 127.0.0.1 coordinator) runs bootstrap.init (which
@@ -88,7 +105,12 @@ then runs, in order, failing on the first phase that fails:
    restore_storage_s are printed.  The fsdp=2 leg runs after
    fsdp=2 x tp=2 and then restores that leg's stored step across meshes
    and steps: loss and grad norm within 2e-4 and 5e-4 of fsdp=2 x tp=2's
-   uninterrupted next step;
+   uninterrupted next step.  fsdp=2 x tp=2 checkpoints a second time
+   under the distributed persist (the same checks, into a directory of
+   its own): each rank's bytes_written, their sum equal to one copy of the
+   state's distinct boxes, beside what the legacy persist writes; and
+   fsdp=2 restores that sealed commit as well, each rank printing its
+   bytes_read/bytes_total (a part: about one half);
    [moe]: the MoE Llama (models/moe.py) at llama2_1b width, 8 layers (its
    depth cut: at 22 the state alone would take ~77 GB), E=8, top-2,
    capacity factor 1.25 (C=640), flash attention, moe_loss_fn, B=4,
@@ -189,7 +211,10 @@ then runs, in order, failing on the first phase that fails:
    from 2 forwards, one dQ and one dK/dV per layer.  The int8_sharded run
    ends with the ranks' checkpoint of their states, residuals included,
    held as the [mesh] legs' (the steps after the restores launching the
-   ring kernels as the uninterrupted step does); then 2 new ranks restore
+   ring kernels as the uninterrupted step does), and again under the
+   distributed persist (each rank's bytes_written and their sum, one copy
+   of the distinct boxes: the masters once, the moments' quarters, the
+   four residual rows); then 2 new ranks restore
    it from storage with Trainer.load_state and take one int8_sharded
    step: the step saved, the sum over the replicas of their residuals
    within 1e-6 of the saved residuals' norm of the saved sum (seeded
@@ -306,6 +331,8 @@ EXACT_RING_RTOL = 1e-5
 # same card, so only a nondeterministic reduction could move it
 DP_STEP0_RTOL = 1e-6
 DP_TIMEOUT_S = 480.0
+# [dist bench]: the payload of the reference's persist bench (8 leaves)
+DIST_BENCH_MB = 1024
 # [flash checkpoint]: steps without a save, and steps trained while the
 # snapshot stages; bytes of the segment's meta on top of the state's
 CKPT_STEPS = 4
@@ -880,11 +907,20 @@ def rank_legs(spec, fsdp_ok: bool) -> dict:
             runs = [dict(name=name, axes=axes, steps=MESH_RANK_STEPS,
                          save=dict(dir=os.path.join(root, name),
                                    scope=f"mesh{os.getpid()}{name}"))]
+            if name == "fsdp2_tp2":
+                # and again under the distributed persist
+                runs[0]["dist_save"] = dict(
+                    dir=os.path.join(root, "fsdp2_tp2_dist"),
+                    scope=f"mesh{os.getpid()}dist")
             if name == "fsdp2":
                 runs.append(dict(
                     name="fsdp2_tp2_to_fsdp2", axes=axes, steps=1,
                     resume=dict(dir=os.path.join(root, "fsdp2_tp2"),
                                 scope=f"mesh{os.getpid()}cross")))
+                runs.append(dict(
+                    name="fsdp2_tp2_dist_to_fsdp2", axes=axes, steps=1,
+                    resume=dict(dir=os.path.join(root, "fsdp2_tp2_dist"),
+                                scope=f"mesh{os.getpid()}crossd")))
             t0 = time.perf_counter()
             ranks = process_group.spawn(
                 dp_workers.train_worker, world, (dict(small, runs=runs),),
@@ -897,10 +933,18 @@ def rank_legs(spec, fsdp_ok: bool) -> dict:
             check_ckpt_leg(name, saved, per_step, ckpt_launches)
             if name == "fsdp2_tp2":
                 cross_want = saved[0]
+                dist_saved = [r["dist_ckpt"] for r in recs]
+                check_ckpt_leg(f"{name} (dist persist)", dist_saved,
+                               per_step, ckpt_launches)
+                check_dist_writes(name, dist_saved)
+                dist_want = dist_saved[0]
             if len(runs) > 1:
                 check_cross_restore(
                     [r["runs"][runs[1]["name"]] for r in ranks], cross_want,
                     per_step, ckpt_launches)
+                check_cross_restore(
+                    [r["runs"][runs[2]["name"]] for r in ranks], dist_want,
+                    per_step, ckpt_launches, "a sealed distributed commit")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     if not fsdp_ok:
@@ -976,7 +1020,31 @@ def check_ckpt_leg(name, saved, per_step, launches) -> None:
                 launches[k] += counts[k]
 
 
-def check_cross_restore(recs, want, per_step, launches) -> None:
+def check_dist_writes(name, saved) -> None:
+    """Print and check a leg's save under the distributed persist
+    (``dp_workers.save_and_restore(dist=True)``'s records, by rank): each
+    rank's bytes_written and the sum, which must be one copy of the
+    state's distinct boxes over the ranks' layouts (every box written by
+    one rank), beside what the legacy persist writes (every rank its whole
+    local state)."""
+    c = saved[0]
+    written = [c["hosts"][str(r)]["bytes_written"] for r in range(len(saved))]
+    legacy = sum(r["local_bytes"] for r in saved)
+    print(f"  {name} under the distributed persist: sealed step "
+          f"{c['sealed_step']}; bytes_written per rank {written}, sum "
+          f"{sum(written)} = one copy of the distinct boxes "
+          f"{c['unique_bytes']} (the legacy persist writes {legacy}); "
+          f"bytes_read/bytes_total of each rank's restore "
+          f"{[(r['read_stats']['bytes_read'], r['read_stats']['bytes_total']) for r in saved]}",
+          flush=True)
+    if sum(written) != c["unique_bytes"] or not all(written) or \
+            any(r["hosts"] != c["hosts"] for r in saved):
+        raise AssertionError(f"{name}: the ranks wrote {written}, one copy "
+                             f"of the state is {c['unique_bytes']}")
+
+
+def check_cross_restore(recs, want, per_step, launches,
+                        source: str = "storage") -> None:
     """The fsdp=2 ranks' restore of fsdp=2 x tp=2's stored step: the step
     saved, and the next step's loss and grad norm within the rank legs'
     limits of the uninterrupted fsdp=2 x tp=2 run's."""
@@ -986,9 +1054,13 @@ def check_cross_restore(recs, want, per_step, launches) -> None:
         next_norm = want["next"]["grad_norm"][0]
         rel = abs(loss - next_loss) / abs(next_loss)
         rel_norm = abs(norm - next_norm) / abs(next_norm)
+        read = r.get("read_stats") or {}
         print(f"  fsdp2_tp2 -> fsdp2 rank {rank}: restored step "
-              f"{r['resumed_step']} from storage in {r['restore_s']:.3f} s;"
-              f" next loss {loss:.6f} (fsdp2_tp2 uninterrupted "
+              f"{r['resumed_step']} from {source} in {r['restore_s']:.3f} s"
+              + (f" reading {read['bytes_read']}/{read['bytes_total']} "
+                 f"bytes ({read['bytes_read'] / read['bytes_total']:.3f})"
+                 if read else "")
+              + f"; next loss {loss:.6f} (fsdp2_tp2 uninterrupted "
               f"{next_loss:.6f}, rel {rel:.2e}, tol "
               f"{MESH_RANK_RTOL:.0e}); grad norm rel {rel_norm:.2e} (tol "
               f"{MESH_RANK_NORM_RTOL:.0e})", flush=True)
@@ -998,6 +1070,9 @@ def check_cross_restore(recs, want, per_step, launches) -> None:
                                  f"{r['resumed_step']}, loss {loss}, grad "
                                  f"norm {norm} against {next_loss}, "
                                  f"{next_norm}")
+        if read and not 0 < read["bytes_read"] < read["bytes_total"]:
+            raise AssertionError(f"fsdp2_tp2 -> fsdp2 rank {rank} read "
+                                 f"{read} from {source}: not a part")
         if r["flash_launches"][0] != per_step:
             raise AssertionError(f"the cross-mesh step launched "
                                  f"{r['flash_launches'][0]}")
@@ -1689,29 +1764,23 @@ def ckpt_depth(state, num_layers: int, shm_free: int) -> int:
     return int(depth)
 
 
-def flash_checkpoint(fa, trainer, state, batch, per_step):
-    """The [flash checkpoint] phase on the training phase's trainer and
-    state; returns its JSON record."""
-    import shutil
-    import struct
-    import tempfile
-
+def ckpt_subject(trainer, state, batch, per_step):
+    """What a checkpoint phase saves: the training phase's trainer and
+    state, or, when its state does not fit in /dev/shm (one snapshot
+    segment at a time), a trainer of the largest depth at full width that
+    fits, one step trained, printed as "reduced: depth N of 22".  Returns
+    ``(trainer, state, depth, flash launches per step)``."""
     import torch
 
     from dlrover_tpu_torch.common.pytree import flatten_with_path
     from dlrover_tpu_torch.models.llama import LlamaForCausalLM
-    from dlrover_tpu_torch.trainer.flash_checkpoint import (
-        Checkpointer,
-        bench,
-        snapshot,
-    )
+    from dlrover_tpu_torch.trainer.flash_checkpoint import bench
     from dlrover_tpu_torch.trainer.optim import create_optimizer
     from dlrover_tpu_torch.trainer.train import Trainer
 
     layers = trainer.model.config.num_layers
     shm_free, ram = shm_free_bytes(), host_available_bytes()
-    state_bytes = bench.state_nbytes(state)
-    print(f"  state {state_bytes / 1e9:.3f} GB in "
+    print(f"  state {bench.state_nbytes(state) / 1e9:.3f} GB in "
           f"{len(flatten_with_path(state))} leaves ({layers} layers); /dev/shm "
           f"free {shm_free / 1e9:.1f} GB; host RAM available "
           f"{ram / 1e9:.1f} GB", flush=True)
@@ -1728,7 +1797,30 @@ def flash_checkpoint(fa, trainer, state, batch, per_step):
         state = trainer.create_state()
         state, _ = trainer.train_step(state, batch)
         per_step = {k: v * depth // layers for k, v in per_step.items()}
-        state_bytes = bench.state_nbytes(state)
+    return trainer, state, depth, per_step
+
+
+def flash_checkpoint(fa, trainer, state, batch, per_step):
+    """The [flash checkpoint] phase on the training phase's trainer and
+    state; returns its JSON record."""
+    import shutil
+    import struct
+    import tempfile
+
+    import torch
+
+    from dlrover_tpu_torch.common.pytree import flatten_with_path
+    from dlrover_tpu_torch.trainer.flash_checkpoint import (
+        Checkpointer,
+        bench,
+        snapshot,
+    )
+
+    layers = trainer.model.config.num_layers
+    shm_free, ram = shm_free_bytes(), host_available_bytes()
+    trainer, state, depth, per_step = ckpt_subject(trainer, state, batch,
+                                                   per_step)
+    state_bytes = bench.state_nbytes(state)
     phase_t0 = time.perf_counter()
     ckpt_dir = tempfile.mkdtemp(prefix="dlrover_tpu_torch_ckpt_")
     scope = f"smoke{os.getpid()}"
@@ -1854,6 +1946,159 @@ def flash_checkpoint(fa, trainer, state, batch, per_step):
     print(f"  the phase took {time.perf_counter() - phase_t0:.1f} s",
           flush=True)
     return record
+
+
+def dist_persist_phase(fa, trainer, state, batch, per_step):
+    """The [dist persist] phase on the training phase's trainer and state
+    (module docstring); returns its JSON record."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from dlrover_tpu_torch.common.pytree import flatten_with_path
+    from dlrover_tpu_torch.parallel.dp_workers import dist_persist
+    from dlrover_tpu_torch.trainer.flash_checkpoint import (
+        Checkpointer,
+        StorageType,
+        bench,
+    )
+    from dlrover_tpu_torch.trainer.flash_checkpoint import distributed
+
+    trainer, state, depth, per_step = ckpt_subject(trainer, state, batch,
+                                                   per_step)
+    payload = bench.state_nbytes(state) + sum(
+        8 for _, leaf in flatten_with_path(state)
+        if not isinstance(leaf, torch.Tensor))  # the ints: 0-d int64
+    phase_t0 = time.perf_counter()
+    ckpt_dir = tempfile.mkdtemp(prefix="dlrover_tpu_torch_dist_")
+    scope = f"dist{os.getpid()}"
+    want = {path: leaf.clone() if isinstance(leaf, torch.Tensor) else leaf
+            for path, leaf in flatten_with_path(state)}
+    record = dict(layers=depth, payload_bytes=payload)
+    made = []
+
+    def checkpointer(tag):
+        with dist_persist(True):
+            made.append(Checkpointer(ckpt_dir, scope=scope + tag,
+                                     async_snapshot=False,
+                                     device=trainer.device))
+        return made[-1]
+
+    try:
+        ckpt = checkpointer("s")
+        step = int(state.step)
+        for label, save_step in (("full", step), ("differential", step + 1)):
+            t0 = time.perf_counter()
+            blocked = ckpt.save_checkpoint(save_step, state,
+                                           StorageType.DISK, trainer=trainer)
+            sealed = ckpt.wait_latest_checkpoint(timeout=900)
+            total_s = time.perf_counter() - t0
+            manifest = distributed.read_manifest(ckpt_dir, save_step) or {}
+            host = manifest.get("hosts", {}).get("0", {})
+            written = host.get("bytes_written", -1)
+            reused = host.get("bytes_reused", -1)
+            persist_s = total_s - blocked
+            print(f"  {label} save of step {save_step}: sealed {sealed} "
+                  f"(COMMITTED {distributed.read_committed_step(ckpt_dir)});"
+                  f" blocking_save_s {blocked:.3f}, persist_s {persist_s:.3f}"
+                  f" ({written / max(persist_s, 1e-9) / 1e9:.3f} GB/s "
+                  f"written); bytes_written {written}, bytes_reused "
+                  f"{reused} of the payload {payload}", flush=True)
+            record[label] = dict(step=save_step, sealed=sealed,
+                                 blocking_save_s=blocked,
+                                 persist_s=persist_s, bytes_written=written,
+                                 bytes_reused=reused)
+            if not sealed or \
+                    distributed.read_committed_step(ckpt_dir) != save_step:
+                raise AssertionError(f"{label} save of step {save_step} did "
+                                     "not seal")
+            want_written = payload if label == "full" else 0
+            if written != want_written or written + reused != payload:
+                raise AssertionError(
+                    f"{label} save wrote {written} and reused {reused} "
+                    f"bytes; the payload is {payload}")
+        fa.reset_launches()
+        _, metrics = trainer.train_step(state, batch)
+        uninterrupted = metrics["loss"].item()
+        del state
+        fresh = checkpointer("r")
+        target = trainer.create_state()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored, got = fresh.load_checkpoint(target, trainer=trainer)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        stats = fresh.engine.last_read_stats
+        bad = [path for path, leaf in flatten_with_path(restored)
+               if not (torch.equal(leaf, want[path])
+                       if isinstance(leaf, torch.Tensor)
+                       else leaf == want[path])]
+        print(f"  restore of the sealed step {got} (a fresh scope, no shm): "
+              f"{restore_s:.3f} s, bytes_read/bytes_total "
+              f"{stats.get('bytes_read')}/{stats.get('bytes_total')} in "
+              f"{stats.get('shards_fetched')} shard reads; "
+              f"{len(want) - len(bad)} of {len(want)} leaves torch.equal to "
+              "the state saved", flush=True)
+        if got != step + 1 or bad or \
+                len(flatten_with_path(restored)) != len(want):
+            raise AssertionError(f"the restore gave step {got} (want "
+                                 f"{step + 1}); leaves that differ: "
+                                 f"{bad[:5]}")
+        _, metrics = trainer.train_step(restored, batch)
+        loss = metrics["loss"].item()
+        launches = dict(fa.launches)
+        print(f"  one step from the restored state: loss {loss!r}, the "
+              f"uninterrupted step's {uninterrupted!r}; flash launches of "
+              f"the 2 steps {launches}", flush=True)
+        if not (math.isfinite(loss) and abs(loss - uninterrupted)
+                <= RESTORED_LOSS_RTOL * abs(uninterrupted)):
+            raise AssertionError(f"loss {loss} after the restore, "
+                                 f"{uninterrupted} uninterrupted")
+        if launches != {k: 2 * v for k, v in per_step.items()}:
+            raise AssertionError(f"the 2 steps launched {launches}")
+        record.update(restore_s=restore_s, read_stats=dict(stats),
+                      loss_after_restore=loss,
+                      loss_uninterrupted=uninterrupted)
+    finally:
+        for c in made:
+            c.engine.unlink_memory()
+            c.close()
+        want.clear()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    print(f"  the phase took {time.perf_counter() - phase_t0:.1f} s",
+          flush=True)
+    return record
+
+
+def dist_bench_phase() -> dict:
+    """The reference's bench of the distributed persist
+    (trainer/flash_checkpoint/dist_bench.py) on this host, at
+    DIST_BENCH_MB when the temp dir's disk and the host's RAM hold it;
+    prints its DIST_CKPT_BENCH line."""
+    import shutil
+    import tempfile
+
+    from dlrover_tpu_torch.trainer.flash_checkpoint import dist_bench
+
+    root = tempfile.gettempdir()
+    disk = shutil.disk_usage(root).free
+    ram = host_available_bytes()
+    # the largest leg holds two steps' files and a joined copy per host
+    need = 3 * DIST_BENCH_MB * (1 << 20)
+    mb = DIST_BENCH_MB if min(disk, ram) > 4 * need else 64
+    print(f"  {root}: {disk / 1e9:.1f} GB free; host RAM available "
+          f"{ram / 1e9:.1f} GB; payload {mb} MB", flush=True)
+    t0 = time.perf_counter()
+    result = dist_bench.run(total_mb=mb, host_counts=(1, 2, 4))
+    print(dist_bench.MARK + json.dumps(result), flush=True)
+    print(f"  the bench took {time.perf_counter() - t0:.1f} s", flush=True)
+    if not all(leg["sealed"] for leg in result["persist_scaling"]):
+        raise AssertionError("a bench leg did not seal")
+    if result["partial_read"]["read_fraction"] != 0.5:
+        raise AssertionError(f"half-state read fraction "
+                             f"{result['partial_read']['read_fraction']}")
+    return result
 
 
 def ring_edge_rows(block: int, rows: int = 64, seed: int = 0):
@@ -2258,6 +2503,9 @@ def dp_leg():
     first = spec["runs"][0]
     root = tempfile.mkdtemp(prefix="dp_ckpt_")
     first["save"] = dict(dir=root, scope=f"dp{os.getpid()}")
+    # and again under the distributed persist, into a directory of its own
+    first["dist_save"] = dict(dir=os.path.join(root, "dist"),
+                              scope=f"dp{os.getpid()}dist")
     check_shm(DP_WORLD * DP_CKPT_BYTES_PER_PARAM * llama_param_count(
         LlamaConfig.llama2_1b(num_layers=DP_LAYERS)) + CKPT_META_MARGIN,
         "the dp leg's checkpoint")
@@ -2364,9 +2612,13 @@ def dp_resume(spec, first, saved_recs) -> dict:
     saved = [r["ckpt"] for r in saved_recs]
     flash_per_step = {"flash_fwd": 2 * DP_LAYERS, "flash_bwd_dq": DP_LAYERS,
                       "flash_bwd_dkv": DP_LAYERS}
+    dist_saved = [r["dist_ckpt"] for r in saved_recs]
     check_ckpt_leg(first["name"], saved, flash_per_step,
                    dict.fromkeys(flash_per_step, 0))
-    for c in saved:
+    check_ckpt_leg(f"{first['name']} (dist persist)", dist_saved,
+                   flash_per_step, dict.fromkeys(flash_per_step, 0))
+    check_dist_writes(first["name"], dist_saved)
+    for c in saved + dist_saved:
         for source in ("shm", "storage"):
             if c[source]["launches"] != c["next"]["launches"]:
                 raise AssertionError(
@@ -2376,7 +2628,7 @@ def dp_resume(spec, first, saved_recs) -> dict:
     run = dict(first, name="int8_resume", steps=1,
                resume=dict(dir=first["save"]["dir"],
                            scope=first["save"]["scope"] + "r"))
-    del run["save"]
+    del run["save"], run["dist_save"]
     t0 = time.perf_counter()
     ranks = process_group.spawn(
         dp_workers.train_worker, DP_RESUME_WORLD, (dict(spec, runs=[run]),),
@@ -2478,6 +2730,15 @@ def main() -> int:
          "flash_bwd_dq": trainer.model.config.num_layers,
          "flash_bwd_dkv": trainer.model.config.num_layers})
     print(json.dumps({"ckpt": ckpt_record}), flush=True)
+    print("[dist persist]", flush=True)
+    dist_record = dist_persist_phase(
+        fa, trainer, state, batch,
+        {"flash_fwd": 2 * trainer.model.config.num_layers,
+         "flash_bwd_dq": trainer.model.config.num_layers,
+         "flash_bwd_dkv": trainer.model.config.num_layers})
+    print(json.dumps({"dist_persist": dist_record}), flush=True)
+    print("[dist bench]", flush=True)
+    dist_bench_phase()
     del trainer, state, batch
     # the mesh's processes need the card's memory: release what the
     # single-device phases left in this process's caching allocator

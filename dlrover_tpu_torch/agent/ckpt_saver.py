@@ -11,15 +11,25 @@ runs the done-file commit protocol:
     rename tmp_<step> -> <step> + tracker file   (by process 0's agent,
                                                   once all done-files exist)
 
+A save event with ``dist`` (``DLROVER_TPU_DIST_PERSIST``) takes the
+distributed persist instead (``distributed.DistributedPersister``, one per
+``(process, ckpt_dir)``): the shards the event's ownership map names are
+written out of shm, the phase-1 report fires only after the
+torn-generation re-check, and the step counts as persisted only once the
+coordinator sealed it — no done files, no rename.  Its coordinator is
+process 0's over the world's store; a saver with no world (an agent
+process) refuses a ``dist`` event of several processes with
+``NotImplementedError``, since the master's commit RPC is not ported
+(ROADMAP queue 1 item 11).
+
 Save-on-failure: when the agent detects worker death it calls
 ``save_shm_on_failure`` which persists any shm snapshot newer than the
 last committed step.
 
-Not ported: the distributed persister (a ``dist`` save event; ROADMAP
-queue 1 item 6a-ii) and the peer-restore announcement
-(``DLROVER_TPU_PEER_RESTORE``; item 6b); both raise
-``NotImplementedError``.  A failed persist is logged and kept
-(``take_error``): the engine raises it to the training thread.
+Not ported: the peer-restore announcement (``DLROVER_TPU_PEER_RESTORE``;
+ROADMAP queue 1 item 6b), which raises ``NotImplementedError``.  A failed
+persist is logged and kept (``take_error``): the engine raises it to the
+training thread.
 """
 
 import json
@@ -49,8 +59,7 @@ from dlrover_tpu_torch.common.storage import (
 )
 from dlrover_tpu_torch.trainer.flash_checkpoint import snapshot
 
-# the refused paths' ROADMAP items
-ROADMAP_DIST_PERSIST = "ROADMAP queue 1 item 6a-ii"
+# the refused path's ROADMAP item
 ROADMAP_REPLICAS = "ROADMAP queue 1 item 6b"
 
 
@@ -106,6 +115,9 @@ class AsyncCheckpointSaver:
         # process_id -> last save event (for save-on-failure)
         self._tracked: Dict[int, Dict] = {}
         self._persisted_steps: Dict[int, int] = {}
+        # (process_id, ckpt_dir) -> DistributedPersister: long-lived, so
+        # its differential CRC cache survives across saves
+        self._dist_persisters: Dict[Tuple[int, str], object] = {}
         # the first persist failure not yet raised to a trainer
         self._error: Optional[BaseException] = None
 
@@ -263,10 +275,6 @@ class AsyncCheckpointSaver:
     # -- persist -----------------------------------------------------------
 
     def _handle_save(self, event: Dict):
-        if event.get("dist"):
-            raise NotImplementedError(
-                "a distributed-persist save event: the distributed "
-                f"persister is not ported yet ({ROADMAP_DIST_PERSIST})")
         if envs.get_bool("DLROVER_TPU_PEER_RESTORE"):
             raise NotImplementedError(
                 "DLROVER_TPU_PEER_RESTORE is set: the peer-restore "
@@ -336,7 +344,17 @@ class AsyncCheckpointSaver:
                     step, meta["step"],
                 )
                 step = meta["step"]
-            self._persist_snapshot(shm, meta, ckpt_dir, process_id)
+            dist_event = bool(event.get("dist"))
+            if dist_event:
+                persister = self._dist_persister(
+                    process_id, ckpt_dir, int(event["num_processes"]))
+                # owned=None (no map: a save-on-failure from a register
+                # event) persists every local shard; a map, even one
+                # owning nothing, is exact
+                dist_manifest, _, step = persister.persist_from_shm(
+                    shm, meta, event.get("owned"))
+            else:
+                self._persist_snapshot(shm, meta, ckpt_dir, process_id)
             if acquired is False and snapshot.read_generation(shm) != gen0:
                 # lock-free persist (dead owner) raced a writer after
                 # all: the bytes just written may be torn — do NOT
@@ -350,16 +368,48 @@ class AsyncCheckpointSaver:
             if acquired and lock is not None:
                 lock.release()
             shm.close()
-        self._commit(ckpt_dir, step, process_id, int(event["num_processes"]))
+        if dist_event:
+            # no done files, no rename: the step is durable only once the
+            # coordinator seals it.  The phase-1 report fires only HERE,
+            # after the torn-generation re-check above passed (a torn
+            # snapshot's manifest must never reach the coordinator), and
+            # the progress (the trainer's exit barrier) advances only on
+            # the seal, so wait_saving_complete means "globally committed"
+            reported = persister.report(step, dist_manifest)
+            if not (reported and persister.wait_commit(step)):
+                logger.error(
+                    "distributed commit of step %d not sealed (reported="
+                    "%s); the previous committed step remains the "
+                    "restore point", step, reported,
+                )
+                return
+        else:
+            self._commit(ckpt_dir, step, process_id,
+                         int(event["num_processes"]))
         self._persisted_steps[process_id] = step
         try:
             self._progress.set(str(process_id), step)
         except Exception:  # noqa: BLE001 - progress is best-effort
             pass
         logger.info(
-            "persisted ckpt step=%d proc=%d in %.2fs",
+            "persisted ckpt step=%d proc=%d in %.2fs%s",
             step, process_id, time.time() - t0,
+            " (distributed commit sealed)" if dist_event else "",
         )
+
+    def _dist_persister(self, process_id: int, ckpt_dir: str,
+                        num_processes: int):
+        """The per-(process, dir) distributed persister."""
+        key = (int(process_id), ckpt_dir)
+        if key not in self._dist_persisters:
+            from dlrover_tpu_torch.trainer.flash_checkpoint.distributed \
+                import DistributedPersister
+
+            self._dist_persisters[key] = DistributedPersister(
+                ckpt_dir, process_id, num_processes,
+                storage=self._storage_for(ckpt_dir),
+            )
+        return self._dist_persisters[key]
 
     def _storage_for(self, ckpt_dir: str) -> CheckpointStorage:
         """An explicitly injected storage wins; URL checkpoint dirs (the

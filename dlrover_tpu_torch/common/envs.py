@@ -1,8 +1,9 @@
 """The ``DLROVER_TPU_*`` environment knobs that the port reads.
 
 A copy of the knobs of ``dlrover_tpu/common/envs.py`` that the port's
-paths read (the grad sync, the single-process flash checkpoint and the
-node env it is scoped by, the worker bootstrap and the mesh): the same
+paths read (the grad sync, the flash checkpoint and its distributed
+persist, the node env they are scoped by, the worker bootstrap and the
+mesh): the same
 names, defaults and parsing.  Values are read from ``os.environ`` at
 call time; a malformed value logs a warning and falls back to the
 default.  The directories that default under ``/tmp`` in the reference
@@ -52,9 +53,19 @@ DEFAULTS = {
     "DLROVER_TPU_CKPT_LOCK_TIMEOUT_S": 600.0,
     # CRC32 check on restore: eager, lazy or off
     "DLROVER_TPU_VERIFY_CRC": "lazy",
-    # paths of ROADMAP queue 1 item 6: refused in the port
+    # peer restore (ROADMAP queue 1 item 6b): refused in the port
     "DLROVER_TPU_PEER_RESTORE": False,
+    # -- flash checkpoint: distributed persist (distributed.py) --
+    # storage saves write owned shards and commit in two phases
     "DLROVER_TPU_DIST_PERSIST": False,
+    # reuse unchanged shards of the last committed manifest
+    "DLROVER_TPU_DIST_DIFF": True,
+    # sealed manifests the coordinator keeps (older ones and their
+    # unreferenced shard files are collected)
+    "DLROVER_TPU_DIST_MANIFEST_KEEP": 4,
+    # how long a save waits for its step to seal, and the poll interval
+    "DLROVER_TPU_DIST_COMMIT_TIMEOUT_S": 600.0,
+    "DLROVER_TPU_DIST_SEAL_POLL_S": 0.2,
     # -- flash checkpoint: saver (agent/ckpt_saver.py) --
     "DLROVER_TPU_PERSIST_LOCK_WAIT_S": 900.0,
     "DLROVER_TPU_PERSIST_WRITERS": 4,

@@ -12,7 +12,10 @@ the CPU tests at a tiny size); ``reduce_scatter_worker`` drives
 right neighbour through it.
 """
 
+import contextlib
 import dataclasses
+import math
+import os
 import time
 import zlib
 from typing import Any, Dict, List
@@ -130,9 +133,11 @@ def train_worker(group: DpGroup, spec: Dict[str, Any]) -> Dict[str, Any]:
     ``"grad_accum"``, ``"model"`` fields and ``"grads_dtype"`` over the
     spec's, ``"spec"``, keys that replace the spec's for this run (another
     ``family``, ``preset`` or ``state_dict``), and the flash checkpoint's
-    ``"resume"`` and ``"save"`` (``{"dir", "scope"}`` each): ``resume``
-    starts the run from ``Trainer.load_state`` of that directory instead
-    of a fresh state, ``save`` ends it with ``save_and_restore``.
+    ``"resume"`` and ``"save"`` (``{"dir", "scope"}`` each) and
+    ``"dist_save"`` (the same): ``resume`` starts the run from
+    ``Trainer.load_state`` of that directory instead of a fresh state,
+    ``save`` ends it with ``save_and_restore``, and ``dist_save`` with
+    another ``save_and_restore`` under the distributed persist.
 
     Returns, per run: losses, grad norms, step seconds (on the host clock,
     after a device synchronize), the ring and flash kernels' launches per
@@ -141,8 +146,10 @@ def train_worker(group: DpGroup, spec: Dict[str, Any]) -> Dict[str, Any]:
     rank's params were bit-identical after every step and the sync
     summary; a mesh run adds the mesh's shape, each parameter's local
     shape and the sharding axes of each param and moment leaf.  A resumed
-    run adds ``resumed_step``, ``restore_s`` and ``ef_digest`` (of the
-    restored residuals); a saved one, ``ckpt`` (``save_and_restore``)."""
+    run adds ``resumed_step``, ``restore_s``, ``read_stats`` (the bytes a
+    restore from a sealed distributed commit read) and ``ef_digest`` (of
+    the restored residuals); a saved one, ``ckpt`` and ``dist_ckpt``
+    (``save_and_restore``)."""
     out: Dict[str, Any] = {"rank": group.rank, "world": group.world,
                            "backend": group.backend, "runs": {}}
     for run in spec["runs"]:
@@ -173,6 +180,9 @@ def train_worker(group: DpGroup, spec: Dict[str, Any]) -> Dict[str, Any]:
         if "save" in run:
             record["ckpt"] = save_and_restore(trainer, state, batch, group,
                                               run["save"])
+        if "dist_save" in run:
+            record["dist_ckpt"] = save_and_restore(
+                trainer, state, batch, group, run["dist_save"], dist=True)
         out["runs"][run["name"]] = record
         trainer.close()
         del trainer, state
@@ -302,6 +312,7 @@ def resume(trainer, group: DpGroup, where: Dict[str, str],
         state, step = trainer.load_state(ckpt)
         _sync(group.device)
         record["restore_s"] = time.perf_counter() - t0
+        record["read_stats"] = dict(ckpt.engine.last_read_stats)
     finally:
         ckpt.engine.unlink_memory()
         ckpt.close()
@@ -312,8 +323,24 @@ def resume(trainer, group: DpGroup, where: Dict[str, str],
     return state
 
 
+@contextlib.contextmanager
+def dist_persist(on: bool):
+    """``DLROVER_TPU_DIST_PERSIST`` set to ``on`` while the block runs (the
+    engine reads it when it is made)."""
+    old = os.environ.get("DLROVER_TPU_DIST_PERSIST")
+    os.environ["DLROVER_TPU_DIST_PERSIST"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("DLROVER_TPU_DIST_PERSIST")
+        else:
+            os.environ["DLROVER_TPU_DIST_PERSIST"] = old
+
+
 def save_and_restore(trainer, state, batch, group: DpGroup,
-                     where: Dict[str, str]) -> Dict[str, Any]:
+                     where: Dict[str, str], dist: bool = False
+                     ) -> Dict[str, Any]:
     """The flash checkpoint of this rank's state, held to the state saved.
 
     An async memory save, staged, and an async storage save of ``state``
@@ -326,7 +353,15 @@ def save_and_restore(trainer, state, batch, group: DpGroup,
     each restore equals (``torch.equal``, leaf by leaf) a copy taken where
     the state lives at the save, the steps restored, each step's
     ``train_steps`` record under ``next``, ``shm`` and ``storage``, and
-    the saved residuals' digest.  Unlinks every segment it made."""
+    the saved residuals' digest.  Unlinks every segment it made.
+
+    ``dist``: the storage save takes the distributed persist (the
+    engines are made under ``DLROVER_TPU_DIST_PERSIST=1``); adds
+    ``hosts``, every rank's write stats from the sealed manifest
+    (``bytes_written`` ...), ``unique_bytes``, the bytes of one copy of
+    the state's distinct boxes over every rank's layout, ``sealed_step``,
+    and ``read_stats`` of the storage restore (``bytes_read``,
+    ``bytes_total``)."""
     from dlrover_tpu_torch.trainer.flash_checkpoint import (
         Checkpointer,
         StorageType,
@@ -336,9 +371,11 @@ def save_and_restore(trainer, state, batch, group: DpGroup,
     out: Dict[str, Any] = {"step": step,
                            "ef_digest": ef_digest(state.ef_residual)}
     want = state_copy(state)
-    ckpt = Checkpointer(where["dir"], scope=where["scope"], device=device)
-    fresh = Checkpointer(where["dir"], scope=where["scope"] + "_fresh",
-                         device=device)
+    with dist_persist(dist):
+        ckpt = Checkpointer(where["dir"], scope=where["scope"],
+                            device=device)
+        fresh = Checkpointer(where["dir"], scope=where["scope"] + "_fresh",
+                             device=device)
     try:
         out["memory_save_s"] = ckpt.save_checkpoint(
             step, state, StorageType.MEMORY, trainer=trainer)
@@ -350,6 +387,9 @@ def save_and_restore(trainer, state, batch, group: DpGroup,
         out["persisted"] = ckpt.wait_latest_checkpoint(timeout=600)
         # process 0 commits the step once every process persisted its part
         group.all_reduce(torch.zeros(1, device=device))
+        if dist:
+            out.update(dist_write_record(trainer, state, where["dir"], step,
+                                         group.world))
         out["next"] = new_record()
         train_steps(trainer, state, batch, 1, group, out["next"])
         for name, source in (("shm", ckpt), ("storage", fresh)):
@@ -362,6 +402,8 @@ def save_and_restore(trainer, state, batch, group: DpGroup,
             out[f"{name}_step"] = got
             out[f"{name}_equal"] = (restored is not None
                                     and state_equal(restored, want))
+            if dist and name == "storage":
+                out["read_stats"] = dict(source.engine.last_read_stats)
             if restored is not None:
                 out[name] = new_record()
                 train_steps(trainer, restored, batch, 1, group, out[name])
@@ -371,6 +413,37 @@ def save_and_restore(trainer, state, batch, group: DpGroup,
             c.engine.unlink_memory()
             c.close()
     return out
+
+
+def dist_write_record(trainer, state, ckpt_dir: str, step: int,
+                      world: int) -> Dict[str, Any]:
+    """What a sealed distributed commit of ``state`` wrote: every rank's
+    write stats (``hosts``, from the sealed manifest), the bytes of one
+    copy of the state's distinct boxes over the ranks' layouts
+    (``unique_bytes``), the bytes of this rank's local tensors, which the
+    legacy persist writes (``local_bytes``), and the committed step."""
+    from dlrover_tpu_torch.trainer.flash_checkpoint import (
+        distributed,
+        snapshot,
+    )
+
+    manifest = distributed.read_manifest(ckpt_dir, step) or {}
+    layouts = [trainer.state_layout(state, rank=r) for r in range(world)]
+    boxes = set()
+    unique = 0
+    for leaf in snapshot.plan_shards(state, layouts[0]):
+        itemsize = snapshot.torch_dtype(leaf["dtype"]).itemsize
+        for r in range(world):
+            box = distributed.box_of(layouts[r], leaf["path"],
+                                      leaf["gshape"])
+            key = distributed.shard_key(leaf["path"], box)
+            if key not in boxes:
+                boxes.add(key)
+                unique += itemsize * math.prod(b - a for a, b in box)
+    return {"hosts": manifest.get("hosts", {}), "unique_bytes": unique,
+            "local_bytes": snapshot.snapshot_nbytes(
+                snapshot.plan_shards(state)),
+            "sealed_step": distributed.read_committed_step(ckpt_dir)}
 
 
 def reduce_scatter_worker(group: DpGroup,

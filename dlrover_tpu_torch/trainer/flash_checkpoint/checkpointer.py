@@ -28,13 +28,24 @@ trainer (a state no trainer made passes its ``layout``: ``{}`` when every
 leaf is whole on every rank); a world refuses a call with neither.  A
 trainer's restore across a change of the dp degree is
 ``Trainer.load_state``.
+
+With ``DLROVER_TPU_DIST_PERSIST=1`` a storage save takes the distributed
+persist (``distributed.py``): each shard is written once, by its owner,
+which every rank derives from every rank's layout (the trainer's
+``state_layout(state, rank=r)``, computed once for each trainer and state
+structure), and the step is committed in two phases; a restore from
+storage reads a sealed commit first.  A state no trainer made that is
+split over the ranks takes the legacy persist there, with a warning.
 """
 
 from typing import Any, Dict, Optional, Tuple
 
 from dlrover_tpu_torch.device import DeviceLike
 from dlrover_tpu_torch.trainer.flash_checkpoint.engine import CheckpointEngine
-from dlrover_tpu_torch.trainer.flash_checkpoint.snapshot import Layout
+from dlrover_tpu_torch.trainer.flash_checkpoint.snapshot import (
+    Layout,
+    structure,
+)
 
 
 def _layout(state: Any, trainer, layout: Optional[Layout]):
@@ -79,10 +90,32 @@ class Checkpointer:
             device=device,
         )
         self._async = async_snapshot
+        # (trainer, state structure, every rank's layout) of the last
+        # distributed-persist save
+        self._rank_layouts: Optional[Tuple] = None
 
     @property
     def engine(self) -> CheckpointEngine:
         return self._engine
+
+    def _layouts(self, state: Any, trainer):
+        """Every rank's layout of ``state`` (the trainer's), which the
+        distributed persist derives each shard's owner from; None when no
+        storage save of this engine needs them.  Computed once for each
+        trainer and state structure: a save over a large world then makes
+        no pass over every rank's leaves."""
+        engine = self._engine
+        if trainer is None or not engine.dist_persist \
+                or engine.num_processes <= 1:
+            return None
+        shape = structure(state)
+        cached = self._rank_layouts
+        if cached is None or cached[0] is not trainer or cached[1] != shape:
+            cached = (trainer, shape,
+                      [trainer.state_layout(state, rank=r)
+                       for r in range(engine.num_processes)])
+            self._rank_layouts = cached
+        return cached[2]
 
     def save_checkpoint(
         self,
@@ -102,10 +135,12 @@ class Checkpointer:
         Over a world one of the two is required."""
         layout = _layout(state, trainer, layout)
         if storage_type == StorageType.DISK:
+            layouts = self._layouts(state, trainer)
             if self._async:
-                return self._engine.save_to_storage_async(step, state, extras,
-                                                          layout)
-            return self._engine.save_to_storage(step, state, extras, layout)
+                return self._engine.save_to_storage_async(
+                    step, state, extras, layout, layouts)
+            return self._engine.save_to_storage(step, state, extras, layout,
+                                                layouts)
         if self._async:
             return self._engine.save_to_memory_async(step, state, extras,
                                                      layout)

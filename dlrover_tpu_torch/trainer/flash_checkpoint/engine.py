@@ -30,17 +30,24 @@ the leaf's global shape (``layout``: ``Trainer.state_layout``;
 with a fixed count of agreements per ``load``: every rank offers its shm
 step (the shm must cover this rank's target boxes), one ``all_gather`` of
 one int64 agrees on it, and only a step that every rank offers wins;
-otherwise every rank scans storage for its newest fully covering step, and
-one more ``all_gather`` agrees on that, or every rank starts fresh.  A
-storage restore may reshard: each target box is read from the stored boxes
-it overlaps, whatever mesh saved them.  Ranks that share one host and no
+otherwise one more agrees whether a sealed distributed commit at least as
+new as the newest legacy step restores, and if none does, every rank scans
+storage for its newest fully covering legacy step and one more
+``all_gather`` agrees on that, or every rank starts fresh.  A storage
+restore may reshard: each target box is read from the stored boxes it
+overlaps, whatever mesh saved them.  Ranks that share one host and no
 agent each run their own in-process saver.
 
+``DLROVER_TPU_DIST_PERSIST=1`` routes storage saves through the
+distributed persist (``distributed.py``): the save event carries this
+rank's ownership map (``_note_dist_ownership``, from every rank's layout),
+and the saver writes the owned shards only and commits the step in two
+phases, with no done files.
+
 Not ported, and refused with ``NotImplementedError``: ``replica=True`` and
-``DLROVER_TPU_PEER_RESTORE`` (ROADMAP queue 1 item 6b),
-``DLROVER_TPU_DIST_PERSIST`` (item 6a-ii).  Telemetry (memscope, metrics,
-trace, timer) is item 7: the engine marks its phases with
-``torch.profiler.record_function`` spans under the reference's names
+``DLROVER_TPU_PEER_RESTORE`` (ROADMAP queue 1 item 6b).  Telemetry
+(memscope, metrics, trace, timer) is item 7: the engine marks its phases
+with ``torch.profiler.record_function`` spans under the reference's names
 (``flash.save``, ``flash.load``, ``ckpt_device_to_host``,
 ``ckpt_shm_write``, ``ckpt_stream_stage``).
 """
@@ -51,10 +58,9 @@ import math
 import os
 import threading
 import time
-import warnings
 import zlib
 from contextlib import contextmanager
-from typing import Any, Deque, Dict, List, Optional, Tuple
+from typing import Any, Deque, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -91,8 +97,7 @@ CKPT_PROGRESS = "ckpt_progress"
 # (a typed view needs an offset its element size divides)
 _COPY_ALIGN = 256
 
-# the refused paths' ROADMAP items
-ROADMAP_DIST_PERSIST = "ROADMAP queue 1 item 6a-ii"
+# the refused path's ROADMAP item
 ROADMAP_REPLICAS = "ROADMAP queue 1 item 6b"
 
 
@@ -301,17 +306,6 @@ def read_tracker(ckpt_dir: str, storage=None) -> Optional[int]:
         return None
 
 
-def _tensor_from_bytes(buf, dtype: str, shape) -> torch.Tensor:
-    """A CPU tensor over a read-only uint8 buffer (a memmap range), of the
-    stored dtype and shape; no copy."""
-    with warnings.catch_warnings():
-        # torch warns that it cannot mark the tensor read-only; the
-        # restore only reads it
-        warnings.simplefilter("ignore", UserWarning)
-        raw = torch.from_numpy(np.asarray(buf))
-    return raw.view(snapshot.torch_dtype(dtype)).reshape(shape)
-
-
 def process_identity(process_id: Optional[int] = None,
                      num_processes: Optional[int] = None) -> Tuple[int, int]:
     """``(process id, process count)`` of this engine: the rank and world
@@ -384,12 +378,29 @@ class CheckpointEngine:
             raise NotImplementedError(
                 "replica=True (peer replicas of the shm snapshot) is not "
                 f"ported yet ({ROADMAP_REPLICAS})")
-        for knob, item in (("DLROVER_TPU_PEER_RESTORE", ROADMAP_REPLICAS),
-                           ("DLROVER_TPU_DIST_PERSIST",
-                            ROADMAP_DIST_PERSIST)):
-            if envs.get_bool(knob):
-                raise NotImplementedError(
-                    f"{knob} is set: that path is not ported yet ({item})")
+        if envs.get_bool("DLROVER_TPU_PEER_RESTORE"):
+            raise NotImplementedError(
+                "DLROVER_TPU_PEER_RESTORE is set: that path is not ported "
+                f"yet ({ROADMAP_REPLICAS})")
+        # Distributed persist (opt-in): storage saves route through the
+        # two-phase commit — the saver writes only the shards this
+        # process OWNS and reports a manifest instead of running the
+        # done-file protocol.  The ownership map is computed here (the
+        # saver never sees the layouts) and rides the save event.
+        self._dist_persist = envs.get_bool("DLROVER_TPU_DIST_PERSIST")
+        self._dist_owned: Optional[Dict] = None
+        # (layouts, state structure) the map was planned from
+        self._dist_owned_for: Optional[Tuple] = None
+        if self._dist_persist:
+            from dlrover_tpu_torch.trainer.flash_checkpoint import (
+                distributed,
+            )
+
+            # over a world, process 0's coordinator must serve every
+            # rank's reports from now on, whether or not it saves
+            distributed.get_commit_client(self.num_processes)
+        # the byte accounting of the last restore from a sealed commit
+        self.last_read_stats: Dict = {}
         # URL checkpoint dirs raise here (the fsspec backend is item 7)
         self._storage = get_checkpoint_storage(path=checkpoint_dir)
         self._scope = scope or default_scope()
@@ -652,12 +663,60 @@ class CheckpointEngine:
         )
         return blocked
 
+    @property
+    def dist_persist(self) -> bool:
+        """Whether storage saves take the distributed persist."""
+        return self._dist_persist
+
+    def _note_dist_ownership(self, state: Any, layout: Optional[Layout],
+                             layouts: Optional[Sequence[Layout]]) -> None:
+        """Refresh the ownership map a distributed-persist save event
+        carries, from ``layouts`` (every process's layout of ``state``;
+        ``None``: every leaf ``layout`` does not name is whole on every
+        process).  Ownership depends only on the layouts, not the values,
+        so the map stays valid when the saver relabels the event to a
+        newer shm step of the same mesh, and is planned again only when
+        ``layouts`` is another object or the state another structure (the
+        Checkpointer passes the same list while both stay).  A map that
+        cannot be planned logs a warning and this save takes the legacy
+        persist, as the reference's does."""
+        if not self._dist_persist:
+            return
+        from dlrover_tpu_torch.trainer.flash_checkpoint import distributed
+
+        shape = snapshot.structure(state)
+        done = self._dist_owned_for
+        if layouts is not None and done is not None \
+                and done[0] is layouts and done[1] == shape:
+            return
+        self._dist_owned_for = None
+        try:
+            self._dist_owned = distributed.owned_event_map(
+                state, self.process_id, self.num_processes, layout, layouts
+            )
+        except Exception as e:  # noqa: BLE001 - falls back to legacy
+            logger.warning(
+                "distributed persist: ownership planning failed (%s); "
+                "this save falls back to the legacy persist protocol", e,
+            )
+            self._dist_owned = None
+            return
+        self._dist_owned_for = (layouts, shape)
+
     def save_to_storage(
         self, step: int, state: Any, extras: Optional[Dict] = None,
         layout: Optional[Layout] = None,
+        layouts: Optional[Sequence[Layout]] = None,
     ) -> float:
-        """Snapshot to shm + async persist event; returns blocked secs."""
+        """Snapshot to shm + async persist event; returns blocked secs.
+        ``layouts``: every process's layout, which the distributed
+        persist derives each shard's owner from (``_note_dist_ownership``).
+        """
         self._check_layout(layout)
+        self._note_dist_ownership(state, layout, layouts)
+        return self._save_to_storage(step, state, extras, layout)
+
+    def _save_to_storage(self, step, state, extras, layout) -> float:
         # record the durability promise BEFORE attempting the write: if
         # the save is dropped below, the exit barrier must see requested
         # > persisted and report the loss
@@ -692,10 +751,14 @@ class CheckpointEngine:
     def save_to_storage_async(
         self, step: int, state: Any, extras: Optional[Dict] = None,
         layout: Optional[Layout] = None,
+        layouts: Optional[Sequence[Layout]] = None,
     ) -> float:
         """Storage save with enqueue-only blocking: the persist event is
         enqueued by the background thread AFTER the shm write, preserving
-        the snapshot-before-event commit order."""
+        the snapshot-before-event commit order.  ``layouts``: as
+        ``save_to_storage``."""
+        self._check_layout(layout)
+        self._note_dist_ownership(state, layout, layouts)
         return self._async_save(step, state, extras, True, layout)
 
     def _on_copy_freed(self):
@@ -715,7 +778,8 @@ class CheckpointEngine:
     def _sync_save(self, step, state, extras, persist: bool, layout,
                    block_on_busy: bool = False) -> float:
         if persist:
-            return self.save_to_storage(step, state, extras, layout)
+            # the ownership map was noted by the public save
+            return self._save_to_storage(step, state, extras, layout)
         return self.save_to_memory(step, state, extras,
                                    block_on_busy=block_on_busy,
                                    layout=layout)
@@ -990,7 +1054,7 @@ class CheckpointEngine:
         return self._stager.flush(timeout)
 
     def _save_event(self, step: int) -> Dict:
-        return {
+        event = {
             "type": "save",
             "step": int(step),
             "shm": self._shm.name,
@@ -999,6 +1063,10 @@ class CheckpointEngine:
             "process_id": self.process_id,
             "num_processes": self.num_processes,
         }
+        if self._dist_persist and self._dist_owned is not None:
+            event["dist"] = True
+            event["owned"] = self._dist_owned
+        return event
 
     def _ensure_registered(self):
         """Tell the agent-side saver about our shm so save-on-failure can
@@ -1016,7 +1084,10 @@ class CheckpointEngine:
                     "process_id": self.process_id,
                     "num_processes": self.num_processes,
                     "step": -1,
-                    "dist": False,
+                    # save-on-failure must speak the commit protocol the
+                    # dir uses; with no ownership map the saver persists
+                    # every local shard (extra bytes, a correct manifest)
+                    "dist": self._dist_persist,
                 },
                 timeout=30,
             )
@@ -1104,6 +1175,7 @@ class CheckpointEngine:
         # extras describe the checkpoint restored: a memory candidate that
         # loses the agreement must not leave its extras behind
         self.last_extras = {}
+        self.last_read_stats = {}
         load_span = self._events.duration(TrainerEvents.CKPT_LOAD).begin()
         mem_step, maps, extras, gen0 = self._memory_candidate(boxes)
         agreed = self.agree_on_step(mem_step)
@@ -1192,10 +1264,66 @@ class CheckpointEngine:
             maps[leaf["path"]] = m
         return maps, meta["step"], meta.get("extras", {})
 
+    def _try_dist_restore(self, target, boxes: Dict, floor: int):
+        """Restore from a sealed distributed commit when one exists and is
+        at least as new as the best legacy candidate (``floor``).  Returns
+        ``(state, step, touched)``: ``(None, -1, touched)`` to fall
+        through, ``touched`` when a failed restore had begun to fill the
+        target.  The sealed COMMITTED pointer is job-global, but over a
+        world the dist-vs-legacy CHOICE is agreed all the same (a
+        shared-FS race on the pointer could send some ranks here and
+        others to the legacy scan): one agreement on every rank,
+        unconditionally, so collective counts stay equal."""
+        from dlrover_tpu_torch.trainer.flash_checkpoint import distributed
+
+        try:
+            dist_step = distributed.read_committed_step(
+                self.checkpoint_dir, self._storage)
+        except Exception:  # noqa: BLE001 - a probe must not kill restore
+            dist_step = -1
+        probe = dist_step if 0 <= floor <= dist_step else -1
+        if self.num_processes > 1:
+            probe = self.agree_on_step(probe)
+        if probe < 0:
+            return None, -1, False
+        engine = distributed.DistributedCheckpointEngine(
+            self.checkpoint_dir, process_id=self.process_id,
+            num_processes=self.num_processes, storage=self._storage)
+        try:
+            state, step = engine.load_boxes(target, boxes, step=probe)
+        except (OSError, ValueError, KeyError) as e:
+            if self.num_processes > 1:
+                # the agreement already happened: one rank falling back
+                # alone would diverge the ranks
+                raise
+            logger.error(
+                "distributed restore of sealed step %d failed (%s); "
+                "falling back to legacy step candidates", probe, e,
+            )
+            return None, -1, engine.fill_started
+        if state is not None:
+            self.last_extras = engine.last_extras
+            self.last_read_stats = engine.last_read_stats
+            logger.info(
+                "restored step %d from a distributed commit (read "
+                "%.1f/%.1f MB)", step,
+                engine.last_read_stats.get("bytes_read", 0) / 1e6,
+                engine.last_read_stats.get("bytes_total", 0) / 1e6,
+            )
+        return state, step, False
+
     def _load_from_storage(self, target, boxes: Dict, touched: bool):
         # tracked step first, then older committed steps as fallbacks if
         # the tracked one is unreadable (partially deleted / corrupted)
         candidates = self._storage_step_candidates()
+        # a sealed distributed commit at or past the best legacy step
+        # wins: with DLROVER_TPU_DIST_PERSIST the shards/manifests/
+        # COMMITTED layout is the only place new saves land
+        state, step, dist_touched = self._try_dist_restore(
+            target, boxes, floor=candidates[0] if candidates else 0)
+        if state is not None:
+            return state, step
+        touched = touched or dist_touched
         excluded: set = set()
         while True:
             # this process's newest fully covering step, then ONE
@@ -1368,7 +1496,7 @@ class CheckpointEngine:
                                     f"{_path}@{_start}+{_nbytes} (stored "
                                     f"{int(_crc):#010x}, got {got:#010x})"
                                 )
-                        return _tensor_from_bytes(buf, _dtype, _shape)
+                        return snapshot.tensor_from_bytes(buf, _dtype, _shape)
 
                     m.add_lazy(shard_meta["index"], load)
         return maps, extras

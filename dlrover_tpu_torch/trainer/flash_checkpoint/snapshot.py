@@ -51,6 +51,7 @@ import json
 import math
 import struct
 import time
+import warnings
 from typing import (
     Any,
     Callable,
@@ -273,6 +274,17 @@ def byte_view(data: torch.Tensor) -> torch.Tensor:
     return data.contiguous().reshape(-1).view(torch.uint8)
 
 
+def tensor_from_bytes(buf, dtype: str, shape) -> torch.Tensor:
+    """A CPU tensor over a read-only uint8 buffer (a memmap range), of the
+    stored dtype and shape; no copy."""
+    with warnings.catch_warnings():
+        # torch warns that it cannot mark the tensor read-only; the
+        # restore only reads it
+        warnings.simplefilter("ignore", UserWarning)
+        raw = torch.from_numpy(np.asarray(buf))
+    return raw.view(torch_dtype(dtype)).reshape(shape)
+
+
 def _shm_bytes(buf, offset: int, nbytes: int) -> torch.Tensor:
     """A ``uint8`` tensor over ``nbytes`` of the shm buffer at ``offset``.
     It holds an export of the buffer: drop it before the segment is
@@ -295,6 +307,14 @@ def _as_tensor(leaf) -> torch.Tensor:
         return leaf.detach()
     # the step and optimizer counts: 0-d int64, as np.asarray makes them
     return torch.from_numpy(np.asarray(leaf))
+
+
+def structure(state: Any) -> Tuple:
+    """The state's leaf paths with each local tensor's shape and dtype:
+    what a layout of it depends on besides the mesh."""
+    return tuple((path, tuple(getattr(leaf, "shape", ())),
+                  str(getattr(leaf, "dtype", type(leaf))))
+                 for path, leaf in flatten_with_path(state))
 
 
 def _enumerate_shards(state: Any, layout: Optional[Layout] = None

@@ -101,6 +101,7 @@ from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.profiler import record_function
 
@@ -398,10 +399,16 @@ class Trainer:
                     optim.moment_placements(state.opt_state, params).items()})
         return out
 
-    def state_layout(self, state: "TrainState") -> Dict[str, Tuple]:
+    def state_layout(self, state: "TrainState",
+                     rank: Optional[int] = None) -> Dict[str, Tuple]:
         """Where this rank's local tensors of ``state`` sit in their global
         leaves, by each leaf's path: ``{path: (global shape, index box)}``,
-        the flash checkpoint's ``snapshot.Layout``.  On a mesh, the masters
+        the flash checkpoint's ``snapshot.Layout``; with ``rank``, where
+        that rank of the world holds its tensors of the same leaves (each
+        rank's local shapes are this rank's: the splits are even), from
+        the mesh and the placements alone, with no communication — what
+        the distributed persist derives each shard's owner from.  On a
+        mesh, the masters
         and moments that a mesh axis splits, by their placements at this
         rank's mesh coordinate (the model's tp and ep shards hold FSDP's
         inside them); under a sharded dp update, each moment's chunk of its
@@ -412,15 +419,25 @@ class Trainer:
         layout: Dict[str, Tuple] = {}
         local = dict(flatten_with_path(state))
         if self.mesh is not None:
-            coord = dict(zip(self.mesh.mesh_dim_names,
-                             self.mesh.get_coordinate()))
+            if rank is None:
+                at = self.mesh.get_coordinate()
+            else:
+                where = (self.mesh.mesh == int(rank)).nonzero()
+                if len(where) != 1:
+                    raise ValueError(f"rank {rank} is not on the mesh")
+                at = where[0].tolist()
+            coord = dict(zip(self.mesh.mesh_dim_names, at))
             sizes = mesh_shape(self.mesh)
             for path, place in self.state_placements(state).items():
                 if any(isinstance(p, Shard) for p in place):
                     layout[path] = _placed_box(tuple(local[path].shape),
                                                place, coord, sizes)
         if self._sync_active:
-            world, rank = self._sync_world, self.dp_group.rank
+            world = self._sync_world
+            if rank is None:
+                rank = self.dp_group.rank
+            elif self.dp_group.group is not None:
+                rank = dist.get_group_rank(self.dp_group.group, int(rank))
             if self.grad_sync.sharded_update:
                 names = optim.moment_placements(
                     state.opt_state, {n: n for n in self._named})

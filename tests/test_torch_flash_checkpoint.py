@@ -723,8 +723,6 @@ REFUSED = {
                 "ROADMAP queue 1 item 6b"),
     "peer_restore": ({}, {"DLROVER_TPU_PEER_RESTORE": "1"},
                      NotImplementedError, "ROADMAP queue 1 item 6b"),
-    "dist_persist": ({}, {"DLROVER_TPU_DIST_PERSIST": "1"},
-                     NotImplementedError, "ROADMAP queue 1 item 6a-ii"),
     "url_path": (dict(checkpoint_dir="gs://bucket/ckpt"), {},
                  NotImplementedError, "ROADMAP queue 1 item"),
     "two_processes": (dict(num_processes=2), {}, ValueError,
