@@ -19,7 +19,9 @@ then runs, in order, failing on the first phase that fails:
    the 128-row tiles (S=80 below one tile, D=64, GQA 2:1, causal; S=333,
    D=64, GQA 4:1, not causal; S=200, D=128, causal; S=192, D=128, GQA
    2:1, causal: a multiple of 64 but not of 128), at S=2048, D=128,
-   GQA 4:1 and at the training shape (B=4, S=2048, H=16, D=128); forward
+   GQA 4:1, at the cp=2 ring's off-diagonal block (B=4, S=1024, H=16,
+   D=128, not causal) and at the training shape (B=4, S=2048, H=16,
+   D=128); forward
    within 3e-2 absolute
    (LSE 1e-3), gradients within 0.05 * max|plain|, and every output, on
    every tile of 64 sequence positions, within a relative error
@@ -31,7 +33,9 @@ then runs, in order, failing on the first phase that fails:
    (timed here only, as a yardstick; the port never calls it): its
    forward beside the forward kernel, and its backward alone (the forward
    run once and kept, then torch.autograd.grad with retain_graph) beside
-   the dQ and dK/dV kernels;
+   the dQ and dK/dV kernels; then the same at the cp=2 ring's
+   off-diagonal block (B=4, S=1024, not causal) beside SDPA's non-causal
+   forward and backward;
 4. training: Llama-2-1B at full width and depth (22 layers), flash
    attention, B=4, S=2048 from a seeded numpy batch, AdamW with bf16
    moments, bf16 grads on fp32 masters; one warm-up step and 4 timed
@@ -126,16 +130,27 @@ then runs, in order, failing on the first phase that fails:
    within 2e-5;
    [ep] and [cp]: ring attention alone on 2 gloo ranks (cp=2) at B=4,
    S=2048, H=16, D=128, causal, against reference_attention on the whole
-   sequence, fp32 within 2e-3 and bf16 within 3e-2; then ranks sharing
-   the card over gloo, full width, global B=4, 3 steps: the MoE (flash)
-   on ep=2 (4 layers) and dp=2 x ep=2 (2 layers: 4 ranks of 4 layers do
-   not fit the card), and the Llama with ring attention (remat on) on
-   cp=2 and tp=2 x cp=2 (4 layers); each run's losses and grad norms
-   equal on every rank and within the [mesh] legs' limits of one rank at
-   the same depth (the MoE; the Llama with reference attention), its
-   flash launches one forward, one
-   dQ and one dK/dV per layer per rank a step on ep (none through the
-   ring), its step seconds and per-rank peak GiB;
+   sequence, fp32 within 2e-3 and bf16 within 3e-2; [cp flash] op: the
+   ring of flash blocks (ring_flash_attention) alone on 2 gloo ranks at
+   the same shape in bf16, forward and backward, against FlashAttention
+   on the whole sequence on one rank: out within 3e-2, dq, dk and dv
+   within 0.05 * max|one-rank| and every tile of 64 positions within a
+   relative error of 1e-2, rank r launching r + 1 forward, r + 1 dQ and
+   r + 1 dK/dV kernels; the forward+backward seconds of each against
+   one-rank flash's; then ranks sharing the card over gloo, full width,
+   global B=4, 3 steps: the MoE (flash) on ep=2 (4 layers) and dp=2 x
+   ep=2 (2 layers: 4 ranks of 4 layers do not fit the card), the Llama
+   with ring attention (remat on) on cp=2 and tp=2 x cp=2 (4 layers),
+   and the flash kernels over cp: the Llama (remat on) on cp=2 and
+   tp=2 x cp=2 (4 layers) and the MoE on cp=2 (2 layers: each rank holds
+   every expert, and two ranks of 4 layers do not fit); each run's losses
+   and grad norms equal on every rank and within the [mesh] legs' limits
+   of one rank at the same depth (the MoE; the Llama with reference
+   attention for the ring, with flash for the flash legs), its flash
+   launches one forward, one dQ and one dK/dV per layer per rank a step
+   on ep (none through the ring), and on the flash cp legs cp rank c's
+   c + 1 blocks per layer (the forward twice under remat), its step
+   seconds and per-rank peak GiB;
    [gpt]: a tiny GPT's fp32 logits on the card against the same weights
    on the CPU (within 1e-4); then GPTConfig.gpt2_xl at full width and
    depth (48 layers, n_embd 1600, 25 heads of 64, vocab 50304, 1.558B
@@ -231,18 +246,21 @@ then runs, in order, failing on the first phase that fails:
    beside torch.add(a, b) (``ms_out_of_place``, ``library_ms_out_of_place``).
 
 The last three lines are the kernels' JSON record (each flash kernel's
-with its D=128 instance's SASS counts under ``sass``), the nvidia-smi line and
-``{"ok": true, "device": {...}}``.  A kernel's ``launches`` is its count
-over the path that runs it here: the single-device training (flash), the
-dp leg (the ring_pallas_q and ring_pallas kernels), and for the rdma ring
-its one-card path (``launches_dp_leg`` beside it: 0, as the dp leg's ranks
-share the card); each flash kernel's ``launches_mesh`` is its count over
-the [mesh] phase's world-1 run, ``launches_ckpt`` over every rank's
-steps after the [mesh] legs' restores, ``launches_moe`` over the [moe]
-phase's steps, and ``launches_pp`` over every rank's steps of the [pp]
-legs; each ring kernel's ``launches_load_state`` is its count over the
-step after the dp leg's ``load_state`` at 2 ranks.  Without a CUDA
-device it exits 1 and prints no result.
+with its D=128 instance's SASS counts under ``sass``), the nvidia-smi
+line and ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` is
+its count over the path that runs it here: the single-device training
+(flash), the dp leg (the ring_pallas_q and ring_pallas kernels), and for
+the rdma ring its one-card path (``launches_dp_leg`` beside it: 0, as
+the dp leg's ranks share the card); each flash kernel's
+``launches_mesh`` is its count over the [mesh] phase's world-1 run,
+``launches_ckpt`` over every rank's steps after the [mesh] legs'
+restores, ``launches_moe`` over the [moe] phase's steps, ``launches_pp``
+over every rank's steps of the [pp] legs, ``launches_cp`` a step by rank
+on each flash [cp] leg, and ``off_diagonal`` its time, bound, plain and
+SDPA times at the cp=2 ring's off-diagonal block; each ring kernel's
+``launches_load_state`` is its count over the step after the dp leg's
+``load_state`` at 2 ranks.  Without a CUDA device it exits 1 and prints
+no result.
 """
 
 import dataclasses
@@ -274,12 +292,16 @@ TRAIN_B, TRAIN_S, TIMED_STEPS = 4, 2048, 4
 # below one tile, ragged (a multiple of neither 64 nor 128), the ragged
 # last tile at D=128, and S a multiple of 64 but not of 128 (the last
 # 128-row tile half past S: one of dQ's two warpgroups has no row to
-# compute); S=2048 with GQA 4:1; the training shape last
+# compute); S=2048 with GQA 4:1; the off-diagonal block of the ring of
+# flash blocks at cp=2 (a chunk of the training sequence against an
+# earlier rank's chunk: unmasked); the training shape last
+CP_OFF_DIAGONAL = (TRAIN_B, TRAIN_S // 2, 16, 16, 128, False)
 FLASH_SHAPES = tuple((2, 256, 4, 2, D, causal) for D in (64, 128)
                      for causal in (True, False)) + (
     (2, 80, 4, 2, 64, True), (2, 333, 8, 2, 64, False),
     (1, 200, 4, 4, 128, True), (2, 192, 4, 2, 128, True),
-    (1, TRAIN_S, 16, 4, 128, True), (TRAIN_B, TRAIN_S, 16, 16, 128, True))
+    (1, TRAIN_S, 16, 4, 128, True), CP_OFF_DIAGONAL,
+    (TRAIN_B, TRAIN_S, 16, 16, 128, True))
 SOURCE = "dlrover_tpu_torch/csrc/flash_attention.cu"
 REPLACES = {
     "flash_fwd": "dlrover_tpu/ops/pallas/flash_attention.py:64",
@@ -384,10 +406,15 @@ MOE_ORACLE_ATOL = 2e-5
 # forward against its plain version (the reference rounds the
 # probabilities to bf16, the ring keeps them fp32)
 RING_ATOL = {"float32": 2e-3, "bfloat16": FWD_ATOL}
+# [cp flash] op: timed forward-and-backward calls of the ring of flash
+# blocks (and of one-rank flash on the whole sequence)
+RING_FLASH_ITERS = 5
 # dp=2 x ep=2 at 4 layers ran out of the card's memory (4 ranks of ~22
 # GiB: the optimizer holds fp32 copies of every leaf at once), so its
-# depth is cut to 2
+# depth is cut to 2; so is the MoE's cp=2 leg, whose ranks each hold
+# every expert (at 4 layers two ranks of ~38 GiB ran out)
 EP_DP_LAYERS = 2
+CP_MOE_LAYERS = EP_DP_LAYERS
 # [gpt]: GPTConfig.gpt2_xl at full width and depth; B and S are nanoGPT's
 # config/train_gpt2.py batch_size and block_size (the reference's
 # canonical demo job)
@@ -578,44 +605,47 @@ def bound_ms(flops, nbytes):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def time_kernels(fa, gen):
+def time_kernels(fa, gen, S=TRAIN_S, causal=True):
+    """Each flash kernel at B=4, ``S``, H=16, D=128 (``causal``) with CUDA
+    events, beside its bound, its plain version and SDPA."""
     import torch
     import torch.nn.functional as F
 
-    B, S, H, D = TRAIN_B, TRAIN_S, 16, 128
+    B, H, D = TRAIN_B, 16, 128
     q, k, v, do = rand_qkv(gen, B, S, H, H, D)
-    out, lse = fa.flash_forward(q, k, v, True)
+    out, lse = fa.flash_forward(q, k, v, causal)
     delta = fa.attention_delta(out, do)
-    pairs, t_bytes, r_bytes = attention_work(B, S, H, D, True)
+    pairs, t_bytes, r_bytes = attention_work(B, S, H, D, causal)
     runs = {
         # name: (kernel, plain, flops, bytes read + written)
         "flash_fwd": (
-            lambda: fa.flash_forward(q, k, v, True),
-            lambda: fa.flash_forward_plain(q, k, v, True),
+            lambda: fa.flash_forward(q, k, v, causal),
+            lambda: fa.flash_forward_plain(q, k, v, causal),
             4 * D * pairs, 4 * t_bytes + r_bytes),
         "flash_bwd_dq": (
-            lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, True),
-            lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, True),
+            lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, causal),
+            lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal),
             6 * D * pairs, 5 * t_bytes + 2 * r_bytes),
         "flash_bwd_dkv": (
-            lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, True),
-            lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, True),
+            lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal),
+            lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal),
             8 * D * pairs, 6 * t_bytes + 2 * r_bytes),
     }
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     sdpa_fwd_ms = cuda_time_ms(
-        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                               is_causal=causal),
         iters=20)
     qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
     dot = do.transpose(1, 2)
 
     def sdpa_fwd_bwd():
-        F.scaled_dot_product_attention(qg, kg, vg, is_causal=True).backward(
-            dot)
+        F.scaled_dot_product_attention(qg, kg, vg,
+                                       is_causal=causal).backward(dot)
 
     sdpa_fwd_bwd_ms = cuda_time_ms(sdpa_fwd_bwd, iters=10)
     # the backward alone: one forward kept, its graph walked again per call
-    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
     sdpa_bwd_ms = cuda_time_ms(
         lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg), dot,
                                     retain_graph=True), iters=10)
@@ -635,7 +665,7 @@ def time_kernels(fa, gen):
         print(f"  {name}: {ms:.4f} ms  bound {b_ms:.4f} ms ({b_by}, "
               f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)  "
               f"plain {plain_ms:.4f} ms")
-    print(f"  F.scaled_dot_product_attention(is_causal=True): forward "
+    print(f"  F.scaled_dot_product_attention(is_causal={causal}): forward "
           f"{sdpa_fwd_ms:.4f} ms, backward alone {sdpa_bwd_ms:.4f} ms, "
           f"forward+backward {sdpa_fwd_bwd_ms:.4f} ms; port dQ+dK/dV "
           f"{timings['flash_bwd_dq']['ms'] + timings['flash_bwd_dkv']['ms']:.4f}"
@@ -1344,7 +1374,8 @@ def check_rank_leg(name, recs, ref, flash_per_step,
     """Print and check one run of ranks sharing the card: its losses and
     grad norms equal on every rank and within ``MESH_RANK_RTOL`` and
     ``MESH_RANK_NORM_RTOL`` relative of ``ref``'s (one rank at the same
-    depth), its flash launches per step per rank."""
+    depth), its flash launches per step per rank (``flash_per_step``: the
+    counts, or a function of a rank's mesh coordinate giving them)."""
     def rel(key):
         return max(abs(a - b) / abs(b)
                    for a, b in zip(recs[0][key], ref[key]))
@@ -1357,17 +1388,19 @@ def check_rank_leg(name, recs, ref, flash_per_step,
           f"rel {rel('loss'):.2e} vs one rank, tol {MESH_RANK_RTOL:.0e}); "
           f"grad norms {[round(v, 6) for v in norm]} (max rel "
           f"{rel('grad_norm'):.2e}, tol {MESH_RANK_NORM_RTOL:.0e}); step s "
-          f"{[round(v, 3) for v in recs[0]['step_s']]}; launches per step "
-          f"{recs[0]['flash_launches'][-1]} per rank; per-rank peak GiB "
-          f"{peaks}", flush=True)
+          f"{[round(v, 3) for v in recs[0]['step_s']]}; flash launches "
+          f"per step, by rank {[r['flash_launches'][-1] for r in recs]}; "
+          f"per-rank peak GiB {peaks}", flush=True)
     for r in recs:
         if r["loss"] != loss or r["grad_norm"] != norm:
             raise AssertionError(f"{name}: ranks report different losses "
                                  "or grad norms")
+        want = (flash_per_step(r["coord"]) if callable(flash_per_step)
+                else flash_per_step)
         for counts in r["flash_launches"]:
-            if counts != flash_per_step:
-                raise AssertionError(f"{name} launched {counts} per step, "
-                                     f"expected {flash_per_step}")
+            if counts != want:
+                raise AssertionError(f"{name} launched {counts} per step "
+                                     f"at {r['coord']}, expected {want}")
     if (not all(math.isfinite(v) for v in loss + norm)
             or rel("loss") > MESH_RANK_RTOL
             or rel("grad_norm") > MESH_RANK_NORM_RTOL):
@@ -1377,9 +1410,62 @@ def check_rank_leg(name, recs, ref, flash_per_step,
             f"{MESH_RANK_RTOL}, {MESH_RANK_NORM_RTOL})")
 
 
-def ep_cp_phase() -> None:
+def ring_flash_op() -> None:
+    """[cp flash] op: ``ring_flash_attention`` alone on 2 gloo ranks
+    sharing the card, held against one-rank flash on the whole sequence
+    (module docstring)."""
+    from dlrover_tpu_torch.parallel import mesh_workers, process_group
+
+    t0 = time.perf_counter()
+    ranks = process_group.spawn(
+        mesh_workers.ring_flash_check_worker, 2, (dict(
+            shape=(TRAIN_B, TRAIN_S, 16, 128), seed=6, dtype="bfloat16",
+            tile=REL_TILE, iters=RING_FLASH_ITERS),), backend="gloo",
+        device="cuda", timeout_s=180.0)
+    for rank, rec in enumerate(ranks):
+        for name, e in rec["errors"].items():
+            tol = (FWD_ATOL if name == "out"
+                   else GRAD_REL * max(1.0, e["max_abs"]))
+            print(f"  [cp flash] op, cp=2 rank {rank}, B={TRAIN_B} "
+                  f"S={TRAIN_S} H=16 D=128 causal bf16, {name} vs one-rank "
+                  f"flash: max_abs_err={e['max_abs_err']:.3e} tol={tol:.3e}"
+                  f" rel_err={e['rel_err']:.3e} rel_tol={REL_TOL:.0e}")
+            if not (e["finite"] and e["max_abs_err"] <= tol
+                    and e["rel_err"] <= REL_TOL):
+                raise AssertionError(f"ring_flash_attention's {name} on "
+                                     f"rank {rank} disagrees with one-rank "
+                                     "flash")
+        # rank r holds r + 1 chunks at or before its own
+        want = dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                             rank + 1)
+        print(f"  [cp flash] op, rank {rank}: flash launches of one forward "
+              f"and backward {rec['launches']}", flush=True)
+        if rec["launches"] != want:
+            raise AssertionError(f"rank {rank} launched {rec['launches']}, "
+                                 f"expected {want}")
+    print(f"  [cp flash] op: forward+backward median of {RING_FLASH_ITERS}"
+          f", 2 ranks sharing the card, host-staged shifts: rank 0 "
+          f"{ranks[0]['ring_s'] * 1e3:.2f} ms, rank 1 "
+          f"{ranks[1]['ring_s'] * 1e3:.2f} ms; one-rank flash on the whole "
+          f"sequence {ranks[0]['one_rank_s'] * 1e3:.2f} ms (rank 0 alone); "
+          f"{time.perf_counter() - t0:.1f} s with spawn", flush=True)
+
+
+def cp_flash_launches(layers: int, remat: bool):
+    """The flash launches per step of a rank at a cp coordinate: the ring
+    of flash blocks runs cp rank c's c + 1 blocks per layer, the forward
+    twice under remat."""
+    def per_step(coord):
+        blocks = (coord["cp"] + 1) * layers
+        return {"flash_fwd": blocks * (2 if remat else 1),
+                "flash_bwd_dq": blocks, "flash_bwd_dkv": blocks}
+    return per_step
+
+
+def ep_cp_phase() -> dict:
     """The [ep] and [cp] phases: ranks sharing the card over gloo at full
-    width (module docstring)."""
+    width (module docstring).  Returns, per flash kernel, its launches a
+    step on each rank of each [cp] leg that runs the flash kernels."""
     import numpy as np
     import torch
 
@@ -1407,6 +1493,7 @@ def ep_cp_phase() -> None:
                                      "with the reference core")
     print(f"  the op check took {time.perf_counter() - t0:.1f} s with "
           "spawn", flush=True)
+    ring_flash_op()
 
     ids = np.random.default_rng(0).integers(0, 32000,
                                             size=(TRAIN_B, TRAIN_S + 1))
@@ -1426,7 +1513,8 @@ def ep_cp_phase() -> None:
     # one rank at each leg's depth, the spec the legs are held against
     refs = {"moe4": model("flash", DP_LAYERS, moe=True),
             "moe2": model("flash", EP_DP_LAYERS, moe=True),
-            "reference4": model("reference", DP_LAYERS)}
+            "reference4": model("reference", DP_LAYERS),
+            "flash4": model("flash", DP_LAYERS)}
     ring = model("ring", DP_LAYERS)
     flash = {layers: dict.fromkeys(("flash_fwd", "flash_bwd_dq",
                                     "flash_bwd_dkv"), layers)
@@ -1439,7 +1527,15 @@ def ep_cp_phase() -> None:
             ("[ep] dp2_ep2", 4, dict(dp=2, ep=2), refs["moe2"], "moe2",
              flash[EP_DP_LAYERS]),
             ("[cp] tp2_cp2", 4, dict(dp=1, tp=2, cp=2), ring, "reference4",
-             flash[0])]
+             flash[0]),
+            ("[cp] cp2_flash", 2, dict(dp=1, cp=2), refs["flash4"], "flash4",
+             cp_flash_launches(DP_LAYERS, remat=True)),
+            ("[cp] cp2_moe", 2, dict(dp=1, cp=2), refs["moe2"], "moe2",
+             cp_flash_launches(CP_MOE_LAYERS, remat=False)),
+            ("[cp] tp2_cp2_flash", 4, dict(dp=1, tp=2, cp=2), refs["flash4"],
+             "flash4", cp_flash_launches(DP_LAYERS, remat=True))]
+    cp_launches = {k: {} for k in ("flash_fwd", "flash_bwd_dq",
+                                   "flash_bwd_dkv")}
     ref_losses = {}
     for key, spec in refs.items():
         t0 = time.perf_counter()
@@ -1465,8 +1561,13 @@ def ep_cp_phase() -> None:
         print(f"  {world} ranks: {time.perf_counter() - t0:.1f} s with "
               "spawn", flush=True)
         for name, _, _, _, ref, flash_per_step in mine:
-            check_rank_leg(name, [r["runs"][name] for r in ranks],
-                           ref_losses[ref], flash_per_step)
+            recs = [r["runs"][name] for r in ranks]
+            check_rank_leg(name, recs, ref_losses[ref], flash_per_step)
+            if callable(flash_per_step):  # a [cp] leg through the kernels
+                for kernel, per_leg in cp_launches.items():
+                    per_leg[name[5:]] = [r["flash_launches"][-1][kernel]
+                                         for r in recs]
+    return cp_launches
 
 
 def card_vs_cpu(make, inputs, label: str) -> None:
@@ -2719,6 +2820,9 @@ def main() -> int:
 
     print("[kernel timing, B=4 S=2048 H=16 D=128 causal]", flush=True)
     timings = time_kernels(fa, gen)
+    print("[kernel timing, the cp=2 off-diagonal block: B=4 S=1024 H=16 "
+          "D=128 not causal]", flush=True)
+    off_diagonal = time_kernels(fa, gen, TRAIN_S // 2, causal=False)
 
     print("[training]", flush=True)
     launches, trainer, state, batch, plain = train(fa)
@@ -2753,7 +2857,7 @@ def main() -> int:
     moe_launches = moe_phase(fa)
     print("[ep] and [cp]", flush=True)
     t0 = time.perf_counter()
-    ep_cp_phase()
+    cp_launches = ep_cp_phase()
     print(f"  [ep] and [cp] took {time.perf_counter() - t0:.1f} s",
           flush=True)
     for name, phase in (("gpt", gpt_phase), ("vit", vit_phase)):
@@ -2814,6 +2918,8 @@ def main() -> int:
              launches_ckpt=ckpt_launches[name],
              launches_moe=moe_launches[name],
              launches_pp=pp_launches[name],
+             launches_cp=cp_launches[name],
+             off_diagonal=off_diagonal[name],
              sass=sass[SASS_KERNEL[name]], **timings[name])
         for name in REPLACES
     ] + [

@@ -21,10 +21,12 @@ vocab rows; the model then returns this rank's vocab shard of the logits.
 rank holds a contiguous chunk of the sequence (``parallel/sharding.py``
 ``shard_batch``) and takes the rows of the rotary tables at its chunk's
 global positions.  ``attention_impl="ring"`` then runs ring attention
-(``ops/ring_attention.py``); ``"reference"`` all-gathers the keys and
-values over ``cp`` and masks by global position, which is what GSPMD
-computes for the reference core on a sequence-sharded mesh; ``"flash"``
-is refused (``ROADMAP_FLASH_CP``).  ``"ring"`` without a ``cp`` group
+(``ops/ring_attention.py``); ``"flash"`` runs the flash kernels in a ring
+of blocks (``ring_flash_attention``), the function the reference's flash
+attention computes when GSPMD splits its sequence; ``"reference"``
+all-gathers the keys and values over ``cp`` and masks by global
+position, which is what GSPMD computes for the reference core on a
+sequence-sharded mesh.  ``"ring"`` without a ``cp`` group
 warns and runs the reference core, as the reference does without a cp
 mesh.  ``shard_expert_parallel`` (the MoE's experts over ``ep``,
 ``models/moe.py``) and ``set_data_parallel`` (the groups of a batch
@@ -46,7 +48,10 @@ from dlrover_tpu_torch.ops.attention import (
     flash_attention,
     reference_attention,
 )
-from dlrover_tpu_torch.ops.ring_attention import ring_attention
+from dlrover_tpu_torch.ops.ring_attention import (
+    ring_attention,
+    ring_flash_attention,
+)
 from dlrover_tpu_torch.parallel.tensor_parallel import (
     SplitModel,
     copy_to_tp,
@@ -54,8 +59,6 @@ from dlrover_tpu_torch.parallel.tensor_parallel import (
     reduce_from_tp,
     vocab_parallel_embedding,
 )
-
-ROADMAP_FLASH_CP = "ROADMAP queue 1 item 8 (the flash kernels under cp)"
 
 # the dim each parameter is split along over tp (the Megatron layout):
 # 0 = output features (column shards), 1 = input features (row shards);
@@ -205,6 +208,8 @@ class Attention(nn.Module):
     def _attend(self, q, k, v):
         impl, cp = self.config.attention_impl, self.cp
         if impl == "flash":
+            if cp is not None:
+                return ring_flash_attention(q, k, v, cp, causal=True)
             return flash_attention(q, k, v, causal=True)
         if impl == "ring":
             # causal only: the model builds no padding mask
@@ -388,13 +393,7 @@ class LlamaForCausalLM(SplitModel, nn.Module):
 
     def set_context_parallel(self, group) -> None:
         """Run over ``group``, the cp axis's ``DpGroup`` (module
-        docstring).  Raises ``NotImplementedError`` for the flash kernels,
-        which take the whole sequence."""
-        if self.config.attention_impl == "flash":
-            raise NotImplementedError(
-                f"attention_impl='flash' over cp={group.world}: the flash "
-                f"kernels under cp are not ported yet ({ROADMAP_FLASH_CP}); "
-                "use attention_impl='ring'")
+        docstring): every module that holds a ``cp`` takes it."""
         for module in self.modules():
             if hasattr(module, "cp"):
                 module.cp = group

@@ -39,9 +39,26 @@ the router's gradient is the same on every ``ep`` rank: the router is
 split over ``ep`` by the rules, gathered in the forward, and a shard's
 gradient is its slice of the whole (``gather_rows``).  The aux loss is a
 product of two means over the global batch: its sums are all-reduced over
-the data axes (``set_data_parallel``) before the product.  MoE under
-``cp`` is refused (``ROADMAP_MOE_CP``): the dispatch's priority scan runs
-over the whole sequence.
+the data axes (``set_data_parallel``) and over ``cp`` before the product.
+
+Over ``cp`` (``set_context_parallel``) each rank holds a contiguous chunk
+of the sequence, and the reference's dispatch (GSPMD's partition of it)
+runs over the whole sequence: the capacity comes from the global S, and
+the priority scan is k-major over every rank's tokens, every first choice
+of the sequence before any second choice.  So the slot of rank r's token
+for choice j of expert e is the count of choices before j to e on every
+rank, plus the count of choice j to e on the ranks before r, plus the
+local cumsum: one all-gather over ``cp`` of each rank's integer counts
+``[B, k, E]`` (no gradient) gives the offsets, and ``keep`` and the slots
+equal the reference's token for token.  The expert buffer then needs no
+exchange: a slot holds at most one token and the expert FFN is slot-wise
+with no bias (FFN(0) = 0), so each rank fills its own tokens' global slots,
+leaves the rest zero, runs the FFN and combines its own tokens, which is
+exactly what the summed buffer GSPMD builds gives those tokens, in bf16
+too.  The expert weights' gradients are then partial sums over the cp
+ranks, which the trainer's gradient sum over cp completes.  That reasoning
+stops holding for an expert with a bias or an FFN that mixes slots; such
+a layer would have to sum the buffer over ``cp`` first.
 """
 
 import dataclasses
@@ -67,9 +84,6 @@ from dlrover_tpu_torch.parallel.tensor_parallel import (
     gather_rows,
     reduce_from_tp,
 )
-
-ROADMAP_MOE_CP = "ROADMAP queue 1 item 9 (MoE under cp)"
-
 
 @dataclasses.dataclass(frozen=True)
 class MoELlamaConfig(LlamaConfig):
@@ -142,6 +156,7 @@ class MoEMLP(nn.Module):
         self.down_proj = expert(E, H, D)
         self.tp = None
         self.ep = None
+        self.cp = None  # this rank holds a chunk of the sequence
         self.data_groups = ()
         self.aux_loss = None  # the Switch loss of the last forward
 
@@ -171,17 +186,19 @@ class MoEMLP(nn.Module):
         return self._dispatch(x, norm_vals, top_idx)
 
     def _switch_loss(self, probs, top_idx, tokens: int) -> torch.Tensor:
-        """E * sum_e(frac_assigned_e * mean_prob_e) over the global batch:
-        the sums all-reduced over the data axes before the product."""
+        """E * sum_e(frac_assigned_e * mean_prob_e) over the global batch
+        and sequence: the sums all-reduced over the data axes and cp
+        before the product."""
         cfg = self.config
         E = cfg.num_experts
+        groups = self.data_groups + ((self.cp,) if self.cp else ())
         assign = F.one_hot(top_idx, E).float()  # [B, S, k, E]
         assigned = assign.sum(dim=(0, 1, 2))
         prob_sum = probs.sum(dim=(0, 1))
-        for group in self.data_groups:
+        for group in groups:
             assigned = group.all_reduce(assigned)
             tokens *= group.world
-        prob_sum = all_reduce_sum(prob_sum, self.data_groups)
+        prob_sum = all_reduce_sum(prob_sum, groups)
         frac = assigned / tokens / cfg.top_k
         return E * torch.sum(frac * (prob_sum / tokens))
 
@@ -194,19 +211,33 @@ class MoEMLP(nn.Module):
         act = F.silu(h) * u
         return torch.einsum("bech,ehd->becd", act, self.down_proj.to(dt))
 
+    def slots(self, mask: torch.Tensor) -> torch.Tensor:
+        """Each choice's slot in its expert's buffer by priority, every
+        first choice of the (global) sequence before any second choice,
+        and -1 where a token did not choose the expert; ``mask``: the
+        one-hot choices ``[B, S, k, E]`` of this rank's tokens.  Under cp
+        the offsets count the other ranks' choices (module docstring)."""
+        counts = mask.sum(dim=1)  # [B, k, E]
+        if self.cp is None:
+            total, before = counts, 0.0
+        else:
+            every = self.cp.all_gather(counts)  # [cp, B, k, E]
+            total, before = every.sum(dim=0), every[:self.cp.rank].sum(dim=0)
+        # the earlier choices on every rank, this choice on earlier ranks
+        offset = total.cumsum(dim=1) - total + before
+        return (mask.cumsum(dim=1) + offset[:, None]) * mask - 1.0
+
     def _dispatch(self, x, norm_vals, top_idx):
         """Capacity-based one-hot dispatch: FLOPs scale with top_k, not E."""
         cfg = self.config
-        B, S, _ = x.shape
-        E, top_k = cfg.num_experts, cfg.top_k
-        C = expert_capacity(S, E, top_k, cfg.capacity_factor)
+        E, S = cfg.num_experts, x.shape[1]
+        if self.cp is not None:  # the capacity of the global sequence
+            S *= self.cp.world
+        C = expert_capacity(S, E, cfg.top_k, cfg.capacity_factor)
         parts, mine = self._partial_groups(), self._local_experts()
         with record_function("moe.routing"):
             mask = F.one_hot(top_idx, E).float()  # [B, S, k, E]
-            # priority: every first choice before any second choice
-            mask_prio = mask.transpose(1, 2).reshape(B, top_k * S, E)
-            pos = mask_prio.cumsum(dim=1) * mask_prio - 1.0
-            pos = pos.reshape(B, top_k, S, E).transpose(1, 2)  # [B,S,k,E]
+            pos = self.slots(mask)
             keep = mask * (pos >= 0.0) * (pos < C)
             pos_idx = pos.long().clamp(0, C - 1)
             # dispatch [B, S, E, C]: one-hot of each kept token's slot
@@ -291,12 +322,6 @@ class MoELlamaForCausalLM(LlamaForCausalLM):
             raise ValueError(f"ep={group.world} does not divide "
                              f"num_experts={E}")
         super().shard_expert_parallel(group)
-
-    def set_context_parallel(self, group) -> None:
-        raise NotImplementedError(
-            f"the MoE model over cp={group.world}: the dispatch's priority "
-            "scan and its capacity run over the whole sequence; MoE under "
-            f"cp is not ported yet ({ROADMAP_MOE_CP})")
 
     def set_data_parallel(self, groups) -> None:
         """The aux loss's sums are all-reduced over ``groups``."""

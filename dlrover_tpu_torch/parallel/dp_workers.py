@@ -144,11 +144,12 @@ def train_worker(group: DpGroup, spec: Dict[str, Any]) -> Dict[str, Any]:
     step, peak device memory and, on rank 0 with ``return_params``, the
     final params (gathered whole on a mesh).  A dp run adds whether every
     rank's params were bit-identical after every step and the sync
-    summary; a mesh run adds the mesh's shape, each parameter's local
-    shape and the sharding axes of each param and moment leaf.  A resumed
-    run adds ``resumed_step``, ``restore_s``, ``read_stats`` (the bytes a
-    restore from a sealed distributed commit read) and ``ef_digest`` (of
-    the restored residuals); a saved one, ``ckpt`` and ``dist_ckpt``
+    summary; a mesh run adds the mesh's shape, this rank's coordinate on
+    it, each parameter's local shape and the sharding axes of each param
+    and moment leaf.  A resumed run adds ``resumed_step``, ``restore_s``,
+    ``read_stats`` (the bytes a restore from a sealed distributed commit
+    read) and ``ef_digest`` (of the restored residuals); a saved one,
+    ``ckpt`` and ``dist_ckpt``
     (``save_and_restore``)."""
     out: Dict[str, Any] = {"rank": group.rank, "world": group.world,
                            "backend": group.backend, "runs": {}}
@@ -165,6 +166,8 @@ def train_worker(group: DpGroup, spec: Dict[str, Any]) -> Dict[str, Any]:
         on_mesh = trainer.mesh is not None
         if on_mesh:
             record["shape"] = mesh_shape(trainer.mesh)
+            record["coord"] = dict(zip(trainer.mesh.mesh_dim_names,
+                                       trainer.mesh.get_coordinate()))
             record["axes"] = {k: sharding_axes(v) for k, v in
                               trainer.state_placements(state).items()}
             record["local_shapes"] = {n: tuple(p.shape)

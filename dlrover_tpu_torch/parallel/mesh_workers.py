@@ -9,15 +9,17 @@ calls that directly, one process per rank over a ``FileStore``).
 against; ``collective_probe_worker`` asks the group's backend whether it
 carries the collectives FSDP2 calls on the rank's device tensors;
 ``ring_check_worker`` holds ring attention over the group (as cp) against
-the reference core on the whole sequence.  ``pipeline_worker`` trains the
-pipelined Llama over ``pp`` (and ``dp``) function-style, as the reference
-trains its ``PipelinedLlama`` (the ``Trainer`` does not pipeline);
-``reference_pipeline`` runs the same steps on one rank without the
-pipeline.
+the reference core on the whole sequence, ``ring_flash_check_worker`` the
+ring of flash blocks against one-rank flash on the whole sequence.
+``pipeline_worker`` trains the pipelined Llama over ``pp`` (and ``dp``)
+function-style, as the reference trains its ``PipelinedLlama`` (the
+``Trainer`` does not pipeline); ``reference_pipeline`` runs the same
+steps on one rank without the pipeline.
 ``chip_smoke.py`` drives them on the card, the CPU tests at a tiny size.
 """
 
 import dataclasses
+import statistics
 import time
 from typing import Any, Dict
 
@@ -268,6 +270,80 @@ def ring_check_worker(group: DpGroup, spec: Dict[str, Any]) -> Dict:
             ring_s=time.perf_counter() - t0, finite=bool(
                 torch.isfinite(got).all().item()))
     return out
+
+
+def ring_flash_check_worker(group: DpGroup, spec: Dict[str, Any]) -> Dict:
+    """``ring_flash_attention`` over ``group`` as the cp axis against the
+    one-rank flash of ``FlashAttention`` on the whole sequence, causal:
+    seeded q, k, v and output cotangent of ``spec["shape"]`` ([B, S, H,
+    D], ``spec["dtype"]``, made whole on every rank from ``spec["seed"]``),
+    this rank's chunk through the ring forward and backward, its rows of
+    the whole.  Returns per output (out, dq, dk, dv) the largest absolute
+    error, the whole's largest magnitude, the largest relative error
+    ||ring - whole||_F / ||whole||_F on a tile of ``spec["tile"]``
+    sequence positions and whether it is finite; the flash launches of the
+    ring's forward and backward; and the median seconds of
+    ``spec["iters"]`` forward-and-backward calls (host clock, the device
+    synchronized) of the ring, and on rank 0 alone (the others wait) of
+    one-rank flash on the whole sequence."""
+    from dlrover_tpu_torch.ops.cuda import flash_attention as fa
+    from dlrover_tpu_torch.ops.ring_attention import ring_flash_attention
+
+    dev = group.device
+    B, S, H, D = spec["shape"]
+    dtype = getattr(torch, spec["dtype"])
+    gen = torch.Generator(device=dev).manual_seed(spec["seed"])
+    q, k, v, dout = (torch.randn(B, S, H, D, generator=gen, device=dev)
+                     .to(dtype) for _ in range(4))
+    rows = slice(group.rank * S // group.world,
+                 (group.rank + 1) * S // group.world)
+    chunks = [t[:, rows].contiguous() for t in (q, k, v, dout)]
+
+    def run(fn, q_, k_, v_, dout_):
+        xs = [t.detach().clone().requires_grad_() for t in (q_, k_, v_)]
+        out = fn(*xs)
+        out.backward(dout_)
+        return (out.detach(), *(t.grad for t in xs))
+
+    def one_rank():
+        return run(lambda *t: fa.FlashAttention.apply(*t, True),
+                   q, k, v, dout)
+
+    def ring():
+        return run(lambda *t: ring_flash_attention(*t, group, causal=True),
+                   *chunks)
+
+    want = [t[:, rows] for t in one_rank()]
+    _sync(dev)
+    fa.reset_launches()
+    got = ring()
+    _sync(dev)
+    launches = dict(fa.launches)
+    errors = {}
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+        diff, b = a.float() - b.float(), b.float()
+        errors[name] = dict(
+            max_abs_err=diff.abs().max().item(), max_abs=b.abs().max().item(),
+            rel_err=max((d.norm() / w.norm()).item() for d, w in zip(
+                diff.split(spec["tile"], dim=1),
+                b.split(spec["tile"], dim=1))),
+            finite=bool(torch.isfinite(a).all().item()))
+
+    def median_s(fn):
+        times = []
+        for _ in range(spec["iters"]):
+            _sync(dev)
+            t0 = time.perf_counter()
+            fn()
+            _sync(dev)
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times)
+
+    ring_s = median_s(ring)
+    one_rank_s = median_s(one_rank) if group.rank == 0 else None
+    group.all_reduce(torch.zeros(1, device=dev))  # rank 0's timing ends
+    return dict(errors=errors, launches=launches, ring_s=ring_s,
+                one_rank_s=one_rank_s)
 
 
 def _sync(dev) -> None:

@@ -9,8 +9,10 @@ indices) equal; dispatch against dense at capacity_factor = E / top_k
 (nothing drops) within 2e-5, as tests/test_moe.py:53 holds JAX's; the
 zero rows of dropped tokens; the aux loss and ``moe_loss_fn``; a top-k
 with ties, which ``lax.top_k`` breaks towards the lower index; the tiny
-model's logits in bf16; the converter's names and layout; and the MoE
-leaves' logical axes against the reference's.
+model's logits in bf16; the converter's names and layout; the MoE
+leaves' logical axes against the reference's; and ``MoEMLP`` over cp = 2
+and 4 gloo ranks against JAX's on the whole sequence, at a capacity that
+drops half the choices (``keep`` and every slot exactly).
 
 Tolerances: fp32 outputs within 1e-5 absolute (the same products summed
 in another order), the aux loss and the losses within 1e-6 relative; the
@@ -162,6 +164,105 @@ def test_top_k_breaks_ties_towards_the_lower_index():
     _, idx = moe.top_k_lower_index(torch.from_numpy(probs), 2)
     np.testing.assert_array_equal(top_idx, [[[0, 1]] * 4])
     np.testing.assert_array_equal(idx.numpy(), top_idx)
+
+
+CP_SIZES = (2, 4)
+# B=2, S=64, E=4, top-2, capacity_factor 0.5: C = 16 slots an expert for
+# 64 choices an expert on average, so most second choices drop, and which
+# ones the cross-rank offsets decide
+CP_CONFIG = dict(capacity_factor=0.5)
+
+
+def _jax_slots(params, x, cfg):
+    """The reference's ``keep`` and slots on the whole sequence: its
+    dispatch's priority lines (dlrover_tpu/models/moe.py ``_dispatch``) on
+    JAX's routing."""
+    B, S, _ = x.shape
+    E, k = cfg.num_experts, cfg.top_k
+    C = jmoe.expert_capacity(S, E, k, cfg.capacity_factor)
+    _, top_idx = _jax_routing(params, x, k)
+    mask = jax.nn.one_hot(top_idx, E, dtype=jnp.float32)
+    mask_prio = mask.transpose(0, 2, 1, 3).reshape(B, k * S, E)
+    pos = jnp.cumsum(mask_prio, axis=1) * mask_prio - 1.0
+    pos = pos.reshape(B, k, S, E).transpose(0, 2, 1, 3)
+    keep = mask * (pos >= 0.0) * (pos < C)
+    return np.asarray(keep), np.asarray(pos)
+
+
+@pytest.fixture(scope="module")
+def moe_cp():
+    """``MoEMLP`` on cp = 2 and 4 gloo ranks (one spawn of 4, in the
+    background) and JAX's ``MoEMLP`` on the whole sequence, from the same
+    weights, input and output cotangent."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dlrover_tpu_torch.parallel import process_group
+    from torch_cp_ep_checks import moe_cp_worker
+
+    jcfg, params, mlp = _mlp_pair(**CP_CONFIG)
+    x, dout = _x(S=64, seed=7), _x(S=64, seed=8)
+    spec = dict(config=CP_CONFIG, cps=CP_SIZES, x=x, dout=dout,
+                state_dict={k: v.numpy() for k, v in
+                            mlp.state_dict().items()})
+    with ThreadPoolExecutor(1) as pool:
+        ranks = pool.submit(process_group.spawn, moe_cp_worker, 4, (spec,),
+                            device="cpu", timeout_s=120.0)
+        module = jmoe.MoEMLP(jcfg)
+
+        def loss(p, x_):
+            out, state = module.apply({"params": p}, x_,
+                                      mutable=["intermediates"])
+            return jnp.sum(out * dout), (out, state)
+
+        (_, (out, state)), (g_params, g_x) = jax.value_and_grad(
+            loss, argnums=(0, 1), has_aux=True)(params, jnp.asarray(x))
+        keep, pos = _jax_slots(params, x, jcfg)
+        want = dict(keep=keep, pos=pos, out=np.asarray(out),
+                    dx=np.asarray(g_x),
+                    aux=float(state["intermediates"]["aux_loss"][0]),
+                    grads={"router.weight": np.asarray(
+                        g_params["router"]["kernel"]).T, **{
+                        n: np.asarray(g_params[n]) for n in (
+                            "gate_proj", "up_proj", "down_proj")}})
+        ranks = ranks.result()
+    return ranks, want
+
+
+@pytest.mark.parametrize("cp", CP_SIZES)
+def test_moe_mlp_over_cp_matches_jax_on_the_whole_sequence(moe_cp, cp):
+    """Each rank's ``keep`` and the slot of each of its tokens' choices
+    equal the reference's on the whole sequence, exactly, at a capacity
+    that drops tokens: the capacity from the global S and the k-major
+    priority scan across ranks (the earlier choices of every rank, later
+    ranks' too, come before a rank's next choice).  The outputs, the aux
+    loss and the gradients w.r.t. x match JAX's; the weights' gradients
+    summed over the cp ranks (the trainer's sum over cp) match JAX's
+    whole ones.  fp32: summation order only, outputs and gradients within
+    1e-5 (measured <= 1.2e-6 on gradients up to 3.3), the aux loss within
+    1e-6 relative (measured 1.2e-7).  Offsets that count only the earlier
+    ranks' earlier choices fail both cases."""
+    ranks, want = moe_cp
+    index = CP_SIZES.index(cp)
+    blocks = sorted((r[index] for r in ranks[:cp]),
+                    key=lambda b: b["chunk"])
+
+    def whole(key):
+        return np.concatenate([b[key] for b in blocks], axis=1)
+
+    choices = want["keep"].size // want["keep"].shape[-1]
+    assert want["keep"].sum() <= choices / 2  # half the choices drop
+    np.testing.assert_array_equal(whole("keep"), want["keep"])
+    np.testing.assert_array_equal(whole("pos"), want["pos"])
+    np.testing.assert_allclose(whole("out"), want["out"], rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(whole("dx"), want["dx"], rtol=1e-5,
+                               atol=1e-5)
+    for b in blocks:
+        np.testing.assert_allclose(b["aux"], want["aux"], rtol=1e-6)
+    for n, g in want["grads"].items():
+        got = sum(b["grads"][n] for b in blocks)
+        np.testing.assert_allclose(got, g, rtol=1e-5, atol=1e-5,
+                                   err_msg=n)
 
 
 def _model_pair(dtype, **kw):

@@ -1,19 +1,25 @@
 """The port's Trainer on meshes with cp and ep (dlrover_tpu_torch/trainer/
 train.py with ``mesh=``) against the JAX Trainer on the same mesh: the
-tiny Llama (ring attention and the reference core over cp) and the tiny
-MoE Llama with ``moe_loss_fn`` (over ep), each from the JAX model's init
-(models/convert.py), the same global batch (B=16, S=16), 4 steps of
-create_optimizer (clip 1.0 in the chain, lr 1e-3 after one warm-up step
-at 0), in fp32.  The meshes: cp=2 with ring attention (remat on, so the
-backward reissues the ring's rotations) and with the reference core
-(tests/test_models.py:138's axis), dp=2 x tp=2 x cp=2 with ring attention
-(remat off; tests/test_ops.py:156), ep=2, fsdp=2 x ep=2, and
-dp=2 x tp=2 x ep=2 (tests/test_moe.py:159).  The JAX runs take the 8
-virtual CPU devices of tests/conftest.py; the port's ranks run on gloo,
-one spawn per world size (2, 4 and 8 ranks), in the background.  Also:
-every leaf (each param and its two moments) is split over the mesh axes
-the rules give it in JAX, and ``shard_batch`` gives each rank its rows
-and its chunk of the sequence.
+tiny Llama (ring attention, the flash kernels and the reference core
+over cp) and the tiny MoE Llama with ``moe_loss_fn`` (over ep and cp),
+each from the JAX model's init (models/convert.py), the same global
+batch (B=16, S=16), 4 steps of create_optimizer (clip 1.0 in the chain,
+lr 1e-3 after one warm-up step at 0), in fp32.  The meshes: cp=2 with
+ring attention (remat on, so the backward runs the ring's rotations again)
+and with the reference core (tests/test_models.py:138's axis), dp=2 x
+tp=2 x cp=2 with ring attention (remat off; tests/test_ops.py:156),
+ep=2, fsdp=2 x ep=2, and dp=2 x tp=2 x ep=2 (tests/test_moe.py:159); and
+with the flash kernels over cp (the ring of flash blocks, their plain
+versions here; JAX's flash on the CPU is its reference core) cp=2 with
+remat and dp=2 x tp=2 x cp=2, and the MoE over cp: cp=2 with flash
+attention, ep=2 x cp=2, and cp=4 at capacity_factor 0.5, where tokens
+drop and the cross-rank offsets of the priority scan decide which (the
+reference computes the same losses on one device and on these meshes).
+The JAX runs take the 8 virtual CPU devices of tests/conftest.py; the
+port's ranks run on gloo, one spawn per world size (2, 4 and 8 ranks),
+in the background.  Also: every leaf (each param and its two moments) is
+split over the mesh axes the rules give it in JAX, and ``shard_batch``
+gives each rank its rows and its chunk of the sequence.
 
 Tolerances, as tests/test_torch_train_mesh.py states them for fp32 (the
 two trainers differ in summation order only: the ring's and the
@@ -73,6 +79,13 @@ MESHES = [
     ("dp2_tp2_cp2_ring", dict(dp=2, tp=2, cp=2), "llama",
      dict(attention_impl="ring", remat=False), 8),
     ("dp2_tp2_ep2", dict(dp=2, tp=2, ep=2), "moe", {}, 8),
+    ("cp2_flash", dict(dp=1, cp=2), "llama",
+     dict(attention_impl="flash", remat=True), 2),
+    ("dp2_tp2_cp2_flash", dict(dp=2, tp=2, cp=2), "llama",
+     dict(attention_impl="flash", remat=False), 8),
+    ("cp2_moe", dict(dp=1, cp=2), "moe", dict(attention_impl="flash"), 2),
+    ("ep2_cp2_moe", dict(dp=1, ep=2, cp=2), "moe", {}, 4),
+    ("cp4_moe_drop", dict(dp=1, cp=4), "moe", dict(capacity_factor=0.5), 4),
 ]
 
 

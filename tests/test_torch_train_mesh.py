@@ -12,8 +12,8 @@ coordinator).  Also: every leaf (each param and its two moments) is split
 over the set of mesh axes the rules give in JAX, and its local shard has
 the shape that split implies; adjust_accum_for_world; and the refusals
 that need ranks (a quantized sync with tp > 1 or with fsdp > 1, pp > 1,
-the flash kernels and the MoE under cp, an ep that does not divide the
-experts), beside the cp and ep meshes the trainer now takes.
+an ep that does not divide the experts), beside the cp and ep meshes the
+trainer takes, the flash kernels and the MoE under cp among them.
 
 The meshes are run in fp32, and dp=2 x fsdp=2 x tp=2 once more with bf16
 compute and bf16 grads on the fp32 masters (FSDP's mixed precision: it
@@ -286,11 +286,10 @@ def test_adjust_accum_for_world(runs, refusals):
 def test_refusals_on_ranks(refusals):
     """A quantized sync needs a pure dp mesh (ValueError, the reference's
     two messages); cp and ep are taken (the dense Llama's ep ranks compute
-    the same step), pp raises NotImplementedError naming the function-style
-    pp path (the Trainer does not pipeline, as the reference's does not),
-    the flash kernels and the MoE model under cp raise it naming their
-    ROADMAP items; a mesh and a
-    dp group together raise ValueError, and so do a tp that does not
+    the same step), and so are the flash kernels and the MoE model under
+    cp; pp raises NotImplementedError naming the function-style pp path
+    (the Trainer does not pipeline, as the reference's does not); a mesh
+    and a dp group together raise ValueError, and so do a tp that does not
     divide the kv heads and an ep that does not divide the experts; the
     flash checkpoint takes the world: its process id and count are the
     rank's and the world's."""
@@ -303,8 +302,8 @@ def test_refusals_on_ranks(refusals):
         "mesh and dp_group": ("ValueError", "not both"),
         "tp=4 over 2 kv heads": ("ValueError",
                                  "tp=4 does not divide num_kv_heads=2"),
-        "flash on cp=2": ("NotImplementedError", "queue 1 item 8"),
-        "moe on cp=2": ("NotImplementedError", "queue 1 item 9"),
+        "flash on cp=2": ("accepted", ""),
+        "moe on cp=2": ("accepted", ""),
         "ep=8 over 4 experts": ("ValueError",
                                 "ep=8 does not divide num_experts=4"),
         "flash checkpoint": ("accepted", " of 8"),
