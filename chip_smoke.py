@@ -73,7 +73,24 @@ then runs, in order, failing on the first phase that fails:
    from it has the uninterrupted next step's loss (1e-6 relative) and 2
    steps' flash launches; persist seconds and GB/s, bytes_written,
    bytes_reused, restore seconds and bytes_read/bytes_total are printed
-   and go to a {"dist_persist": {...}} line;
+   and go to a {"dist_persist": {...}} line (the state is cut in depth
+   where /dev/shm cannot hold two segments of it, for the next phase);
+   [peer restore], on [dist persist]'s trainer, saved state and sealed
+   commit, before they are released (peer_restore.py): the donor is its
+   memory save of the sealed step (the segment of its second save),
+   served by a PeerServeEndpoint on 127.0.0.1 and announced through a
+   LocalPeerClient as process 1 of 2; process 0's Checkpointer, its
+   segment empty, has it filled by recover() as the engine's hook does
+   (rung peer_shm, every payload byte from the peer, the meta byte-equal
+   to the donor's) and restores it, torch.equal leaf by leaf to the saved
+   state,
+   and a step from it has the uninterrupted next step's loss (1e-6
+   relative) and one step's flash launches; then, the donor gone, the
+   same step recovered with no donor from the sealed commit (rung
+   manifest, every payload byte from it), with the same checks; mttr_s,
+   peer_read_gbps, bytes_peer and bytes_manifest of each, then
+   bench.peer_recovery_bench() at its default (8 MB, 4 local hosts, one
+   dead), all in a {"peer_restore": {...}} line;
    [dist bench]: the reference's persist bench (dist_bench.py: hosts
    simulated in this process, 1, 2 and 4 of them, one coordinator) at 1024
    MB when the temp dir's disk and the host's RAM allow (64 MB else), its
@@ -92,12 +109,14 @@ then runs, in order, failing on the first phase that fails:
    phase's; then a probe of whether gloo carries all_gather_into_tensor,
    reduce_scatter_tensor and all_reduce on CUDA tensors (2 ranks on the
    card; NCCL refuses two ranks on one card), printed; then ranks that
-   share the card over gloo, host-staged, at full width and 4 layers,
+   share the card over gloo, host-staged, at full width and 2 layers,
    global B=4, 3 steps: tp=2 (2 ranks) always, and fsdp=2 (2 ranks) and
-   fsdp=2 x tp=2 (4 ranks) only if the probe found all three ops carried;
+   fsdp=2 x tp=2 (4 ranks) only if the probe found all three ops carried
+   (tp=2's ranks run beside the fsdp legs' on the card, so their step
+   seconds share it);
    each run's losses and grad norms equal on every rank, within 2e-4
    (losses) and 5e-4 (grad norms) relative of the same depth on one rank
-   without a mesh, and its flash launches 8 / 4 / 4 per rank a step (each
+   without a mesh, and its flash launches 4 / 2 / 2 per rank a step (each
    launch on the rank's local heads).  Each leg then checkpoints (/dev/shm
    checked first): every rank makes an async memory save, staged, and an
    async storage save of its local shards (dp_workers.save_and_restore),
@@ -105,7 +124,7 @@ then runs, in order, failing on the first phase that fails:
    (a fresh scope) into a fresh state, each restore torch.equal leaf by
    leaf to a copy taken on the card at the save, and steps from each: the
    loss within 1e-6 relative of the uninterrupted next step's, the flash
-   launches 8 / 4 / 4; each rank's blocking_save_s, restore_shm_s and
+   launches 4 / 2 / 2; each rank's blocking_save_s, restore_shm_s and
    restore_storage_s are printed.  The fsdp=2 leg runs after
    fsdp=2 x tp=2 and then restores that leg's stored step across meshes
    and steps: loss and grad norm within 2e-4 and 5e-4 of fsdp=2 x tp=2's
@@ -138,11 +157,11 @@ then runs, in order, failing on the first phase that fails:
    relative error of 1e-2, rank r launching r + 1 forward, r + 1 dQ and
    r + 1 dK/dV kernels; the forward+backward seconds of each against
    one-rank flash's; then ranks sharing the card over gloo, full width,
-   global B=4, 3 steps: the MoE (flash) on ep=2 (4 layers) and dp=2 x
-   ep=2 (2 layers: 4 ranks of 4 layers do not fit the card), the Llama
-   with ring attention (remat on) on cp=2 and tp=2 x cp=2 (4 layers),
+   global B=4, 3 steps: the MoE (flash) on ep=2 and dp=2 x ep=2 (2
+   layers: 4 ranks of 4 layers do not fit the card), the Llama
+   with ring attention (remat on) on cp=2 and tp=2 x cp=2 (2 layers),
    and the flash kernels over cp: the Llama (remat on) on cp=2 and
-   tp=2 x cp=2 (4 layers) and the MoE on cp=2 (2 layers: each rank holds
+   tp=2 x cp=2 (2 layers) and the MoE on cp=2 (2 layers: each rank holds
    every expert, and two ranks of 4 layers do not fit); each run's losses
    and grad norms equal on every rank and within the [mesh] legs' limits
    of one rank at the same depth (the MoE; the Llama with reference
@@ -169,13 +188,14 @@ then runs, in order, failing on the first phase that fails:
    and labels, vit_loss_fn (the zero head's first loss is ln(1000)):
    images/s;
    [pp]: PipelinedLlama (models/pipeline_llama.py) at llama2_1b width cut
-   to 4 layers (2 a stage), flash, S=2048, 4 microbatches, gloo ranks on
+   to 2 layers (1 a stage), flash, S=2048, 4 microbatches, gloo ranks on
    the card, function-style steps (mesh_workers.pipeline_worker) with the
-   rank legs' optimizer: pp=2 at B=4 and dp=2 x pp=2 at B=8, 3 steps each,
+   rank legs' optimizer: pp=2 at B=4 and dp=2 x pp=2 at B=8 at once (their
+   step seconds share the card), 3 steps each,
    each held against one rank's unpipelined LlamaForCausalLM with the same
    weights, batch and steps (losses within 2e-4, grad norms within 5e-4,
    equal on every rank), each rank's flash launches a step equal to the
-   schedule's: 16 forwards, 8 dQ and 8 dK/dV (2 layers x 4 microbatches,
+   schedule's: 8 forwards, 4 dQ and 4 dK/dV (1 layer x 4 microbatches,
    the forward again in remat's recompute; a bubble computes nothing);
    microbatch_efficiency and each rank's step seconds;
 5. ring kernels vs plain versions: the fused quantize (int8, int4) and
@@ -209,7 +229,7 @@ then runs, in order, failing on the first phase that fails:
    each slot must hold its left neighbour's row exactly;
 9. the dp leg: 4 rank processes on the one card over a gloo group (the
    exchange is host-staged), Llama-2-1B at full width with its depth cut
-   to 4 layers, B=1 per rank, S=2048, bf16 grads on fp32 masters, bucket
+   to 2 layers, B=1 per rank, S=2048, bf16 grads on fp32 masters, bucket
    4 MB, transport ring_pallas_q: int8_sharded (1 warm-up and 3 timed
    steps), int4_sharded, blockwise_sharded and exact_sharded (3 steps
    each), then exact_sharded over the ring_pallas tier (3 steps), all
@@ -236,6 +256,22 @@ then runs, in order, failing on the first phase that fails:
    projections, dp_workers.ef_digest), zero where dp=4 stored none, a
    finite loss, and the int8 encode and accumulate kernels launched as
    the new degree's buckets need;
+   [replica], in the spawn of the 2 ranks of load_state above, after it:
+   the dp leg's model (full width, 2 layers, B=2 per rank), one step, then
+   dp_workers.lose_and_restore: a memory save, the uninterrupted next
+   step, rank 1 (as its replacement would) drops its segment and its
+   backup and opens a fresh checkpointer, every rank restores into a
+   fresh state and steps.  The replica pass runs int8_sharded over
+   ring_pallas_q with Checkpointer(replica=True): the save is synchronous
+   and ends in the replica exchange (its seconds, bytes and rounds per
+   rank), and rank 1 comes back from rank 0's backup through the engine's
+   retry.  The peer pass runs the exact (replicated) sync with
+   DLROVER_TPU_PEER_RESTORE=1: rank 1 is refilled from rank 0's endpoint
+   through the broker over the world's store (rung peer_shm), rank 0
+   fetches nothing.  On every rank of both passes: the saved step
+   restored torch.equal, the next step's loss within 1e-6 relative, its
+   flash launches a step's, its ring kernels' launches the uninterrupted
+   step's (int8: encode and accumulate; none for the exact sync);
 10. the ring kernels at the dp leg's largest and smallest bucket shapes:
    torch.equal against the plain versions (the JSON line's max_abs_err is
    the largest |kernel - plain| over every comparison), then time per
@@ -256,10 +292,13 @@ the dp leg's ranks share the card); each flash kernel's
 ``launches_ckpt`` over every rank's steps after the [mesh] legs'
 restores, ``launches_moe`` over the [moe] phase's steps, ``launches_pp``
 over every rank's steps of the [pp] legs, ``launches_cp`` a step by rank
-on each flash [cp] leg, and ``off_diagonal`` its time, bound, plain and
-SDPA times at the cp=2 ring's off-diagonal block; each ring kernel's
-``launches_load_state`` is its count over the step after the dp leg's
-``load_state`` at 2 ranks.  Without a CUDA device it exits 1 and prints
+on each flash [cp] leg, ``launches_peer_restore`` over the [peer restore]
+phase's two steps after its restores, and ``off_diagonal`` its time,
+bound, plain and SDPA times at the cp=2 ring's off-diagonal block; each
+ring kernel's ``launches_load_state`` is its count over the step after
+the dp leg's ``load_state`` at 2 ranks; the flash and ring kernels'
+``launches_replica`` over every rank's steps after the [replica] leg's
+restores.  Without a CUDA device it exits 1 and prints
 no result.
 """
 
@@ -273,6 +312,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
@@ -331,7 +371,9 @@ RDMA_REUSE_CALLS, RDMA_REUSE_SHAPE = 50, (4, 1_048_576)
 # the stuck-peer check's wait limit (the windows' default is a minute)
 RDMA_TIMEOUT_S = 2.0
 PEER_WINDOW_WIDTH = 1_048_576
-DP_WORLD, DP_LAYERS, DP_BUCKET_MB = 4, 4, 4.0
+# the rank legs' depth at full width (the dp leg, [mesh], [ep], [cp], [pp]
+# and [replica]): 2 layers keep the whole script well inside its limit
+DP_WORLD, DP_LAYERS, DP_BUCKET_MB = 4, 2, 4.0
 # (run, mode, transport, steps): the schedule's lr is 0 at step 0, so a
 # loss from step 2 on is the first to see an update
 DP_RUNS = (("int8_sharded", "int8_sharded", "ring_pallas_q", 4),
@@ -394,6 +436,9 @@ DP_CKPT_BYTES_PER_PARAM = 9
 # the sum over the replicas of its error-feedback residuals against the
 # sum saved (fp32 rows summed in numpy and halved: rounding only)
 DP_RESUME_WORLD = 2
+# [replica]: ranks (those of the dp leg's load_state, whose spawn runs it)
+# and steps before the memory save
+REPLICA_WORLD, REPLICA_STEPS = DP_RESUME_WORLD, 1
 EF_SUM_RTOL = 1e-6
 # [moe]: the MoE Llama at llama2_1b width, its depth cut to 8 layers (at
 # 22 its state alone would take ~77 GB of the 80); steps after warm-up
@@ -424,7 +469,7 @@ VIT_B = 64
 # a tiny model's fp32 logits on the card against the same weights on the
 # CPU: one function, only the summation order differs (no TF32)
 CARD_CPU_ATOL = 1e-4
-# [pp]: llama2_1b width cut to DP_LAYERS layers (2 a stage on pp=2), S =
+# [pp]: llama2_1b width cut to DP_LAYERS layers (1 a stage on pp=2), S =
 # TRAIN_S, PP_MICROBATCHES microbatches; the legs' global batch (pp=2 at
 # B=4, dp=2 x pp=2 at B=8)
 PP_MICROBATCHES = 4
@@ -929,52 +974,66 @@ def rank_legs(spec, fsdp_ok: bool) -> dict:
                 "flash_bwd_dkv": DP_LAYERS}
     need = MESH_CKPT_BYTES_PER_PARAM * llama_param_count(
         LlamaConfig.llama2_1b(num_layers=DP_LAYERS)) + CKPT_META_MARGIN
-    check_shm(need, "a rank leg's checkpoint")
+    check_shm(2 * need, "two rank legs' checkpoints at once")
     root = tempfile.mkdtemp(prefix="mesh_ckpt_")
     ckpt_launches = dict.fromkeys(per_step, 0)
+    want = {}  # fsdp2_tp2's records, which fsdp2 restores across meshes
+
+    def spawn_leg(name, axes, world):
+        runs = [dict(name=name, axes=axes, steps=MESH_RANK_STEPS,
+                     save=dict(dir=os.path.join(root, name),
+                               scope=f"mesh{os.getpid()}{name}"))]
+        if name == "fsdp2_tp2":
+            # and again under the distributed persist
+            runs[0]["dist_save"] = dict(
+                dir=os.path.join(root, "fsdp2_tp2_dist"),
+                scope=f"mesh{os.getpid()}dist")
+        if name == "fsdp2":
+            runs.append(dict(
+                name="fsdp2_tp2_to_fsdp2", axes=axes, steps=1,
+                resume=dict(dir=os.path.join(root, "fsdp2_tp2"),
+                            scope=f"mesh{os.getpid()}cross")))
+            runs.append(dict(
+                name="fsdp2_tp2_dist_to_fsdp2", axes=axes, steps=1,
+                resume=dict(dir=os.path.join(root, "fsdp2_tp2_dist"),
+                            scope=f"mesh{os.getpid()}crossd")))
+        t0 = time.perf_counter()
+        ranks = process_group.spawn(
+            dp_workers.train_worker, world, (dict(small, runs=runs),),
+            backend="gloo", device="cuda", timeout_s=MESH_TIMEOUT_S)
+        return runs, ranks, time.perf_counter() - t0
+
+    def check_leg(name, world, runs, ranks, seconds):
+        print(f"  {name}, {world} ranks: {seconds:.1f} s with spawn, the "
+              "checkpoint and its restores", flush=True)
+        recs = [r["runs"][name] for r in ranks]
+        check_rank_leg(name, recs, ref, per_step)
+        saved = [r["ckpt"] for r in recs]
+        check_ckpt_leg(name, saved, per_step, ckpt_launches)
+        if name == "fsdp2_tp2":
+            want["cross"] = saved[0]
+            dist_saved = [r["dist_ckpt"] for r in recs]
+            check_ckpt_leg(f"{name} (dist persist)", dist_saved,
+                           per_step, ckpt_launches)
+            check_dist_writes(name, dist_saved)
+            want["dist"] = dist_saved[0]
+        if len(runs) > 1:
+            check_cross_restore(
+                [r["runs"][runs[1]["name"]] for r in ranks], want["cross"],
+                per_step, ckpt_launches)
+            check_cross_restore(
+                [r["runs"][runs[2]["name"]] for r in ranks], want["dist"],
+                per_step, ckpt_launches, "a sealed distributed commit")
+
     try:
-        for name, axes, world in legs:
-            runs = [dict(name=name, axes=axes, steps=MESH_RANK_STEPS,
-                         save=dict(dir=os.path.join(root, name),
-                                   scope=f"mesh{os.getpid()}{name}"))]
-            if name == "fsdp2_tp2":
-                # and again under the distributed persist
-                runs[0]["dist_save"] = dict(
-                    dir=os.path.join(root, "fsdp2_tp2_dist"),
-                    scope=f"mesh{os.getpid()}dist")
-            if name == "fsdp2":
-                runs.append(dict(
-                    name="fsdp2_tp2_to_fsdp2", axes=axes, steps=1,
-                    resume=dict(dir=os.path.join(root, "fsdp2_tp2"),
-                                scope=f"mesh{os.getpid()}cross")))
-                runs.append(dict(
-                    name="fsdp2_tp2_dist_to_fsdp2", axes=axes, steps=1,
-                    resume=dict(dir=os.path.join(root, "fsdp2_tp2_dist"),
-                                scope=f"mesh{os.getpid()}crossd")))
-            t0 = time.perf_counter()
-            ranks = process_group.spawn(
-                dp_workers.train_worker, world, (dict(small, runs=runs),),
-                backend="gloo", device="cuda", timeout_s=MESH_TIMEOUT_S)
-            print(f"  {world} ranks: {time.perf_counter() - t0:.1f} s with "
-                  "spawn, the checkpoint and its restores", flush=True)
-            recs = [r["runs"][name] for r in ranks]
-            check_rank_leg(name, recs, ref, per_step)
-            saved = [r["ckpt"] for r in recs]
-            check_ckpt_leg(name, saved, per_step, ckpt_launches)
-            if name == "fsdp2_tp2":
-                cross_want = saved[0]
-                dist_saved = [r["dist_ckpt"] for r in recs]
-                check_ckpt_leg(f"{name} (dist persist)", dist_saved,
-                               per_step, ckpt_launches)
-                check_dist_writes(name, dist_saved)
-                dist_want = dist_saved[0]
-            if len(runs) > 1:
-                check_cross_restore(
-                    [r["runs"][runs[1]["name"]] for r in ranks], cross_want,
-                    per_step, ckpt_launches)
-                check_cross_restore(
-                    [r["runs"][runs[2]["name"]] for r in ranks], dist_want,
-                    per_step, ckpt_launches, "a sealed distributed commit")
+        # tp2 depends on no other leg: its ranks share the card with
+        # fsdp2_tp2's and fsdp2's (its step seconds with theirs)
+        with ThreadPoolExecutor(1) as pool:
+            name, axes, world = legs[0]
+            tp2 = pool.submit(spawn_leg, name, axes, world)
+            for name, axes, world in legs[1:]:
+                check_leg(name, world, *spawn_leg(name, axes, world))
+            check_leg(legs[0][0], legs[0][2], *tp2.result())
     finally:
         shutil.rmtree(root, ignore_errors=True)
     if not fsdp_ok:
@@ -1791,6 +1850,7 @@ def pp_phase() -> dict:
                                total_steps=10_000,
                                moment_dtype=torch.bfloat16))
     total = dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), 0)
+    legs = []
     for name, axes, world, batch_rows in PP_LEGS:
         ids = np.random.default_rng(0).integers(
             0, 32000, size=(batch_rows, TRAIN_S + 1))
@@ -1804,14 +1864,26 @@ def pp_phase() -> dict:
               f"{batch_rows}: losses {[round(v, 6) for v in ref['loss']]}; "
               f"step s {[round(v, 3) for v in ref['step_s']]}; "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
+        legs.append((name, axes, world, batch_rows, run, ref))
         gc.collect()
         torch.cuda.empty_cache()
+
+    def spawn_leg(world, run):
         t0 = time.perf_counter()
         ranks = process_group.spawn(
             mesh_workers.pipeline_worker, world, (dict(spec, runs=[run]),),
             backend="gloo", device="cuda", timeout_s=MESH_TIMEOUT_S)
-        print(f"  {world} ranks: {time.perf_counter() - t0:.1f} s with "
-              "spawn", flush=True)
+        return ranks, time.perf_counter() - t0
+
+    # the legs share the card at once (their step seconds with each
+    # other's)
+    with ThreadPoolExecutor(len(legs)) as pool:
+        spawned = [pool.submit(spawn_leg, leg[2], leg[4]) for leg in legs]
+        spawned = [f.result() for f in spawned]
+    for (name, axes, world, batch_rows, run, ref), (ranks, seconds) in zip(
+            legs, spawned):
+        print(f"  {name}, {world} ranks: {seconds:.1f} s with spawn",
+              flush=True)
         recs = [r["runs"][name] for r in ranks]
         # per rank a step: each stage's layers once per microbatch, and
         # the forward again in remat's recompute; bubbles compute nothing
@@ -1865,12 +1937,12 @@ def ckpt_depth(state, num_layers: int, shm_free: int) -> int:
     return int(depth)
 
 
-def ckpt_subject(trainer, state, batch, per_step):
+def ckpt_subject(trainer, state, batch, per_step, copies: int = 1):
     """What a checkpoint phase saves: the training phase's trainer and
-    state, or, when its state does not fit in /dev/shm (one snapshot
-    segment at a time), a trainer of the largest depth at full width that
-    fits, one step trained, printed as "reduced: depth N of 22".  Returns
-    ``(trainer, state, depth, flash launches per step)``."""
+    state, or, when ``copies`` segments of its state do not fit in
+    /dev/shm at once, a trainer of the largest depth at full width whose
+    state does, one step trained, printed as "reduced: depth N of 22".
+    Returns ``(trainer, state, depth, flash launches per step)``."""
     import torch
 
     from dlrover_tpu_torch.common.pytree import flatten_with_path
@@ -1885,10 +1957,11 @@ def ckpt_subject(trainer, state, batch, per_step):
           f"{len(flatten_with_path(state))} leaves ({layers} layers); /dev/shm "
           f"free {shm_free / 1e9:.1f} GB; host RAM available "
           f"{ram / 1e9:.1f} GB", flush=True)
-    depth = ckpt_depth(state, layers, shm_free)
+    depth = ckpt_depth(state, layers, shm_free // copies)
     if depth < layers:
         print(f"  reduced: depth {depth} of {layers} (shm "
-              f"{shm_free / 1e9:.1f} GB free)", flush=True)
+              f"{shm_free / 1e9:.1f} GB free for {copies} "
+              f"segment{'s' if copies > 1 else ''})", flush=True)
         cfg = dataclasses.replace(trainer.model.config, num_layers=depth)
         trainer = Trainer(
             LlamaForCausalLM(cfg, device=trainer.device, seed=0),
@@ -2049,9 +2122,15 @@ def flash_checkpoint(fa, trainer, state, batch, per_step):
     return record
 
 
-def dist_persist_phase(fa, trainer, state, batch, per_step):
+def dist_persist_phase(fa, trainer, state, batch, per_step, then=None):
     """The [dist persist] phase on the training phase's trainer and state
-    (module docstring); returns its JSON record."""
+    (module docstring); returns its JSON record.  ``then(trainer,
+    ckpt_dir, step, want, uninterrupted, per_step, donor)`` runs after the
+    phase's checks and before its sealed commit (``step``, in
+    ``ckpt_dir``), ``want`` (the saved state's leaves, on the card) and
+    ``donor`` (the saving Checkpointer, whose segment holds ``step``) are
+    released: the [peer restore] phase.  With ``then`` the state is cut to
+    depth where /dev/shm cannot hold two segments of it."""
     import shutil
     import tempfile
 
@@ -2066,8 +2145,8 @@ def dist_persist_phase(fa, trainer, state, batch, per_step):
     )
     from dlrover_tpu_torch.trainer.flash_checkpoint import distributed
 
-    trainer, state, depth, per_step = ckpt_subject(trainer, state, batch,
-                                                   per_step)
+    trainer, state, depth, per_step = ckpt_subject(
+        trainer, state, batch, per_step, copies=2 if then else 1)
     payload = bench.state_nbytes(state) + sum(
         8 for _, leaf in flatten_with_path(state)
         if not isinstance(leaf, torch.Tensor))  # the ints: 0-d int64
@@ -2161,12 +2240,149 @@ def dist_persist_phase(fa, trainer, state, batch, per_step):
         record.update(restore_s=restore_s, read_stats=dict(stats),
                       loss_after_restore=loss,
                       loss_uninterrupted=uninterrupted)
+        del restored
+        print(f"  the phase took {time.perf_counter() - phase_t0:.1f} s",
+              flush=True)
+        if then is not None:
+            then(trainer, ckpt_dir, step + 1, want, uninterrupted, per_step,
+                 ckpt)
     finally:
         for c in made:
             c.engine.unlink_memory()
             c.close()
         want.clear()
         shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return record
+
+
+def peer_restore_phase(fa, batch, trainer, ckpt_dir, step, want,
+                       uninterrupted, per_step, donor) -> dict:
+    """The [peer restore] phase on [dist persist]'s trainer, its saved
+    state ``want``, its sealed commit of ``step`` and its memory save of
+    that step in ``donor``'s segment (module docstring); returns its JSON
+    record."""
+    import torch
+
+    from dlrover_tpu_torch.common.pytree import flatten_with_path
+    from dlrover_tpu_torch.trainer.flash_checkpoint import (
+        Checkpointer,
+        bench,
+        peer_restore,
+        snapshot,
+    )
+
+    phase_t0 = time.perf_counter()
+    tag = f"pr{os.getpid()}"
+    job = f"{tag}job"  # the broker's scope: the job both processes are in
+    state_bytes = sum(t.numel() * t.element_size() for t in want.values()
+                      if isinstance(t, torch.Tensor))
+    check_shm(2 * state_bytes + 2 * CKPT_META_MARGIN,
+              "a donor and a replacement segment")
+    record = {"step": step}
+    made, endpoint = [], None
+
+    def recover_and_step(label, rung, assignment, plan=None):
+        """The replacement (process 0 of 2, a Checkpointer of its own
+        scope, its segment empty) runs the ladder into its engine's
+        segment, as the engine's hook does, and restores from it:
+        torch.equal to the saved state, then one step."""
+        made.append(Checkpointer(ckpt_dir, scope=f"{tag}{rung}",
+                                 async_snapshot=False, device=trainer.device))
+        ckpt = made[-1]
+        report = peer_restore.recover(
+            scope=job, process_id=0, num_processes=2, shm=ckpt.engine._shm,
+            checkpoint_dir=ckpt_dir, assignment=assignment, plan=plan,
+            client=client)
+        moved = report["bytes_peer"] + report["bytes_manifest"]
+        equal = (snapshot.read_meta_bytes(ckpt.engine._shm) == donor_meta)
+        if not report["filled"] or report["rung"] != rung or \
+                moved != payload or report[f"bytes_{label}"] != payload \
+                or not equal:
+            raise AssertionError(f"the {rung} recovery reported {report} "
+                                 f"(meta equal to the donor's: {equal})")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored, got = ckpt.load_checkpoint(trainer.create_state(),
+                                             trainer=trainer)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        bad = [path for path, leaf in flatten_with_path(restored)
+               if not (torch.equal(leaf, want[path])
+                       if isinstance(leaf, torch.Tensor)
+                       else leaf == want[path])]
+        if got != step or bad:
+            raise AssertionError(f"{rung}: the restore gave step {got} "
+                                 f"(want {step}); leaves that differ: "
+                                 f"{bad[:5]}")
+        fa.reset_launches()
+        _, metrics = trainer.train_step(restored, batch)
+        loss = metrics["loss"].item()
+        launches = dict(fa.launches)
+        del restored
+        print(f"  {rung} rung: mttr_s {report['mttr_s']:.3f}, "
+              f"peer_read_gbps {report['peer_read_gbps']:.3f}, bytes_peer "
+              f"{report['bytes_peer']}, bytes_manifest "
+              f"{report['bytes_manifest']} ({report['storage_reads']} shard "
+              f"reads), the meta byte-equal to the donor's; the "
+              f"Checkpointer's restore of the filled segment "
+              f"{restore_s:.3f} s, {len(want)} leaves torch.equal; one step: "
+              f"loss {loss!r} (uninterrupted {uninterrupted!r}), flash "
+              f"launches {launches}", flush=True)
+        if not (math.isfinite(loss) and abs(loss - uninterrupted)
+                <= RESTORED_LOSS_RTOL * abs(uninterrupted)):
+            raise AssertionError(f"{rung}: loss {loss} after the restore, "
+                                 f"{uninterrupted} uninterrupted")
+        if launches != per_step:
+            raise AssertionError(f"{rung}: the step launched {launches}, "
+                                 f"expected {per_step}")
+        ckpt.engine.unlink_memory()
+        return dict(report, restore_s=restore_s, loss_after_restore=loss,
+                    launches=launches)
+
+    try:
+        # the donor (process 1 of 2): the memory save of the sealed step,
+        # served on 127.0.0.1 and announced through the in-process broker
+        meta = snapshot.read_snapshot_meta(donor.engine._shm)
+        donor_meta = snapshot.read_meta_bytes(donor.engine._shm)
+        payload = int(meta["payload_bytes"])
+        if meta["step"] != step:
+            raise AssertionError(f"the donor holds step {meta['step']}")
+        endpoint = peer_restore.PeerServeEndpoint(
+            0, scope=donor.engine._scope).start()
+        client = peer_restore.LocalPeerClient()
+        client.report_peer_announce(job, step, endpoint.addr,
+                                    num_processes=2, process_id=1)
+        print(f"  donor: the memory save of step {step} ({payload / 1e9:.3f}"
+              f" GB payload, {len(meta['leaves'])} leaves) served on "
+              f"{endpoint.addr}", flush=True)
+        assignment = client.get_peer_assignment(job, process_id=0)
+        record["peer"] = recover_and_step(
+            "peer", "peer_shm", {"step": assignment.step,
+                                 "donors": dict(assignment.donors)})
+
+        # donorless: the same step from the sealed commit
+        endpoint.stop()
+        endpoint = None
+        plan = [dict(leaf, shards=[dict(s) for s in leaf["shards"]])
+                for leaf in meta["leaves"]]
+        donor.engine.unlink_memory()
+        record["manifest"] = recover_and_step(
+            "manifest", "manifest", {"step": step, "donors": {}}, plan)
+        record["recoveries_recorded"] = len(client.recoveries())
+        t0 = time.perf_counter()
+        record["bench"] = bench.peer_recovery_bench()
+        print(f"  peer_recovery_bench() (8 MB, 4 local hosts): "
+              f"{json.dumps(record['bench'])} in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        if not record["bench"]["bit_exact"] or \
+                record["bench"]["rung"] != "peer_shm":
+            raise AssertionError(f"the bench reported {record['bench']}")
+    finally:
+        if endpoint is not None:
+            endpoint.stop()
+        for c in made:
+            c.engine.unlink_memory()
+            c.close()
     print(f"  the phase took {time.perf_counter() - phase_t0:.1f} s",
           flush=True)
     return record
@@ -2603,6 +2819,8 @@ def dp_leg():
     # checkpoint of every rank's state, residuals included
     first = spec["runs"][0]
     root = tempfile.mkdtemp(prefix="dp_ckpt_")
+    # [replica]'s runs go with load_state's in its spawn of 2 ranks
+    lose = replica_runs(root)
     first["save"] = dict(dir=root, scope=f"dp{os.getpid()}")
     # and again under the distributed persist, into a directory of its own
     first["dist_save"] = dict(dir=os.path.join(root, "dist"),
@@ -2625,7 +2843,8 @@ def dp_leg():
               "and model set-up", flush=True)
         records = {name: [r["runs"][name] for r in ranks]
                    for name, _, _, _ in DP_RUNS}
-        resume = dp_resume(spec, first, records[first["name"]])
+        resume, resumed = dp_resume(spec, first, records[first["name"]],
+                                    lose)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     summary = records["int8_sharded"][0]["summary"]
@@ -2694,10 +2913,114 @@ def dp_leg():
     print("  params bit-identical across ranks after every step; step "
           "times are for the record only (4 processes time-slice the card, "
           "the exchange goes through the host)")
-    return launches, widths, resume
+    return launches, widths, resume, resumed
 
 
-def dp_resume(spec, first, saved_recs) -> dict:
+def replica_runs(root: str) -> list:
+    """[replica]'s two runs of ``dp_workers.train_worker`` (module
+    docstring), each losing a rank's snapshot after one step: the replica
+    pass on the dp leg's first run, the peer pass on the replicated exact
+    sync, whose segments are the same on every rank (a replacement's peer
+    fill is its donor's shard set, as in the reference: a ZeRO-1 quarter
+    or a residual row no peer holds).  Their directories go under
+    ``root``."""
+    from dlrover_tpu_torch.models.llama import LlamaConfig
+
+    _, mode, transport, _ = DP_RUNS[0]
+    policies = {"replica": dict(mode=mode, transport=transport),
+                "peer": dict(mode="exact")}
+    # each rank's segment and, under replicas, its backup of its
+    # predecessor's
+    check_shm(2 * REPLICA_WORLD * (DP_CKPT_BYTES_PER_PARAM * llama_param_count(
+        LlamaConfig.llama2_1b(num_layers=DP_LAYERS)) + CKPT_META_MARGIN),
+        "the replica leg's segments and backups")
+    return [dict(name=kind, steps=REPLICA_STEPS,
+                 policy=dict(policies[kind], bucket_mb=DP_BUCKET_MB,
+                             clip_norm=1.0),
+                 lose=dict(dir=os.path.join(root, kind),
+                           scope=f"rep{os.getpid()}{kind}", mode=kind))
+            for kind in ("replica", "peer")]
+
+
+def check_replica(ranks) -> dict:
+    """[replica]'s checks on the ranks that ran ``replica_runs``; returns
+    the flash and ring kernels' launches over every rank's steps after the
+    restores."""
+    name, _, transport, _ = DP_RUNS[0]
+    print(f"  {REPLICA_WORLD} rank processes share the one card over a gloo "
+          f"group: llama2_1b at full width, {DP_LAYERS} layers, S={TRAIN_S};"
+          f" the replica pass {name} over {transport}, the peer pass exact "
+          "(replicated)", flush=True)
+    flash_per_step = {"flash_fwd": 2 * DP_LAYERS, "flash_bwd_dq": DP_LAYERS,
+                      "flash_bwd_dkv": DP_LAYERS}
+    launches = dict(flash_per_step, **ranks[0]["runs"]["replica"]
+                    ["launches"][0])
+    launches = dict.fromkeys(launches, 0)
+    lost = REPLICA_WORLD - 1
+    for kind in ("replica", "peer"):
+        for rank, r in enumerate(ranks):
+            c = r["runs"][kind]["lost"]
+            ex = c["exchange"]
+            rep = c["recovery"]
+            if c["restored_step"] != c["step"] or not c["equal"] or \
+                    c["lost"] != (rank == lost):
+                raise AssertionError(f"{kind} rank {rank}: restored step "
+                                     f"{c['restored_step']} (saved "
+                                     f"{c['step']}), torch.equal "
+                                     f"{c['equal']}, recovery {rep}")
+            print(f"  {kind} rank {rank}{' (lost)' if c['lost'] else ''}: "
+                  f"step {c['step']} blocking_save_s "
+                  f"{c['blocking_save_s']:.4f} (paths {c['save_paths']}; "
+                  f"device to host / shm write "
+                  f"{[round(v, 3) for v in c['sync_phases'].values()]} s)"
+                  + (f", replica exchange {ex['seconds']:.3f} s sending "
+                     f"{ex['sent']} bytes, receiving {ex['received']} in "
+                     f"{ex['rounds']} rounds of {ex['chunk']}" if ex else "")
+                  + f"; restore_s {c['restore_s']:.3f}, step "
+                  f"{c['restored_step']}, torch.equal {c['equal']}"
+                  + (f"; recovery rung {rep['rung']}, mttr_s "
+                     f"{rep['mttr_s']:.3f}, peer_read_gbps "
+                     f"{rep['peer_read_gbps']:.3f}, bytes_peer "
+                     f"{rep['bytes_peer']}" if rep else
+                     "; fetched 0 bytes" if kind == "peer" else "")
+                  + f"; next loss {c['next']['loss'][0]:.6f}, after the "
+                  f"restore {c['restored']['loss'][0]:.6f}; launches "
+                  f"{c['restored']['launches'][0]} "
+                  f"{c['restored']['flash_launches'][0]}", flush=True)
+            want, loss = c["next"]["loss"][0], c["restored"]["loss"][0]
+            if not math.isfinite(loss) or \
+                    abs(loss - want) > RESTORED_LOSS_RTOL * abs(want):
+                raise AssertionError(f"{kind} rank {rank}: the step after "
+                                     f"the restore lost {loss}, the "
+                                     f"uninterrupted step {want}")
+            counts = c["restored"]["flash_launches"][0]
+            ring = c["restored"]["launches"][0]
+            if counts != flash_per_step or \
+                    ring != c["next"]["launches"][0] or \
+                    any(ring.values()) != (kind == "replica"):
+                raise AssertionError(
+                    f"{kind} rank {rank}: the step after the restore "
+                    f"launched {counts} {ring}, the uninterrupted step "
+                    f"{c['next']['flash_launches'][0]} "
+                    f"{c['next']['launches'][0]}")
+            for k in launches:
+                launches[k] += counts.get(k, 0) + ring.get(k, 0)
+            if kind == "replica":
+                if c["save_paths"] != [(c["step"], "sync")] or \
+                        not ex or ex["received"] <= 0 or rep:
+                    raise AssertionError(f"replica rank {rank}: paths "
+                                         f"{c['save_paths']}, exchange {ex}")
+            elif rank == lost:
+                if not rep or rep["rung"] != "peer_shm" or \
+                        not rep["filled"] or rep["storage_reads"]:
+                    raise AssertionError(f"peer rank {rank}: recovery {rep}")
+            elif rep:
+                raise AssertionError(f"peer rank {rank} is a survivor and "
+                                     f"fetched: {rep}")
+    return launches
+
+
+def dp_resume(spec, first, saved_recs, more_runs=()) -> tuple:
     """The dp leg's checkpoint: every rank's restores at its own degree
     (``check_ckpt_leg``: torch.equal, the next step's loss and launches),
     then DP_RESUME_WORLD new ranks restore it from storage with
@@ -2706,8 +3029,9 @@ def dp_resume(spec, first, saved_recs) -> dict:
     residuals' norm, through ``dp_workers.ef_digest``'s projections), the
     leaves the saving degree did not quantize must be zero, the loss
     finite, and the int8 encode and accumulate kernels must launch as the
-    new degree's buckets need.  Returns the ring kernels' launches of the
-    step after the restore at the new degree."""
+    new degree's buckets need.  The spawn runs ``more_runs`` after that
+    one.  Returns the ring kernels' launches of the step after the restore
+    at the new degree, and the spawn's ranks' records."""
     from dlrover_tpu_torch.parallel import dp_workers, process_group
 
     saved = [r["ckpt"] for r in saved_recs]
@@ -2732,8 +3056,9 @@ def dp_resume(spec, first, saved_recs) -> dict:
     del run["save"], run["dist_save"]
     t0 = time.perf_counter()
     ranks = process_group.spawn(
-        dp_workers.train_worker, DP_RESUME_WORLD, (dict(spec, runs=[run]),),
-        backend="gloo", device="cuda", timeout_s=DP_TIMEOUT_S)
+        dp_workers.train_worker, DP_RESUME_WORLD,
+        (dict(spec, runs=[run, *more_runs]),), backend="gloo",
+        device="cuda", timeout_s=DP_TIMEOUT_S)
     recs = [r["runs"]["int8_resume"] for r in ranks]
     ring_launches = dict.fromkeys(recs[0]["launches"][0], 0)
     widths = recs[0]["summary"]["bucket_widths"]
@@ -2780,7 +3105,7 @@ def dp_resume(spec, first, saved_recs) -> dict:
                                  f"{r['launches'][0]}, expected {want}")
         for k in ring_launches:
             ring_launches[k] += r["launches"][0][k]
-    return ring_launches
+    return ring_launches, ranks
 
 
 def main() -> int:
@@ -2835,12 +3160,22 @@ def main() -> int:
          "flash_bwd_dkv": trainer.model.config.num_layers})
     print(json.dumps({"ckpt": ckpt_record}), flush=True)
     print("[dist persist]", flush=True)
+    peer_record = {}
+
+    def peer_phase(*args):
+        print("[peer restore]", flush=True)
+        peer_record.update(peer_restore_phase(fa, batch, *args))
+
     dist_record = dist_persist_phase(
         fa, trainer, state, batch,
         {"flash_fwd": 2 * trainer.model.config.num_layers,
          "flash_bwd_dq": trainer.model.config.num_layers,
-         "flash_bwd_dkv": trainer.model.config.num_layers})
+         "flash_bwd_dkv": trainer.model.config.num_layers}, then=peer_phase)
     print(json.dumps({"dist_persist": dist_record}), flush=True)
+    print(json.dumps({"peer_restore": peer_record}), flush=True)
+    peer_launches = {k: peer_record["peer"]["launches"][k]
+                     + peer_record["manifest"]["launches"][k]
+                     for k in REPLACES}
     print("[dist bench]", flush=True)
     dist_bench_phase()
     del trainer, state, batch
@@ -2897,7 +3232,10 @@ def main() -> int:
     peer_window_leg()
     print(f"[dp leg: {DP_WORLD} ranks on one card] (this process holds "
           f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB)", flush=True)
-    ring_launches, widths, resume_launches = dp_leg()
+    ring_launches, widths, resume_launches, resumed = dp_leg()
+    print(f"[replica: {REPLICA_WORLD} ranks on one card, in the spawn of the "
+          "dp leg's load_state]", flush=True)
+    replica_launches = check_replica(resumed)
 
     block = 256
     largest, smallest = max(widths), min(widths)
@@ -2918,6 +3256,8 @@ def main() -> int:
              launches_ckpt=ckpt_launches[name],
              launches_moe=moe_launches[name],
              launches_pp=pp_launches[name],
+             launches_peer_restore=peer_launches[name],
+             launches_replica=replica_launches[name],
              launches_cp=cp_launches[name],
              off_diagonal=off_diagonal[name],
              sass=sass[SASS_KERNEL[name]], **timings[name])
@@ -2926,12 +3266,14 @@ def main() -> int:
         dict(name=name, route="cuda", source=RING_SOURCE,
              replaces=RING_REPLACES[name], launches=ring_launches[name],
              launches_load_state=resume_launches[name],
+             launches_replica=replica_launches[name],
              max_abs_err=ring_errors[name], atol=0.0,
              **ring_timings[name])
         for name in RING_REPLACES
     ] + [
         dict(name="ring_add", route="cuda", source=RING_SOURCE,
              replaces=ADD_REPLACES, launches=ring_launches["add"],
+             launches_replica=replica_launches["add"],
              max_abs_err=ring_errors["ring_add"], atol=0.0, **add_timing),
         dict(name="rdma_ring", route="cuda", source=RDMA_SOURCE,
              replaces=RDMA_REPLACES, launches=rdma_launches,

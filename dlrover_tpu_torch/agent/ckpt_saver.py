@@ -26,8 +26,9 @@ Save-on-failure: when the agent detects worker death it calls
 ``save_shm_on_failure`` which persists any shm snapshot newer than the
 last committed step.
 
-Not ported: the peer-restore announcement (``DLROVER_TPU_PEER_RESTORE``;
-ROADMAP queue 1 item 6b), which raises ``NotImplementedError``.  A failed
+With ``DLROVER_TPU_PEER_RESTORE=1`` a persisted step is announced to the
+peer-restore broker (``peer_restore.maybe_announce``: a no-op unless a
+peer client and a serve endpoint are registered in the process).  A failed
 persist is logged and kept (``take_error``): the engine raises it to the
 training thread.
 """
@@ -58,9 +59,6 @@ from dlrover_tpu_torch.common.storage import (
     refuse_url_path,
 )
 from dlrover_tpu_torch.trainer.flash_checkpoint import snapshot
-
-# the refused path's ROADMAP item
-ROADMAP_REPLICAS = "ROADMAP queue 1 item 6b"
 
 
 class AsyncCheckpointSaver:
@@ -275,10 +273,6 @@ class AsyncCheckpointSaver:
     # -- persist -----------------------------------------------------------
 
     def _handle_save(self, event: Dict):
-        if envs.get_bool("DLROVER_TPU_PEER_RESTORE"):
-            raise NotImplementedError(
-                "DLROVER_TPU_PEER_RESTORE is set: the peer-restore "
-                f"announcement is not ported yet ({ROADMAP_REPLICAS})")
         process_id = int(event["process_id"])
         self._tracked[process_id] = dict(event)
         step = int(event["step"])
@@ -391,6 +385,16 @@ class AsyncCheckpointSaver:
             self._progress.set(str(process_id), step)
         except Exception:  # noqa: BLE001 - progress is best-effort
             pass
+        if envs.get_bool("DLROVER_TPU_PEER_RESTORE"):
+            # the step proved durable and the shm copy passed its
+            # torn-generation re-check: announce it to the broker now
+            from dlrover_tpu_torch.trainer.flash_checkpoint import (
+                peer_restore,
+            )
+
+            peer_restore.maybe_announce(
+                step, process_id=process_id,
+                num_processes=int(event["num_processes"]))
         logger.info(
             "persisted ckpt step=%d proc=%d in %.2fs%s",
             step, process_id, time.time() - t0,

@@ -53,8 +53,23 @@ DEFAULTS = {
     "DLROVER_TPU_CKPT_LOCK_TIMEOUT_S": 600.0,
     # CRC32 check on restore: eager, lazy or off
     "DLROVER_TPU_VERIFY_CRC": "lazy",
-    # peer restore (ROADMAP queue 1 item 6b): refused in the port
+    # -- flash checkpoint: replicas and peer restore (replica.py,
+    # peer_restore.py) --
+    # bytes a rotation round of the replica exchange moves per process
+    "DLROVER_TPU_REPLICA_CHUNK_BYTES": 64 << 20,
+    # a lost rank's snapshot is refilled from its peers' shm first
+    # (ladder: peer shm -> sealed-manifest ranged reads -> storage)
     "DLROVER_TPU_PEER_RESTORE": False,
+    # the peer serve endpoint's port (0 = ephemeral) and the interface it
+    # listens on ('' = the advertised host: it serves the whole state
+    # unauthenticated)
+    "DLROVER_TPU_PEER_SERVE_PORT": 0,
+    "DLROVER_TPU_PEER_BIND_HOST": "",
+    # per-request timeout of a peer fetch, and bytes per ranged request
+    "DLROVER_TPU_PEER_FETCH_TIMEOUT_S": 30.0,
+    "DLROVER_TPU_PEER_FETCH_CHUNK_BYTES": 64 << 20,
+    # the recovery's MTTR budget, reported as budget_s / over_budget
+    "DLROVER_TPU_MTTR_BUDGET_S": 60.0,
     # -- flash checkpoint: distributed persist (distributed.py) --
     # storage saves write owned shards and commit in two phases
     "DLROVER_TPU_DIST_PERSIST": False,

@@ -1,2 +1,2 @@
-"""The job's checkpoint commit coordinator: the port of ``dlrover_tpu/master``
-(its ``CkptCommitCoordinator`` only)."""
+"""The job's checkpoint coordination: the port of ``dlrover_tpu/master``'s
+``CkptCommitCoordinator`` and ``PeerRestoreBroker`` only."""

@@ -27,15 +27,22 @@ Failure matrix (what each crash window leaves behind):
 
 In every window the previously committed step stays fully restorable.
 
-Not ported: the chaos point of phase 2, its trace span and metrics
-(ROADMAP queue 1 item 7), and ``PeerRestoreBroker`` (item 6b).
+``PeerRestoreBroker`` (the reference's, ``:447-544``) is the directory of
+shm snapshots that peers can serve to a replaced process
+(``trainer/flash_checkpoint/peer_restore.py``).  The reference keeps it in
+the master; the port reaches it in-process (``peer_restore.LocalPeerClient``)
+or over the world's c10d store (``peer_restore.StorePeerClient``).
+
+Not ported: the chaos point of phase 2, its trace span and metrics, and
+the broker's ``/recovery`` dashboard feed and MTTR sentinel (ROADMAP queue 1
+item 7).
 """
 
 import json
 import os
 import threading
 import time
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 from dlrover_tpu_torch.common import envs
 from dlrover_tpu_torch.common.log import logger
@@ -395,3 +402,96 @@ class CkptCommitCoordinator:
                     "committed_step": committed, "commits": [],
                 })
             return {"dirs": dirs}
+
+
+class PeerRestoreBroker:
+    """Directory of the shm snapshots the job's processes can serve.
+
+    Surviving processes announce their committed snapshot steps; a
+    replacement asks for donors and is pointed at every announced peer of
+    its scope that holds the wanted step, replica-group members first
+    (byte-identical shards), then the rest.  Finished recoveries report
+    back (``recoveries``)."""
+
+    #: recoveries retained
+    MAX_RECOVERIES = 32
+
+    def __init__(self):
+        self._mu = threading.Lock()
+        # scope -> {process_id: {step, addr, num_processes, ts}}
+        self._peers: Dict[str, Dict[int, Dict]] = {}
+        self._recoveries: List[Dict] = []
+
+    def announce(self, scope: str, process_id: int, num_processes: int,
+                 step: int, addr: str) -> bool:
+        with self._mu:
+            self._peers.setdefault(scope, {})[int(process_id)] = {
+                "step": int(step),
+                "addr": addr,
+                "num_processes": int(num_processes),
+                "ts": time.time(),
+            }
+        return True
+
+    def assign(self, scope: str, process_id: int, step: int = -1,
+               group: Optional[List[int]] = None) -> Dict:
+        """Ordered donors for one recovering process: peers of ``scope``
+        holding ``step`` (the newest announced step when ``step`` is -1),
+        the requester excluded, replica-group members first."""
+        group = [int(g) for g in (group or [])]
+        with self._mu:
+            peers = {
+                pid: dict(entry)
+                for pid, entry in self._peers.get(scope, {}).items()
+                if pid != int(process_id)
+            }
+        if step < 0 and peers:
+            step = max(entry["step"] for entry in peers.values())
+        candidates = [
+            (pid, entry) for pid, entry in peers.items()
+            if entry["step"] == step and step >= 0
+        ]
+        # replica-group members hold byte-identical shards: one hop
+        # restores everything, so they lead the donor order
+        candidates.sort(key=lambda item: (item[0] not in group, item[0]))
+        return {
+            "step": int(step),
+            "donors": {str(pid): entry["addr"] for pid, entry in candidates},
+        }
+
+    def record_recovery(self, report: Dict) -> bool:
+        entry = dict(report, ts=time.time())
+        with self._mu:
+            self._recoveries.append(entry)
+            del self._recoveries[:-self.MAX_RECOVERIES]
+        return True
+
+    def recoveries(self) -> List[Dict]:
+        with self._mu:
+            return [dict(r) for r in self._recoveries]
+
+    def evict(self, scope: str, process_id: int) -> None:
+        """Forget a dead process's announcement (the fetch side's
+        demotion is the backstop while the broker has not heard of the
+        death)."""
+        with self._mu:
+            self._peers.get(scope, {}).pop(int(process_id), None)
+
+    def snapshot(self) -> Dict:
+        """Who can serve which step, each announcement's age, and the
+        last recoveries."""
+        now = time.time()
+        with self._mu:
+            scopes = {
+                scope: {
+                    str(pid): {
+                        "step": entry["step"],
+                        "addr": entry["addr"],
+                        "age_s": round(now - entry["ts"], 1),
+                    }
+                    for pid, entry in sorted(peers.items())
+                }
+                for scope, peers in self._peers.items()
+            }
+            recoveries = [dict(r) for r in self._recoveries[-8:]]
+        return {"scopes": scopes, "recoveries": recoveries}

@@ -137,7 +137,9 @@ def train_worker(group: DpGroup, spec: Dict[str, Any]) -> Dict[str, Any]:
     ``"dist_save"`` (the same): ``resume`` starts the run from
     ``Trainer.load_state`` of that directory instead of a fresh state,
     ``save`` ends it with ``save_and_restore``, and ``dist_save`` with
-    another ``save_and_restore`` under the distributed persist.
+    another ``save_and_restore`` under the distributed persist; and
+    ``"lose"`` (``{"dir", "scope", "mode"}``), which ends it with
+    ``lose_and_restore``.
 
     Returns, per run: losses, grad norms, step seconds (on the host clock,
     after a device synchronize), the ring and flash kernels' launches per
@@ -150,7 +152,7 @@ def train_worker(group: DpGroup, spec: Dict[str, Any]) -> Dict[str, Any]:
     ``read_stats`` (the bytes a restore from a sealed distributed commit
     read) and ``ef_digest`` (of the restored residuals); a saved one,
     ``ckpt`` and ``dist_ckpt``
-    (``save_and_restore``)."""
+    (``save_and_restore``), and ``lost`` (``lose_and_restore``)."""
     out: Dict[str, Any] = {"rank": group.rank, "world": group.world,
                            "backend": group.backend, "runs": {}}
     for run in spec["runs"]:
@@ -186,6 +188,9 @@ def train_worker(group: DpGroup, spec: Dict[str, Any]) -> Dict[str, Any]:
         if "dist_save" in run:
             record["dist_ckpt"] = save_and_restore(
                 trainer, state, batch, group, run["dist_save"], dist=True)
+        if "lose" in run:
+            record["lost"] = lose_and_restore(trainer, state, batch, group,
+                                              run["lose"])
         out["runs"][run["name"]] = record
         trainer.close()
         del trainer, state
@@ -327,18 +332,23 @@ def resume(trainer, group: DpGroup, where: Dict[str, str],
 
 
 @contextlib.contextmanager
-def dist_persist(on: bool):
-    """``DLROVER_TPU_DIST_PERSIST`` set to ``on`` while the block runs (the
-    engine reads it when it is made)."""
-    old = os.environ.get("DLROVER_TPU_DIST_PERSIST")
-    os.environ["DLROVER_TPU_DIST_PERSIST"] = "1" if on else "0"
+def knob(name: str, on: bool):
+    """The boolean knob ``name`` set to ``on`` while the block runs (the
+    engine reads its knobs when it is made)."""
+    old = os.environ.get(name)
+    os.environ[name] = "1" if on else "0"
     try:
         yield
     finally:
         if old is None:
-            os.environ.pop("DLROVER_TPU_DIST_PERSIST")
+            os.environ.pop(name)
         else:
-            os.environ["DLROVER_TPU_DIST_PERSIST"] = old
+            os.environ[name] = old
+
+
+def dist_persist(on: bool):
+    """``DLROVER_TPU_DIST_PERSIST`` set to ``on`` while the block runs."""
+    return knob("DLROVER_TPU_DIST_PERSIST", on)
 
 
 def save_and_restore(trainer, state, batch, group: DpGroup,
@@ -415,6 +425,80 @@ def save_and_restore(trainer, state, batch, group: DpGroup,
         for c in (ckpt, fresh):
             c.engine.unlink_memory()
             c.close()
+    return out
+
+
+def lose_and_restore(trainer, state, batch, group: DpGroup,
+                     where: Dict[str, str]) -> Dict[str, Any]:
+    """A rank loses its snapshot after a memory save, and every rank
+    restores it from its peers' memory.
+
+    ``where["mode"]``: ``"replica"`` (``Checkpointer(replica=True)``: the
+    save ends in the replica exchange, and the lost rank's segment comes
+    back from its successor's backup through the engine's retry) or
+    ``"peer"`` (``DLROVER_TPU_PEER_RESTORE=1``: the lost rank is refilled
+    from its peers' endpoints through the broker over the world's store).
+    Every rank makes a memory save of ``state`` (scope ``where["scope"]``)
+    and trains one step from it (``next``, the uninterrupted step); then
+    the last rank, as a replacement process would, closes its
+    checkpointer, unlinks its segment and its backup and opens a fresh
+    one, and every rank restores into a fresh state and trains one step
+    (``restored``).  Returns the save's blocking seconds (with the
+    exchange) and the exchange's record, the restore's seconds, step and
+    whether it equals a copy taken at the save (``torch.equal``, leaf by
+    leaf), the peer recovery's report (``{}`` on a rank that fetched
+    nothing), the synchronous save's two phases (``sync_phases``, empty
+    after an async one) and the steps' records.  Every segment it made is unlinked."""
+    from dlrover_tpu_torch.trainer.flash_checkpoint import (
+        Checkpointer,
+        StorageType,
+    )
+
+    mode = where["mode"]
+    device, step = group.device, int(state.step)
+    lost = group.rank == group.world - 1
+    out: Dict[str, Any] = {"step": step, "mode": mode, "lost": lost}
+    want = state_copy(state)
+
+    def checkpointer():
+        with knob("DLROVER_TPU_PEER_RESTORE", mode == "peer"):
+            return Checkpointer(where["dir"], scope=where["scope"],
+                                replica=mode == "replica", device=device)
+
+    ckpt = checkpointer()
+    try:
+        _sync(device)
+        out["blocking_save_s"] = ckpt.save_checkpoint(
+            step, state, StorageType.MEMORY, trainer=trainer)
+        ckpt.wait_latest_checkpoint(timeout=600)
+        out["save_paths"] = list(ckpt.engine.save_paths)
+        out["sync_phases"] = dict(ckpt.engine.last_sync_phases)
+        replica = ckpt.engine.replica
+        out["exchange"] = dict(replica.last_exchange) if replica else {}
+        out["next"] = new_record()
+        train_steps(trainer, state, batch, 1, group, out["next"])
+        if lost:
+            ckpt.engine.unlink_memory()
+            ckpt.close()
+            ckpt = checkpointer()
+        _sync(device)
+        t0 = time.perf_counter()
+        restored, got = ckpt.load_checkpoint(trainer.create_state(),
+                                             trainer=trainer)
+        _sync(device)
+        out["restore_s"] = time.perf_counter() - t0
+        out["restored_step"] = got
+        out["equal"] = restored is not None and state_equal(restored, want)
+        out["recovery"] = dict(ckpt.engine.last_recovery)
+        if restored is not None:
+            out["restored"] = new_record()
+            train_steps(trainer, restored, batch, 1, group, out["restored"])
+        del restored
+        # no rank drops its segment while a peer may still read it
+        group.all_reduce(torch.zeros(1, device=device))
+    finally:
+        ckpt.engine.unlink_memory()
+        ckpt.close()
     return out
 
 

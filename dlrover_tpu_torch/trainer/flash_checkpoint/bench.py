@@ -5,17 +5,24 @@ Port of the measurement in ``run()`` of
 the headline blocking time of an async storage save, the steps trained
 while the snapshot stages behind them, the time until the step is
 persisted, and the restores from shm and from storage.  ``chip_smoke.py``
-calls ``run`` on its ``llama2_1b`` trainer.  The reference's recovery,
-reshard and staging drills run in subprocesses and belong to ROADMAP queue
-1 items 6-7; they are not ported here.
+calls ``run`` on its ``llama2_1b`` trainer.  ``peer_recovery_bench`` is the
+reference's measurement of the peer restore (four local hosts, one dead).
+The reference's recovery, reshard and staging drills run in subprocesses
+and belong to ROADMAP queue 1 items 11 and 6c; they are not ported here.
 
 Every time is a host clock around work that ends in a device synchronize
 (``utils/timing.hard_block``), so it includes the card's queued work.
 """
 
+import contextlib
+import os
+import shutil
+import tempfile
 import time
+import uuid
 from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from dlrover_tpu_torch.common.pytree import flatten_with_path
@@ -171,3 +178,97 @@ def sync_save_s(state, ckpt_dir: str, scope: str, step: int, device,
     finally:
         ckpt.engine.unlink_memory()
         ckpt.close()
+
+
+def peer_recovery_bench(size_mb: float = 8.0) -> dict:
+    """The peer restore, measured as the reference's bench measures it
+    (``dlrover_tpu/trainer/flash_checkpoint/bench.py:167-270``): four local
+    "hosts" (shm segments and serve endpoints) hold committed step 11, host
+    1 dies, and its replacement pulls every byte back from its peers:
+    ``recovery_mttr_s`` is the wall clock of the whole ladder and
+    ``peer_read_gbps`` the shm-to-shm rate.  A second recovery of the same
+    step with no donor reads the sealed manifest instead
+    (``manifest_restore_s``, ``manifest_bytes``).  In one process over a
+    ``LocalPeerClient``; the peer plane is HTTP over loopback.  Writes no
+    file outside a temporary directory it removes."""
+    from dlrover_tpu_torch.trainer.flash_checkpoint import (
+        distributed,
+        peer_restore,
+    )
+    from dlrover_tpu_torch.common.multi_process import SharedMemoryBuffer
+    from dlrover_tpu_torch.trainer.flash_checkpoint.engine import shm_name
+
+    workdir = tempfile.mkdtemp(prefix="peer_rec_bench_")
+    scope = f"peerbench{uuid.uuid4().hex[:8]}"
+    nprocs, dead, step = 4, 1, 11
+    survivors = [p for p in range(nprocs) if p != dead]
+    rng = np.random.default_rng(24)
+    n = max(1, int(size_mb * (1 << 20) / 4))
+    state = {
+        "w": torch.from_numpy(rng.standard_normal(n).astype(np.float32)),
+        "step": torch.tensor(step, dtype=torch.int32),
+    }
+    shms, endpoints = {}, {}
+    try:
+        client = peer_restore.LocalPeerClient(process_id=dead)
+        leaves = snapshot.plan_shards(state)
+        for pid in survivors:
+            shm = SharedMemoryBuffer(shm_name(pid, scope))
+            snapshot.write_snapshot(shm, step, leaves, {})
+            shms[pid] = shm
+            endpoint = peer_restore.PeerServeEndpoint(pid, scope=scope)
+            endpoints[pid] = endpoint.start()
+            client.report_peer_announce(scope, step, endpoint.addr,
+                                        num_processes=nprocs, process_id=pid)
+        ckpt_dir = os.path.join(workdir, "ckpt")
+        distributed.DistributedCheckpointEngine(
+            ckpt_dir, process_id=0, num_processes=1,
+            client=distributed.LocalCommitClient(),
+        ).save(step, state, wait_seal=True, timeout=60)
+        donor_meta = snapshot.read_snapshot_meta(shms[0])
+        payload_nbytes = int(donor_meta["payload_bytes"])
+
+        assignment = client.get_peer_assignment(
+            scope, step=-1, group=survivors, process_id=dead)
+        shm_new = SharedMemoryBuffer(shm_name(dead, scope))
+        shms[dead] = shm_new
+        report = peer_restore.recover(
+            scope=scope, process_id=dead, num_processes=nprocs,
+            shm=shm_new, checkpoint_dir=ckpt_dir,
+            assignment={"step": int(assignment.step),
+                        "donors": dict(assignment.donors)},
+            client=client)
+        plan = [dict(leaf, shards=[dict(s) for s in leaf["shards"]])
+                for leaf in donor_meta["leaves"]]
+        shm_manifest = SharedMemoryBuffer(shm_name(7, scope))
+        shms[7] = shm_manifest
+        report_manifest = peer_restore.recover(
+            scope=scope, process_id=7, num_processes=nprocs,
+            shm=shm_manifest, checkpoint_dir=ckpt_dir,
+            assignment={"step": step, "donors": {}}, plan=plan,
+            client=client)
+        bit_exact = (
+            snapshot.read_payload_range(shm_new, 0, payload_nbytes)
+            == snapshot.read_payload_range(shms[0], 0, payload_nbytes)
+            == snapshot.read_payload_range(shm_manifest, 0, payload_nbytes)
+        )
+        return {
+            "recovery_mttr_s": report["mttr_s"],
+            "peer_read_gbps": report["peer_read_gbps"],
+            "bytes_peer": report["bytes_peer"],
+            "rung": report["rung"],
+            "storage_reads": report["storage_reads"],
+            "manifest_restore_s": report_manifest["mttr_s"],
+            "manifest_bytes": report_manifest["bytes_manifest"],
+            "state_mb": round(size_mb, 2),
+            "hosts": nprocs,
+            "bit_exact": bool(bit_exact),
+            "recoveries_recorded": len(client.recoveries()),
+        }
+    finally:
+        for endpoint in endpoints.values():
+            endpoint.stop()
+        for shm in shms.values():
+            with contextlib.suppress(Exception):
+                shm.unlink()
+        shutil.rmtree(workdir, ignore_errors=True)

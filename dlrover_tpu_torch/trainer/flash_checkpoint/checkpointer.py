@@ -36,6 +36,12 @@ which every rank derives from every rank's layout (the trainer's
 structure), and the step is committed in two phases; a restore from
 storage reads a sealed commit first.  A state no trainer made that is
 split over the ranks takes the legacy persist there, with a warning.
+
+``replica=True`` keeps each rank's snapshot on the next rank as well, and
+``DLROVER_TPU_PEER_RESTORE=1`` lets a replaced rank refill its snapshot
+from its peers' memory (``engine.py``, ``replica.py``,
+``peer_restore.py``); the peer restore names the replica group from the
+same every-rank layouts.
 """
 
 from typing import Any, Dict, Optional, Tuple
@@ -80,7 +86,9 @@ class Checkpointer:
 
         ``device``: where the states to save and restore live; the card
         by default (raises without one), ``"cpu"`` to run on the CPU.
-        ``replica=True`` is not ported yet and raises."""
+        ``replica=True`` backs each rank's snapshot up on the next rank of
+        the world after every memory save (a no-op in one process); the
+        saves are then synchronous."""
         self._engine = CheckpointEngine(
             checkpoint_dir,
             process_id=process_id,
@@ -100,13 +108,13 @@ class Checkpointer:
 
     def _layouts(self, state: Any, trainer):
         """Every rank's layout of ``state`` (the trainer's), which the
-        distributed persist derives each shard's owner from; None when no
-        storage save of this engine needs them.  Computed once for each
-        trainer and state structure: a save over a large world then makes
-        no pass over every rank's leaves."""
+        distributed persist derives each shard's owner from and the peer
+        restore the replica group; None when this engine needs neither.
+        Computed once for each trainer and state structure: a save over a
+        large world then makes no pass over every rank's leaves."""
         engine = self._engine
-        if trainer is None or not engine.dist_persist \
-                or engine.num_processes <= 1:
+        if trainer is None or engine.num_processes <= 1 or not (
+                engine.dist_persist or engine.peer_restore):
             return None
         shape = structure(state)
         cached = self._rank_layouts
@@ -162,7 +170,8 @@ class Checkpointer:
         masters held by its model, which the restore must refresh.
         ``layout`` is ``save_checkpoint``'s."""
         layout = _layout(target, trainer, layout)
-        state, step = self._engine.load(target, layout)
+        state, step = self._engine.load(target, layout,
+                                        self._layouts(target, trainer))
         if state is not None and trainer is not None:
             trainer.refresh_compute_copy(state)
         return state, step

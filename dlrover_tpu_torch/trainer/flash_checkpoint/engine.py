@@ -44,12 +44,24 @@ rank's ownership map (``_note_dist_ownership``, from every rank's layout),
 and the saver writes the owned shards only and commits the step in two
 phases, with no done files.
 
-Not ported, and refused with ``NotImplementedError``: ``replica=True`` and
-``DLROVER_TPU_PEER_RESTORE`` (ROADMAP queue 1 item 6b).  Telemetry
-(memscope, metrics, trace, timer) is item 7: the engine marks its phases
-with ``torch.profiler.record_function`` spans under the reference's names
-(``flash.save``, ``flash.load``, ``ckpt_device_to_host``,
-``ckpt_shm_write``, ``ckpt_stream_stage``).
+A lost process's snapshot can come back from its peers' memory.
+``replica=True`` (over a world of more than one process; in one process it
+does nothing, as in the reference) keeps each segment on the next process
+of the world's ring (``replica.py``): every memory save, a skipped one too,
+ends in that collective exchange, so the async saves take the synchronous
+path (the exchange must not run on the stager's thread beside the training
+thread's collectives).  ``DLROVER_TPU_PEER_RESTORE=1`` serves this
+process's segment to its peers and announces each committed step to the
+broker (``peer_restore.py``; the engine starts the endpoint and takes the
+default peer client where none is registered).  When the memory agreement
+of a restore fails, every rank runs the replica restore and then the peer
+restore's ladder (a survivor fetches nothing), and agrees again after each,
+so every rank makes the same collectives.
+
+Telemetry (memscope, metrics, trace, timer) is ROADMAP queue 1 item 7: the
+engine marks its phases with ``torch.profiler.record_function`` spans
+under the reference's names (``flash.save``, ``flash.load``,
+``ckpt_device_to_host``, ``ckpt_shm_write``, ``ckpt_stream_stage``).
 """
 
 import collections
@@ -96,9 +108,6 @@ CKPT_PROGRESS = "ckpt_progress"
 # device offsets of the async copy's leaves are aligned to this many bytes
 # (a typed view needs an offset its element size divides)
 _COPY_ALIGN = 256
-
-# the refused path's ROADMAP item
-ROADMAP_REPLICAS = "ROADMAP queue 1 item 6b"
 
 
 def default_scope() -> str:
@@ -374,14 +383,6 @@ class CheckpointEngine:
         self.checkpoint_dir = checkpoint_dir
         self.process_id, self.num_processes = process_identity(
             process_id, num_processes)
-        if replica:
-            raise NotImplementedError(
-                "replica=True (peer replicas of the shm snapshot) is not "
-                f"ported yet ({ROADMAP_REPLICAS})")
-        if envs.get_bool("DLROVER_TPU_PEER_RESTORE"):
-            raise NotImplementedError(
-                "DLROVER_TPU_PEER_RESTORE is set: that path is not ported "
-                f"yet ({ROADMAP_REPLICAS})")
         # Distributed persist (opt-in): storage saves route through the
         # two-phase commit — the saver writes only the shards this
         # process OWNS and reports a manifest instead of running the
@@ -405,6 +406,26 @@ class CheckpointEngine:
         self._storage = get_checkpoint_storage(path=checkpoint_dir)
         self._scope = scope or default_scope()
         self._shm = SharedMemoryBuffer(shm_name(self.process_id, self._scope))
+        self._replica = None
+        if replica and self.num_processes > 1:
+            from dlrover_tpu_torch.trainer.flash_checkpoint.replica import (
+                CkptReplicaManager,
+            )
+
+            self._replica = CkptReplicaManager(
+                self._shm.name, self.process_id, self.num_processes,
+                device=self.device)
+        # the report of the last peer recovery this engine ran ({} when
+        # none: a survivor fetches nothing)
+        self.last_recovery: Dict = {}
+        self._peer_restore = envs.get_bool("DLROVER_TPU_PEER_RESTORE")
+        self._peer_endpoint = None
+        if self._peer_restore:
+            from dlrover_tpu_torch.trainer.flash_checkpoint import (
+                peer_restore,
+            )
+
+            self._peer_endpoint = peer_restore.engine_context(self)
         # Each engine OWNS the lock guarding its snapshot buffer (one
         # writer per shm).  The lock dies with this process, so a crashed
         # mid-save worker can never leave it held.  The agent owns the
@@ -620,6 +641,7 @@ class CheckpointEngine:
                     "the buffer", step,
                 )
                 self.save_paths.append((int(step), "skipped"))
+                self._replicate()
                 return 0.0
         self._ensure_registered()
         t_d2h = time.time()
@@ -649,8 +671,11 @@ class CheckpointEngine:
                 step,
             )
             self.save_paths.append((int(step), "skipped"))
+            self._replicate()
             return -1.0
         self.latest_memory_step = step
+        self._replicate()
+        self._announce(step)
         blocked = time.time() - t0
         self.save_paths.append((int(step), "sync"))
         logger.info(
@@ -662,6 +687,35 @@ class CheckpointEngine:
              "storage": bool(block_on_busy)},
         )
         return blocked
+
+    def _replicate(self) -> None:
+        if self._replica is not None:
+            # NOT best-effort: backup() is a collective, and a process that
+            # skipped it would desynchronize the collective counts and
+            # wedge every peer at the next exchange; a failure raises
+            self._replica.backup()
+
+    def _announce(self, step: int) -> None:
+        """Advertise a committed shm step to the peer-restore broker."""
+        if self._peer_restore:
+            from dlrover_tpu_torch.trainer.flash_checkpoint import (
+                peer_restore,
+            )
+
+            peer_restore.maybe_announce(
+                step, scope=self._scope, process_id=self.process_id,
+                num_processes=self.num_processes)
+
+    @property
+    def replica(self):
+        """The replica manager (``replica.py``), or None."""
+        return self._replica
+
+    @property
+    def peer_restore(self) -> bool:
+        """Whether the engine serves and announces its segment and tries
+        a peer recovery when the memory agreement fails."""
+        return self._peer_restore
 
     @property
     def dist_persist(self) -> bool:
@@ -745,7 +799,11 @@ class CheckpointEngine:
         Never skips: if a previous copy is still staging, a queued older
         memory snapshot is superseded, else this call waits (bounded) for
         the device-copy slot, else it saves synchronously — the recovery
-        point always advances to this step."""
+        point always advances to this step.  Under replicas the save is
+        synchronous: the replica exchange is a collective, and must not
+        run on the stager's thread."""
+        if self._replica is not None:
+            return self.save_to_memory(step, state, extras, layout=layout)
         return self._async_save(step, state, extras, False, layout)
 
     def save_to_storage_async(
@@ -756,7 +814,10 @@ class CheckpointEngine:
         """Storage save with enqueue-only blocking: the persist event is
         enqueued by the background thread AFTER the shm write, preserving
         the snapshot-before-event commit order.  ``layouts``: as
-        ``save_to_storage``."""
+        ``save_to_storage``.  Synchronous under replicas, as
+        ``save_to_memory_async``."""
+        if self._replica is not None:
+            return self.save_to_storage(step, state, extras, layout, layouts)
         self._check_layout(layout)
         self._note_dist_ownership(state, layout, layouts)
         return self._async_save(step, state, extras, True, layout)
@@ -1003,6 +1064,7 @@ class CheckpointEngine:
             return
         self.latest_memory_step = max(self.latest_memory_step, step)
         self.last_staged_at = time.time()
+        self._announce(step)
         if persist_step is not None:
             self._queue.put(self._save_event(persist_step), timeout=60)
             # only now is the persist in flight; the exit barrier may
@@ -1145,7 +1207,8 @@ class CheckpointEngine:
             return None
         return out
 
-    def load(self, target: Any, layout: Optional[Layout] = None
+    def load(self, target: Any, layout: Optional[Layout] = None,
+             layouts: Optional[Sequence[Layout]] = None,
              ) -> Tuple[Optional[Any], int]:
         """Restore ``(state, step)`` into ``target``: shm fast path,
         storage fallback; ``(None, -1)`` when there is no checkpoint.
@@ -1161,14 +1224,18 @@ class CheckpointEngine:
         (module docstring): every rank calls ``load``, with its
         ``layout`` (``_check_layout``).  A restore that fails after it
         began to fill the target raises rather than report "no
-        checkpoint"."""
+        checkpoint".  ``layouts``: every rank's layout of ``target``, from
+        which a peer recovery names the replica group whose donors the
+        broker lists first (``peer_restore._replica_group``)."""
         self._check_layout(layout)
         self._raise_background_error()
         self._check_device(target)
         with record_function("flash.load"):
-            return self._load(target, target_boxes(target, layout))
+            return self._load(target, target_boxes(target, layout), layouts)
 
-    def _load(self, target: Any, boxes: Dict) -> Tuple[Optional[Any], int]:
+    def _load(self, target: Any, boxes: Dict,
+              layouts: Optional[Sequence[Layout]] = None,
+              ) -> Tuple[Optional[Any], int]:
         # a restore must see the latest snapshot, not race the stager
         self._flush_async()
         self._raise_background_error()
@@ -1177,8 +1244,35 @@ class CheckpointEngine:
         self.last_extras = {}
         self.last_read_stats = {}
         load_span = self._events.duration(TrainerEvents.CKPT_LOAD).begin()
+        self.last_recovery = {}
         mem_step, maps, extras, gen0 = self._memory_candidate(boxes)
         agreed = self.agree_on_step(mem_step)
+        if agreed < 0 and self._replica is not None:
+            # a replaced process has an empty segment, and its successor
+            # holds a replica: one collective exchange restores it, then
+            # the memory agreement is retried.  The verdict above is the
+            # same on every rank, so every rank makes the same collectives
+            maps = None  # views of the segment the exchange may rewrite
+            if self._replica.restore_from_peers():
+                self._shm.close()
+                self._shm = SharedMemoryBuffer(self._shm.name)
+            mem_step, maps, extras, gen0 = self._memory_candidate(boxes)
+            agreed = self.agree_on_step(mem_step)
+        if agreed < 0 and self._peer_restore:
+            # the lost shards from the survivors' segments into this one
+            # (a survivor fetches nothing), then the agreement once more
+            from dlrover_tpu_torch.trainer.flash_checkpoint import (
+                peer_restore,
+            )
+
+            maps = None
+            try:
+                peer_restore.try_engine_recover(self, target, layouts)
+            except Exception as e:  # noqa: BLE001 - the fast path must
+                # never make a recovery worse than the storage restore
+                logger.warning("peer restore failed (%s); using storage", e)
+            mem_step, maps, extras, gen0 = self._memory_candidate(boxes)
+            agreed = self.agree_on_step(mem_step)
         touched = False
         if agreed >= 0 and agreed == mem_step and maps is not None:
             with self._buffer_write_lock(60) as _held:
@@ -1583,9 +1677,18 @@ class CheckpointEngine:
         return False
 
     def close(self):
-        """Stop the stager and the in-process saver, release the device
-        copy buffer, the lock and the mapping (the segment stays: see
-        ``unlink_memory``)."""
+        """Stop the stager, the in-process saver and the peer endpoint
+        this engine started, release the device copy buffer, the lock and
+        the mappings (the segments stay: see ``unlink_memory``)."""
+        if self._peer_endpoint is not None:
+            from dlrover_tpu_torch.trainer.flash_checkpoint import (
+                peer_restore,
+            )
+
+            peer_restore.release_endpoint(self._peer_endpoint)
+            self._peer_endpoint = None
+        if self._replica is not None:
+            self._replica.close()
         stopped = self._stager.stop(timeout=60)
         saver_idle = True
         if self._local_saver is not None:
@@ -1607,8 +1710,11 @@ class CheckpointEngine:
             )
 
     def unlink_memory(self):
-        """Drop the shm snapshot (call after a clean job completion —
-        leaving it would make a future unrelated run 'resume')."""
+        """Drop the shm snapshot and the replica this process keeps of
+        its predecessor's (call after a clean job completion — leaving
+        them would make a future unrelated run 'resume')."""
+        if self._replica is not None:
+            self._replica.unlink_backup()
         if not self._shm.attach():
             return
         self._shm.unlink()

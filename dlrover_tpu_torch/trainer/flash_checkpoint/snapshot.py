@@ -713,6 +713,34 @@ def read_snapshot_meta(shm: SharedMemoryBuffer) -> Optional[Dict]:
         return None
 
 
+def read_meta_bytes(shm: SharedMemoryBuffer) -> Optional[bytes]:
+    """The committed meta's raw JSON bytes (None when absent or torn).
+    The peer-restore endpoint ships them verbatim, so a fetcher can
+    crc-check exactly what the donor's seqlock committed."""
+    if not shm.attach() or shm.size < _META_OFF or is_torn(shm):
+        return None
+    (meta_len,) = struct.unpack(">Q", bytes(shm.buf[0:_HEADER]))
+    if meta_len == 0 or _META_OFF + meta_len > shm.size:
+        return None
+    return bytes(shm.buf[_META_OFF : _META_OFF + meta_len])
+
+
+def read_payload_range(
+    shm: SharedMemoryBuffer, offset: int, nbytes: int
+) -> Optional[bytes]:
+    """``nbytes`` of the committed payload from the payload-relative
+    ``offset`` (None when absent, torn or out of range).  The caller pins
+    the seqlock generation around the read: the range itself promises no
+    atomicity."""
+    if not shm.attach() or shm.size < _META_OFF or is_torn(shm):
+        return None
+    start = payload_base(shm) + int(offset)
+    end = start + int(nbytes)
+    if offset < 0 or nbytes < 0 or end > shm.size:
+        return None
+    return bytes(shm.buf[start:end])
+
+
 def payload_base(shm: SharedMemoryBuffer) -> int:
     """Byte offset where the payload starts (after prefix + meta)."""
     (meta_len,) = struct.unpack(">Q", bytes(shm.buf[0:_HEADER]))

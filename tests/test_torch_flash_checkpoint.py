@@ -719,10 +719,6 @@ def test_no_checkpoint_returns_none(tmp_path):
 # ported yet name their ROADMAP items; two processes with no
 # torch.distributed world have nothing to agree on a restore step over
 REFUSED = {
-    "replica": (dict(replica=True), {}, NotImplementedError,
-                "ROADMAP queue 1 item 6b"),
-    "peer_restore": ({}, {"DLROVER_TPU_PEER_RESTORE": "1"},
-                     NotImplementedError, "ROADMAP queue 1 item 6b"),
     "url_path": (dict(checkpoint_dir="gs://bucket/ckpt"), {},
                  NotImplementedError, "ROADMAP queue 1 item"),
     "two_processes": (dict(num_processes=2), {}, ValueError,
