@@ -2,6 +2,7 @@
 """Time CUDA kernel variants of the port against each other on one GPU.
 
     python3 chip_ab.py [--flash NAME=SOURCE ...] [--add NAME=SOURCE ...]
+                       [--rdma NAME=ROOT ...] [--set NAME ATTR VALUE ...]
                        [--edit NAME OLD NEW ...] [--rounds N]
 
 A variant is a CUDA source file: ``--flash`` takes a flash_attention.cu,
@@ -21,12 +22,25 @@ S=2048 H=16 D=128 causal, each kernel's variants in turns (a, b, ..., b,
 a), beside SDPA's backward alone.  An add variant's hop add must be ``torch.equal`` to its
 plain version at ``chip_smoke.ADD_WIDTHS``, in and out of place; then it
 is timed at the dp leg's largest row in turns with ``torch.add``, in place
-(``out=a``) and out of place.  Needs one CUDA device; prints the card's
+(``out=a``) and out of place.
+
+An rdma variant is a checkout ROOT of the repository (``.``, or a parent
+commit unpacked under ``build/`` with ``git archive``): its own
+``rdma_ring`` wrapper and kernel, built by its own ``_build`` (or, with
+``--edit``, from an edited copy of its ``csrc/rdma_ring.cu``), run in a
+process of its own; ``--set NAME ATTR VALUE`` sets a constant of its
+``rdma_ring`` module first (``SLOT_STEPS``, ``CTAS_PER_SM``).
+Each process checks ``rdma_ring_one_card`` at W = 4 against its plain
+version and times it with CUDA events at each of ``chip_smoke
+.RDMA_TIME_WIDTHS`` beside ``torch.sum(xs, 0)``; the variants run in turns
+(a, b, ..., b, a) every round.  Needs one CUDA device; prints the card's
 ``nvidia-smi`` line first.
 """
 
 import argparse
 import ctypes
+import inspect
+import json
 import statistics
 import subprocess
 import sys
@@ -179,12 +193,82 @@ def add_ab(rrs, libs: dict, rounds: int) -> None:
             for name, ts in readings.items()), flush=True)
 
 
+def rdma_worker(root: str, lib: str, sets) -> dict:
+    """In a process of its own: ROOT's rdma ring (its kernel from ``lib``
+    when given) checked and timed at W = 4; one ``RDMA_AB`` JSON line."""
+    sys.path.insert(0, str(Path(root).resolve()))
+    import torch
+
+    from dlrover_tpu_torch.ops.cuda import rdma_ring as rdma
+
+    for attr, value in sets:
+        setattr(rdma, attr, type(getattr(rdma, attr))(value))
+    if lib:
+        rdma._lib = load(lib, rdma._SIGNATURES)
+    # the first design's windows took the widest row
+    takes_cap = "cap" in inspect.signature(rdma.OneCardWindows).parameters
+    world, result = 4, {}
+    for width in smoke.RDMA_TIME_WIDTHS:
+        xs = smoke.rdma_inputs(world, width, seed=5)
+        want = rdma.rdma_ring_plain(xs)
+        with rdma.OneCardWindows("cuda", world, *([width] if takes_cap
+                                                  else [])) as windows:
+            equal = torch.equal(rdma.rdma_ring_one_card(xs, windows), want)
+            iters = max(10, min(200, 2 * 10 ** 8 // xs.numel()))
+            ms = smoke.cuda_time_ms(
+                lambda: rdma.rdma_ring_one_card(xs, windows), iters=iters)
+            windows.check()
+            result[width] = dict(
+                ms=ms, equal=equal,
+                window_bytes=world * windows.window_bytes,
+                library_ms=smoke.cuda_time_ms(lambda: torch.sum(xs, 0),
+                                              iters=iters))
+        del xs, want
+    print("RDMA_AB " + json.dumps(result), flush=True)
+    return result
+
+
+def rdma_ab(roots: dict, libs: dict, sets: dict, rounds: int) -> None:
+    """Every rdma variant in a process of its own, in turns, per round."""
+    names = list(roots)
+    readings = {name: {} for name in names}
+    for r in range(rounds):
+        for name in names + names[::-1]:
+            cmd = [sys.executable, str(Path(__file__).resolve()),
+                   "--rdma-worker", roots[name], "--lib", libs.get(name, "")]
+            for attr, value in sets.get(name, []):
+                cmd += ["--set", name, attr, value]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            line = [x for x in proc.stdout.splitlines()
+                    if x.startswith("RDMA_AB ")]
+            if proc.returncode or not line:
+                print(f"  round {r} {name} FAILED (rc {proc.returncode}): "
+                      f"{(proc.stdout + proc.stderr)[-2000:]}", flush=True)
+                continue
+            got = json.loads(line[0][len("RDMA_AB "):])
+            print(f"  round {r} {name}: " + "; ".join(
+                f"width {w} {t['ms']:.4f} ms (equal {t['equal']}, windows "
+                f"{t['window_bytes']} B, torch.sum {t['library_ms']:.4f})"
+                for w, t in got.items()), flush=True)
+            for w, t in got.items():
+                readings[name].setdefault(w, []).append(t["ms"])
+    for name, by_width in readings.items():
+        print(f"  mean {name}: " + "  ".join(
+            f"width {w} {statistics.mean(ts):.4f} ms over {len(ts)}"
+            for w, ts in by_width.items()))
+
+
 def main() -> int:
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--flash", action="append", default=[])
     parser.add_argument("--add", action="append", default=[])
+    parser.add_argument("--rdma", action="append", default=[])
+    parser.add_argument("--set", nargs=3, action="append", default=[],
+                        metavar=("NAME", "ATTR", "VALUE"))
+    parser.add_argument("--rdma-worker")
+    parser.add_argument("--lib", default="")
     parser.add_argument("--edit", nargs=3, action="append", default=[],
                         metavar=("NAME", "OLD", "NEW"))
     parser.add_argument("--rounds", type=int, default=2)
@@ -192,20 +276,38 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_ab: no CUDA device", file=sys.stderr)
         return 1
+    if args.rdma_worker:
+        rdma_worker(args.rdma_worker, args.lib,
+                    [(attr, value) for _, attr, value in args.set])
+        return 0
     from dlrover_tpu_torch.ops.cuda import flash_attention as fa
     from dlrover_tpu_torch.ops.cuda import ring_reduce_scatter as rrs
 
     print(smoke.card_line(), flush=True)
     flash = dict(v.split("=", 1) for v in args.flash)
     add = dict(v.split("=", 1) for v in args.add)
-    edits = {}
+    rdma = dict(v.split("=", 1) for v in args.rdma)
+    edits, sets = {}, {}
     for name, old, new in args.edit:
         edits.setdefault(name, []).append((old, new))
-    built = build_variants({**flash, **add}, edits)
+    for name, attr, value in args.set:
+        sets.setdefault(name, []).append((attr, value))
+    rdma_sources = {
+        name: str(Path(root) / "dlrover_tpu_torch" / "csrc" / "rdma_ring.cu")
+        for name, root in rdma.items() if name in edits}
+    built = build_variants({**flash, **add, **rdma_sources}, edits)
     flash_ab(fa, {n: p for n, p in built.items() if n in flash}, args.rounds)
     if add:
         add_ab(rrs, {n: p for n, p in built.items() if n in add},
                args.rounds)
+    if rdma:
+        print(f"[rdma ring on one card, W = 4, widths "
+              f"{smoke.RDMA_TIME_WIDTHS}, in turns]", flush=True)
+        # an edited variant that did not build is not run
+        rdma = {n: root for n, root in rdma.items()
+                if n not in rdma_sources or n in built}
+        rdma_ab(rdma, {n: str(p) for n, p in built.items() if n in rdma},
+                sets, args.rounds)
     print("AB_DONE")
     return 0
 

@@ -214,19 +214,22 @@ then runs, in order, failing on the first phase that fails:
    wait limit: the windows' check() must raise within 1.75 limits, naming
    the stage (the second call leaves at once on the broken windows), and
    a call on fresh windows must be right again; then W in {2, 4, 8} and
-   widths {128, 4096, 1,048,576}, and W=4 at 16,384,000, each torch.equal
-   to its plain version; then the kernel's one-card path:
-   50 calls back to back at W=4, width 1,048,576, cycling through three
-   inputs (so that a read of a slot left by the previous call would show),
-   with the launch count read around them and every output equal to plain;
-   then its time at W=4, width 16,384,000 beside its bound (the bytes the
-   function needs: each rank's buffer read once, each row written once)
-   and torch.sum(xs, 0);
+   widths {128, 4096, 1,000,064 (ragged: not a whole number of the
+   kernel's chunks), 1,048,576}, and W=4 at 16,384,000, one set of windows
+   per W, each torch.equal to its plain version; then the kernel's
+   one-card path: 50 calls back to back at W=4 on one set of windows,
+   cycling through three inputs of widths 1,048,576, 1,000,064 and
+   262,144 (so that a read of a slot or a count left by the previous call
+   would show), with the launch count read around them and every output
+   equal to plain; then its time at W=4, widths 16,384,000 and 262,144
+   (a 4 MB bucket's row), each beside its bound (the bytes the function
+   needs: each rank's buffer read once, each row written once), its plain
+   version and torch.sum(xs, 0), and the windows' bytes;
 8. peer window across processes: 4 gloo ranks on the card build a
    PeerWindow (cudaMalloc windows, IPC handles exchanged with all_gather)
-   and each copies a seeded row into its right neighbour's slot through
+   and each copies a seeded row into its right neighbour's slots through
    the opened handle (copies only: no kernel waits on another process);
-   each slot must hold its left neighbour's row exactly;
+   each rank's slots must hold its left neighbour's row exactly;
 9. the dp leg: 4 rank processes on the one card over a gloo group (the
    exchange is host-staged), Llama-2-1B at full width with its depth cut
    to 2 layers, B=1 per rank, S=2048, bf16 grads on fp32 masters, bucket
@@ -281,13 +284,23 @@ then runs, in order, failing on the first phase that fails:
    beside torch.add(a, b, out=a) (its ``library_ms``), and out of place
    beside torch.add(a, b) (``ms_out_of_place``, ``library_ms_out_of_place``).
 
+After the phases, and also when one fails, it stops every process it
+started that is still there and prints each under ``[processes]``: the
+script is the child subreaper of what it starts (so that a process
+whose parent exited is still found below it), rank processes are joined
+and then killed, anything else below it gets SIGTERM and then SIGKILL,
+and multiprocessing's resource tracker is stopped and waited for as
+multiprocessing's last exit finalizer.
+
 The last three lines are the kernels' JSON record (each flash kernel's
 with its D=128 instance's SASS counts under ``sass``), the nvidia-smi
 line and ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` is
 its count over the path that runs it here: the single-device training
 (flash), the dp leg (the ring_pallas_q and ring_pallas kernels), and for
 the rdma ring its one-card path (``launches_dp_leg`` beside it: 0, as
-the dp leg's ranks share the card); each flash kernel's
+the dp leg's ranks share the card; its times at W = 4 at each of its two
+widths under ``widths``, the first also as its ``ms``, and its windows'
+bytes as ``window_bytes``); each flash kernel's
 ``launches_mesh`` is its count over the [mesh] phase's world-1 run,
 ``launches_ckpt`` over every rank's steps after the [mesh] legs'
 restores, ``launches_moe`` over the [moe] phase's steps, ``launches_pp``
@@ -365,9 +378,17 @@ RDMA_REPLACES = "dlrover_tpu/ops/pallas/ring_reduce_scatter.py:257"
 # the dp leg's largest bucket row: the embedding's (32000 x 2048) / 4
 DP_LARGEST_ROW = 16_384_000
 ADD_WIDTHS = (1, 3, 1000, 1024, 4097, DP_LARGEST_ROW)
+# 1,000,064: a multiple of 128 that is not one of the kernel's 2048-element
+# chunks
 RDMA_SHAPES = tuple((w, n) for w in (2, 4, 8)
-                    for n in (128, 4096, 1_048_576)) + ((4, DP_LARGEST_ROW),)
-RDMA_REUSE_CALLS, RDMA_REUSE_SHAPE = 50, (4, 1_048_576)
+                    for n in (128, 4096, 1_000_064, 1_048_576)) + (
+                        (4, DP_LARGEST_ROW),)
+# the reuse check's calls cycle through three inputs of these widths on one
+# set of windows, as the trainer's buckets of different widths do
+RDMA_REUSE_CALLS, RDMA_REUSE_WORLD = 50, 4
+RDMA_REUSE_WIDTHS = (1_048_576, 1_000_064, 262_144)
+# the times: the dp leg's largest row, and a 4 MB bucket's row at W = 4
+RDMA_TIME_WIDTHS = (DP_LARGEST_ROW, 262_144)
 # the stuck-peer check's wait limit (the windows' default is a minute)
 RDMA_TIMEOUT_S = 2.0
 PEER_WINDOW_WIDTH = 1_048_576
@@ -533,6 +554,106 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
+
+
+def descendant_pids() -> list:
+    """The pids of the live processes below this one, from /proc."""
+    parent = {}
+    for entry in os.listdir("/proc"):
+        if entry.isdigit():
+            try:
+                with open(f"/proc/{entry}/stat") as f:
+                    stat = f.read()
+            except OSError:  # gone since the listing
+                continue
+            # the command name may hold spaces: the fields after its ")"
+            parent[int(entry)] = int(stat[stat.rfind(")") + 2:].split()[1])
+    below, level = [], {os.getpid()}
+    while level:
+        level = {pid for pid, ppid in parent.items() if ppid in level}
+        below += sorted(level)
+    return below
+
+
+def command_of(pid: int) -> str:
+    try:
+        with open(f"/proc/{pid}/cmdline", "rb") as f:
+            return f.read().replace(b"\0", b" ").decode(errors="replace")[:160]
+    except OSError:
+        return "(gone)"
+
+
+def adopt_orphans() -> None:
+    """Make this process the child subreaper of what it starts (Linux
+    prctl PR_SET_CHILD_SUBREAPER): a process whose parent exits is then
+    reparented here, not to init, so that stop_processes still finds it."""
+    import ctypes
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(36, 1, 0, 0, 0) != 0:
+        raise OSError(ctypes.get_errno(), "prctl(PR_SET_CHILD_SUBREAPER)")
+
+
+def stop_resource_tracker() -> None:
+    """Stop multiprocessing's resource tracker and wait for it.  The spawn
+    context's queues start it as a child of this process, and it would
+    otherwise outlive the script until it sees its pipe close."""
+    from multiprocessing import resource_tracker
+
+    resource_tracker._resource_tracker._stop()
+
+
+def stop_processes(grace_s: float = 30.0) -> None:
+    """Stop every process this script started that is still there, and
+    print each one: rank processes are joined, then killed; anything else
+    below this process gets SIGTERM, then SIGKILL.  multiprocessing's
+    resource tracker is left to the end: it is stopped as multiprocessing's
+    last exit finalizer, after the semaphores' own finalizers have
+    unregistered them (stopped earlier, it would unlink live ones)."""
+    import multiprocessing
+    import signal
+    from multiprocessing import util
+
+    gc.collect()  # dropped queues unregister their semaphores now
+    stopped = []
+    for p in multiprocessing.active_children():
+        p.join(timeout=grace_s)
+        if p.is_alive():
+            stopped.append(f"{p.pid} {p.name} (killed)")
+            p.kill()
+            p.join(timeout=grace_s)
+    util.Finalize(None, stop_resource_tracker, exitpriority=-(1 << 30))
+    tracker = resource_tracker_pid()
+    left = [pid for pid in descendant_pids() if pid != tracker]
+    stopped += [f"{pid} {command_of(pid)}" for pid in left]
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        for pid in left:
+            try:
+                os.kill(pid, sig)
+            except ProcessLookupError:
+                pass
+        deadline = time.monotonic() + grace_s
+        while left and time.monotonic() < deadline:
+            for pid in left:  # reap this process's own children
+                try:
+                    os.waitpid(pid, os.WNOHANG)
+                except ChildProcessError:
+                    pass
+            left = [pid for pid in left if pid in descendant_pids()]
+            time.sleep(0.1)
+    if tracker:
+        stopped.append(f"{tracker} multiprocessing's resource tracker "
+                       "(stopped at exit)")
+    print(f"[processes] {len(stopped)} left by the phases"
+          + "".join(f"\n  {s}" for s in stopped), flush=True)
+    if left:
+        raise RuntimeError(f"processes {left} outlived SIGKILL by {grace_s} s")
+
+
+def resource_tracker_pid():
+    from multiprocessing import resource_tracker
+
+    return resource_tracker._resource_tracker._pid
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -2596,27 +2717,33 @@ def rdma_inputs(world: int, width: int, seed: int):
 
 def check_rdma_ring(rdma, errors):
     """The one-kernel ring with W ranks on the card against its plain
-    version at every shape; then its one-card path, counted; returns that
-    path's launch count."""
+    version at every shape (one set of windows per W, its widths in turn);
+    then its one-card path, counted; returns that path's launch count."""
     import torch
 
-    for world, width in RDMA_SHAPES:
-        xs = rdma_inputs(world, width, seed=world * 7 + width)
-        want = rdma.rdma_ring_plain(xs)
-        with rdma.OneCardWindows(xs.device, world, width) as windows:
-            got = rdma.rdma_ring_one_card(xs, windows)
-            windows.check()
-        diff = max_abs(got, want)
-        errors["rdma_ring"] = max(errors.get("rdma_ring", 0.0), diff)
-        if not torch.equal(got, want):
-            raise AssertionError(f"rdma_ring differs from the plain version "
-                                 f"at W={world} width={width}: max abs {diff}")
-        print(f"  W={world} width={width}: equal to plain")
-        del xs, want, got
-    world, width = RDMA_REUSE_SHAPE
-    inputs = [rdma_inputs(world, width, seed=100 + k) for k in range(3)]
+    for world in sorted({w for w, _ in RDMA_SHAPES}):
+        with rdma.OneCardWindows("cuda", world) as windows:
+            for width in [n for w, n in RDMA_SHAPES if w == world]:
+                xs = rdma_inputs(world, width, seed=world * 7 + width)
+                want = rdma.rdma_ring_plain(xs)
+                got = rdma.rdma_ring_one_card(xs, windows)
+                windows.check()
+                diff = max_abs(got, want)
+                errors["rdma_ring"] = max(errors.get("rdma_ring", 0.0), diff)
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"rdma_ring differs from the plain version at "
+                        f"W={world} width={width}: max abs {diff}")
+                print(f"  W={world} width={width}: equal to plain")
+                del xs, want, got
+            print(f"  W={world}: windows of {windows.window_bytes} B a rank "
+                  f"({windows.ctas} CTAs x {windows.slots} slots of "
+                  f"{rdma.CHUNK_ELEMS * 4} B)")
+    world = RDMA_REUSE_WORLD
+    inputs = [rdma_inputs(world, width, seed=100 + k)
+              for k, width in enumerate(RDMA_REUSE_WIDTHS)]
     wants = [rdma.rdma_ring_plain(xs) for xs in inputs]
-    with rdma.OneCardWindows(inputs[0].device, world, width) as windows:
+    with rdma.OneCardWindows(inputs[0].device, world) as windows:
         torch.cuda.synchronize()
         rdma.reset_launches()
         outs = [rdma.rdma_ring_one_card(inputs[k % 3], windows)
@@ -2634,8 +2761,8 @@ def check_rdma_ring(rdma, errors):
         raise AssertionError(f"{RDMA_REUSE_CALLS} calls launched the rdma "
                              f"ring {launches} times")
     print(f"  one-card path: {RDMA_REUSE_CALLS} calls back to back at "
-          f"W={world} width={width} (three inputs in turn), launches "
-          f"{launches}, every output equal to plain")
+          f"W={world} on one set of windows, widths {RDMA_REUSE_WIDTHS} in "
+          f"turn, launches {launches}, every output equal to plain")
     return launches
 
 
@@ -2647,7 +2774,7 @@ def check_rdma_timeout(rdma):
     import torch
 
     xs = rdma_inputs(2, 128, seed=9)
-    with rdma.OneCardWindows(xs.device, 2, 128,
+    with rdma.OneCardWindows(xs.device, 2,
                              timeout_s=RDMA_TIMEOUT_S) as windows:
         rdma.rdma_ring_one_card(xs, windows)
         windows.check()
@@ -2667,7 +2794,7 @@ def check_rdma_timeout(rdma):
                   f"{str(e)[:160]}")
         else:
             raise AssertionError("a call whose peers never arrive passed")
-    with rdma.OneCardWindows(xs.device, 2, 128) as windows:
+    with rdma.OneCardWindows(xs.device, 2) as windows:
         got = rdma.rdma_ring_one_card(xs, windows)
         windows.check()
     if not torch.equal(got, rdma.rdma_ring_plain(xs)):
@@ -2676,33 +2803,50 @@ def check_rdma_timeout(rdma):
 
 
 def time_rdma_ring(rdma):
-    """The one-card ring's time at W=4 and the dp leg's largest row (the
+    """The one-card ring's time at W=4 and each of RDMA_TIME_WIDTHS (the
     kernel alone: the wrapper only launches), beside its bound, its plain
-    version and torch.sum over the ranks."""
+    version and torch.sum over the ranks, and its windows' bytes.  The
+    first width's numbers are the kernel's record; each width's are under
+    ``widths``."""
     import torch
 
-    world, width = 4, DP_LARGEST_ROW
-    xs = rdma_inputs(world, width, seed=5)
-    with rdma.OneCardWindows(xs.device, world, width) as windows:
-        ms = cuda_time_ms(lambda: rdma.rdma_ring_one_card(xs, windows),
-                          iters=10)
-        windows.check()
-    plain_ms = cuda_time_ms(lambda: rdma.rdma_ring_plain(xs), iters=3,
-                            warmup=1)
-    library_ms = cuda_time_ms(lambda: torch.sum(xs, 0), iters=10)
-    # the function reads every rank's (W, width) buffer once and writes
-    # every rank's row once
-    nbytes = (world + 1) * world * width * 4
-    b_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    # the ring itself also writes each hop's packet and reads it back
-    traffic = (3 * world - 1) * world * width * 4
-    print(f"  rdma_ring_one_card at W={world} width={width}: {ms:.4f} ms  "
-          f"bound {b_ms:.4f} ms (bytes, {nbytes / 1e9:.2f} GB)  plain "
-          f"{plain_ms:.4f} ms  torch.sum(xs, 0) {library_ms:.4f} ms; the "
-          f"ring's own traffic {traffic / 1e9:.2f} GB, "
-          f"{traffic / PEAK_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by="bytes",
-                library_ms=library_ms)
+    world = 4
+    timed = {}
+    with rdma.OneCardWindows("cuda", world) as windows:
+        for width in RDMA_TIME_WIDTHS:
+            xs = rdma_inputs(world, width, seed=5)
+            iters = max(10, min(200, 2 * 10 ** 8 // xs.numel()))
+            ms = cuda_time_ms(lambda: rdma.rdma_ring_one_card(xs, windows),
+                              iters=iters)
+            windows.check()
+            plain_ms = cuda_time_ms(lambda: rdma.rdma_ring_plain(xs),
+                                    iters=3, warmup=1)
+            library_ms = cuda_time_ms(lambda: torch.sum(xs, 0), iters=iters)
+            # the function reads every rank's (W, width) buffer once and
+            # writes every rank's row once
+            nbytes = (world + 1) * world * width * 4
+            b_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+            # the ring also writes each hop's packet and reads it back: in
+            # L2 when the slots stay there, through HBM when they did not
+            packets = 2 * (world - 1) * world * width * 4
+            print(f"  rdma_ring_one_card at W={world} width={width}: "
+                  f"{ms:.4f} ms  bound {b_ms:.4f} ms (bytes, "
+                  f"{nbytes / 1e9:.4f} GB)  plain {plain_ms:.4f} ms  "
+                  f"torch.sum(xs, 0) {library_ms:.4f} ms; the packets' "
+                  f"traffic {packets / 1e9:.4f} GB more "
+                  f"({(nbytes + packets) / PEAK_BYTES_PER_S * 1e3:.4f} ms at "
+                  f"3.35 TB/s if it went to HBM); {iters} calls")
+            timed[width] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                library_ms=library_ms)
+            del xs
+        print(f"  windows: {windows.window_bytes} B a rank, "
+              f"{world * windows.window_bytes} B for the {world} ranks "
+              f"({windows.ctas} CTAs x {windows.slots} slots of "
+              f"{rdma.CHUNK_ELEMS * 4} B per rank), whatever the width")
+    first = timed[RDMA_TIME_WIDTHS[0]]
+    return dict(first, bound_by="bytes",
+                window_bytes=world * windows.window_bytes,
+                widths={str(w): t for w, t in timed.items()})
 
 
 def time_in_turns(fns: dict, iters: int = 20) -> dict:
@@ -2762,8 +2906,9 @@ def peer_window_leg():
         device="cuda", timeout_s=120.0)
     for r in ranks:
         print(f"  rank {r['rank']}: window {r['window_bytes']} B, "
-              f"{r['ctas']} CTAs; slot 0 equal to the left neighbour's row: "
-              f"{r['equal']} (max abs {r['max_abs_err']})")
+              f"{r['ctas']} CTAs; its slots equal to the left neighbour's "
+              f"row of {r['width']}: {r['equal']} (max abs "
+              f"{r['max_abs_err']})")
         if not r["equal"]:
             raise AssertionError(f"rank {r['rank']}'s slot does not hold its "
                                  "left neighbour's row")
@@ -3114,6 +3259,23 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    adopt_orphans()
+    try:
+        record = run_phases()
+    finally:
+        stop_processes()
+    print(json.dumps({"kernels": record}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def run_phases() -> list:
+    """Every phase in order; returns the kernels' record."""
+    import torch
+
     from dlrover_tpu_torch.ops.cuda import _build
     from dlrover_tpu_torch.ops.cuda import flash_attention as fa
 
@@ -3280,12 +3442,7 @@ def main() -> int:
              launches_dp_leg=ring_launches["rdma_ring"],
              max_abs_err=ring_errors["rdma_ring"], atol=0.0, **rdma_timing),
     ]
-    print(json.dumps({"kernels": record}))
-    print(card_line())
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    return record
 
 
 if __name__ == "__main__":

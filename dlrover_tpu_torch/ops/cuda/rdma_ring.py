@@ -21,6 +21,14 @@ Three entry points:
 * ``rdma_ring_plain(xs)``: the plain version, the ring's hop-order sum for
   every rank.
 
+The kernel passes each row in chunks of ``CHUNK_ELEMS`` fp32 through a
+small ring of slots per CTA under credits, so a window's size depends on
+the card and the world, never on the width.  Its counters are never reset:
+``RingCounters`` (which both kinds of windows are) keeps the entry
+barrier's generation and the packets each CTA has sent, and hands every
+call its chunk steps (``chunk_plan``) and its base, the same on every rank
+and CTA, so calls of any widths follow each other on one window.
+
 A wrapper adds one to ``launches["rdma_ring"]`` per launch, and only
 launches: it never waits for the card.  Every wait in the kernel is
 bounded (``timeout_s``, ``TIMEOUT_S`` by default).  A wait that runs out
@@ -48,8 +56,19 @@ KERNEL_SOURCE = "rdma_ring"
 TIMEOUT_S = 60.0
 # the reference's lane rule for this tier (select_transport)
 LANE = 128
-STAGES = {1: "entry barrier", 2: "handshake with the left neighbour",
-          3: "handshake with the right neighbour", 4: "packet arrival"}
+STAGES = {1: "entry barrier", 2: "packet arrival",
+          3: "credit from the right neighbour"}
+# fp32 elements per packet chunk (csrc/rdma_ring.cu CHUNK_GROUPS * 4)
+CHUNK_ELEMS = 2048
+# the steps of packets a CTA's slot ring holds: slots = SLOT_STEPS *
+# (world - 1), at least 2 (one step more than the least lets a CTA run a
+# step ahead of its right neighbour's credits)
+SLOT_STEPS = 3
+# CTAs per multiprocessor on the card, and the bytes of slots of every rank
+# on the card: they stay well inside the 50 MB L2 (fewer CTAs for a larger
+# world)
+CTAS_PER_SM = 2
+SLOT_BYTES_PER_CARD = 24 << 20
 
 # launches since the last reset_launches()
 launches = {"rdma_ring": 0}
@@ -72,6 +91,50 @@ def rdma_ring_plain(xs: torch.Tensor) -> torch.Tensor:
     return p
 
 
+def chunk_plan(width: int, ctas: int) -> int:
+    """Chunk steps each of ``ctas`` CTAs runs for a row of ``width``: CTA
+    ``c`` owns chunks ``c, c + ctas, ...``, and every CTA runs as many as
+    the one with the most, signalling for those past the row."""
+    chunks = -(-width // CHUNK_ELEMS)
+    return -(-chunks // ctas)
+
+
+def slots_for(world: int) -> int:
+    """Slots per CTA in a window of ``world`` ranks."""
+    return SLOT_STEPS * (world - 1)
+
+
+def ctas_for(resident: int, world: int, ranks_on_card: int) -> int:
+    """CTAs per rank: at most ``resident`` (what the card holds at once for
+    ``ranks_on_card`` ranks), and few enough that their slots stay inside
+    ``SLOT_BYTES_PER_CARD``."""
+    slot_bytes = ranks_on_card * slots_for(world) * CHUNK_ELEMS * 4
+    return max(1, min(resident, SLOT_BYTES_PER_CARD // slot_bytes))
+
+
+class RingCounters:
+    """What a set of windows has counted over its calls: ``generation``,
+    the entry barrier's (``2 * generation`` signals once every neighbour
+    is in the call), and ``packets``, the packets each CTA has sent (the
+    base of the arrival and credit counters).  Each call takes its chunk
+    steps from ``chunk_plan`` and its base from here: the same on every
+    rank and CTA, as the kernel's counters need."""
+
+    def __init__(self, world: int, ctas: int):
+        self.world, self.ctas = world, ctas
+        self.slots = slots_for(world)
+        self.generation = 0
+        self.packets = 0
+
+    def next_call(self, width: int) -> Tuple[int, int, int]:
+        """``(generation, base, chunks)`` of the next call at ``width``."""
+        chunks = chunk_plan(width, self.ctas)
+        self.generation += 1
+        base = self.packets
+        self.packets += chunks * (self.world - 1)
+        return self.generation, base, chunks
+
+
 # ---------------------------------------------------------------------------
 # the library
 # ---------------------------------------------------------------------------
@@ -80,9 +143,10 @@ _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
 _SIGNATURES = {
-    "dlrover_rdma_layout": [_I, _LL, ctypes.POINTER(_LL)],
-    "dlrover_rdma_launch_shape": [_I, ctypes.c_double, ctypes.POINTER(_I),
-                                  ctypes.POINTER(_LL)],
+    "dlrover_rdma_chunk_elems": [],
+    "dlrover_rdma_layout": [_I, _I, ctypes.POINTER(_LL)],
+    "dlrover_rdma_launch_shape": [_I, _I, ctypes.c_double,
+                                  ctypes.POINTER(_I), ctypes.POINTER(_LL)],
     "dlrover_rdma_alloc": [_LL, ctypes.POINTER(_P)],
     "dlrover_rdma_free": [_P],
     "dlrover_rdma_ipc_handle": [_P, _P],
@@ -90,8 +154,8 @@ _SIGNATURES = {
     "dlrover_rdma_ipc_close": [_P],
     "dlrover_rdma_ipc_handle_bytes": [],
     "dlrover_rdma_copy": [_P, _P, _LL],
-    "dlrover_rdma_ring": [_P] * 6 + [_LL, _LL, _LL, _I, _I, _I,
-                                      ctypes.c_uint, _I, _LL, _P],
+    "dlrover_rdma_ring": [_P] * 6 + [_LL, _LL] + [_I] * 5
+                         + [ctypes.c_ulonglong, ctypes.c_uint, _I, _LL, _P],
     "dlrover_rdma_errors": [_P, _LL, _I, ctypes.POINTER(ctypes.c_uint), _P],
 }
 
@@ -115,23 +179,28 @@ def _call(name: str, *args) -> None:
         raise RuntimeError(f"{name} failed: CUDA error {rc}")
 
 
-def window_layout(ctas: int, cap: int) -> Dict[str, int]:
-    """Byte offsets of one rank's window (flags, slots), the elements per
-    slot and its size in bytes."""
-    out = (_LL * 4)()
-    _call("dlrover_rdma_layout", ctas, cap, out)
-    return dict(flags_off=out[0], slots_off=out[1], slot_elems=out[2],
-                total=out[3])
+def window_layout(ctas: int, slots: int) -> Dict[str, int]:
+    """Byte offsets of one rank's window (flags, slots) and its size in
+    bytes: ``ctas`` rings of ``slots`` chunks."""
+    built = _library().dlrover_rdma_chunk_elems()
+    if built != CHUNK_ELEMS:
+        raise RuntimeError(f"csrc/rdma_ring.cu cuts chunks of {built} "
+                           f"elements, the host plans {CHUNK_ELEMS}")
+    out = (_LL * 3)()
+    _call("dlrover_rdma_layout", ctas, slots, out)
+    return dict(flags_off=out[0], slots_off=out[1], total=out[2])
 
 
-def launch_shape(ranks_on_card: int, timeout_s: float) -> Tuple[int, int]:
-    """``(CTAs per rank, timeout cycles)`` on the current device: the CTAs
-    of ``ranks_on_card`` ranks all resident at once, and about
-    ``timeout_s`` of SM cycles."""
+def launch_shape(world: int, ranks_on_card: int,
+                 timeout_s: float) -> Tuple[int, int]:
+    """``(CTAs per rank, timeout cycles)`` on the current device for a ring
+    of ``world`` ranks: the CTAs of ``ranks_on_card`` ranks all resident at
+    once, at most ``CTAS_PER_SM`` a multiprocessor (``ctas_for``), and
+    about ``timeout_s`` of SM cycles."""
     ctas, cycles = _I(), _LL()
-    _call("dlrover_rdma_launch_shape", ranks_on_card, timeout_s,
+    _call("dlrover_rdma_launch_shape", ranks_on_card, CTAS_PER_SM, timeout_s,
           ctypes.byref(ctas), ctypes.byref(cycles))
-    return ctas.value, cycles.value
+    return ctas_for(ctas.value, world, ranks_on_card), cycles.value
 
 
 def alloc(nbytes: int) -> int:
@@ -177,14 +246,22 @@ def _check_width(width: int) -> None:
                          f"multiple of {LANE}, got {width}")
 
 
-def _launch(x, out, world, width, gen, ctas, cap, window_bytes,
-            timeout_cycles, base=None, self_ptr=None, left=None, right=None,
-            rank=0, one_card=False) -> None:
+def _launch(x, out, windows, width, base=None, self_ptr=None, left=None,
+            right=None, rank=0, one_card=False) -> None:
+    gen, packets, chunks = windows.next_call(width)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        _call("dlrover_rdma_ring", x.data_ptr(), out.data_ptr(), base,
-              self_ptr, left, right, window_bytes, width, cap, rank, world,
-              ctas, gen, int(one_card), timeout_cycles, stream)
+        try:
+            _call("dlrover_rdma_ring", x.data_ptr(), out.data_ptr(), base,
+                  self_ptr, left, right, windows.window_bytes, width, rank,
+                  windows.world, windows.ctas, windows.slots, chunks,
+                  packets, gen, int(one_card), windows.timeout_cycles,
+                  stream)
+        except RuntimeError as e:
+            # the neighbours count this call's packets: the counters no
+            # longer agree
+            windows.broken = f"a launch failed: {e}"
+            raise
     launches["rdma_ring"] += 1
 
 
@@ -199,10 +276,10 @@ def read_errors(device, base: int, window_bytes: int, windows: int,
               torch.cuda.current_stream(device).cuda_stream)
     found = []
     for w in range(windows):
-        stage, rank, cta, hop = host[4 * w:4 * w + 4]
+        stage, rank, cta, step = host[4 * w:4 * w + 4]
         if stage:
             found.append(f"rank {rank}, CTA {cta}: {STAGES.get(stage, stage)}"
-                         f" at hop {hop} timed out after ~{timeout_s} s")
+                         f" at step {step} timed out after ~{timeout_s} s")
     return found
 
 
@@ -227,14 +304,12 @@ def rdma_ring_reduce_scatter(x: torch.Tensor, group, window) -> torch.Tensor:
                          "build one with parallel.peer_memory.PeerWindow")
     if window.broken:
         raise RuntimeError(f"the peer window is unusable: {window.broken}")
-    if width > window.cap or window.world != world:
+    if window.world != world:
         raise ValueError(f"a ({world}, {width}) buffer does not fit the peer "
-                         f"window ({window.world} ranks, {window.cap} wide)")
+                         f"window of {window.world} ranks")
     out = torch.empty(width, dtype=torch.float32, device=x.device)
-    _launch(x, out, world, width, window.next_generation(), window.ctas,
-            window.cap, window.window_bytes, window.timeout_cycles,
-            self_ptr=window.self_ptr, left=window.left_ptr,
-            right=window.right_ptr, rank=group.rank)
+    _launch(x, out, window, width, self_ptr=window.self_ptr,
+            left=window.left_ptr, right=window.right_ptr, rank=group.rank)
     return out
 
 
@@ -243,28 +318,28 @@ def rdma_ring_reduce_scatter(x: torch.Tensor, group, window) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-class OneCardWindows:
+class OneCardWindows(RingCounters):
     """The windows of ``world`` ranks on one card, in one allocation, for
-    rows of up to ``cap`` fp32 elements: what ``rdma_ring_one_card`` runs
-    over.  ``generation`` counts the calls made on them; ``check()`` raises
-    if one ran out of time, after which they stay unusable; ``close()``
-    frees them (also as a context manager)."""
+    rows of any width: what ``rdma_ring_one_card`` runs over.  Their size
+    is ``world`` x ``window_bytes``, a ring of chunk slots per CTA and
+    rank; ``generation`` and ``packets`` count the calls made on them;
+    ``check()`` raises if one ran out of time, after which they stay
+    unusable; ``close()`` frees them (also as a context manager)."""
 
-    def __init__(self, device, world: int, cap: int,
-                 timeout_s: float = TIMEOUT_S):
+    def __init__(self, device, world: int, timeout_s: float = TIMEOUT_S):
         if world < 2:
             raise ValueError(f"the rdma ring needs 2 or more ranks, got "
                              f"{world}")
         device = torch.device(device)
         if device.index is None:
             device = torch.device(device.type, torch.cuda.current_device())
-        self.device, self.world, self.cap = device, world, int(cap)
+        self.device = device
         self.timeout_s = timeout_s
         with torch.cuda.device(device):
-            self.ctas, self.timeout_cycles = launch_shape(world, timeout_s)
-            self.window_bytes = window_layout(self.ctas, self.cap)["total"]
+            ctas, self.timeout_cycles = launch_shape(world, world, timeout_s)
+            super().__init__(world, ctas)
+            self.window_bytes = window_layout(ctas, self.slots)["total"]
             self.base = alloc(world * self.window_bytes)
-        self.generation = 0
         self.broken = None  # what ran out of time, once check() saw it
 
     def check(self) -> None:
@@ -307,15 +382,10 @@ def rdma_ring_one_card(xs: torch.Tensor, windows: OneCardWindows
         raise ValueError("rdma_ring_one_card runs over OneCardWindows")
     if windows.broken:
         raise RuntimeError(f"the windows are unusable: {windows.broken}")
-    if (windows.world != world or width > windows.cap
-            or windows.device != xs.device):
+    if windows.world != world or windows.device != xs.device:
         raise ValueError(f"a ({world}, {world}, {width}) buffer on "
                          f"{xs.device} does not fit windows of "
-                         f"{windows.world} ranks, {windows.cap} wide, on "
-                         f"{windows.device}")
+                         f"{windows.world} ranks on {windows.device}")
     out = torch.empty(world, width, dtype=torch.float32, device=xs.device)
-    windows.generation += 1
-    _launch(xs, out, world, width, windows.generation, windows.ctas,
-            windows.cap, windows.window_bytes, windows.timeout_cycles,
-            base=windows.base, one_card=True)
+    _launch(xs, out, windows, width, base=windows.base, one_card=True)
     return out

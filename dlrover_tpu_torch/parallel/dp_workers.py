@@ -559,27 +559,28 @@ def reduce_scatter_worker(group: DpGroup,
 
 
 def peer_window_worker(group: DpGroup, spec: Dict[str, Any]) -> Dict:
-    """Build a ``PeerWindow`` of ``spec["width"]`` over the group, copy a
-    row seeded with ``spec["seed"] + rank`` into the right neighbour's slot
-    0 through the opened handle, wait for every rank, and compare this
-    rank's slot with the left neighbour's row.  Copies only: no kernel
-    waits on another process."""
-    width = spec["width"]
+    """Build a ``PeerWindow`` over the group, copy a row of ``spec["width"]``
+    (at most the window's slots) seeded with ``spec["seed"] + rank`` into
+    the right neighbour's slots through the opened handle, wait for every
+    rank, and compare this rank's slots with the left neighbour's row.
+    Copies only: no kernel waits on another process."""
+    window = PeerWindow(group)
+    width = min(spec["width"], window.slot_elems)
 
     def row(rank):
         rng = np.random.default_rng(spec["seed"] + rank)
         return torch.from_numpy(
             rng.standard_normal(width).astype(np.float32)).to(group.device)
 
-    window = PeerWindow(group, width)
     try:
-        window.write_right_slot(row(group.rank), 0)
+        window.write_right_slots(row(group.rank))
         group.all_reduce(torch.zeros(1, device=group.device))
-        got = window.read_slot(0, width)
+        got = window.read_slots(width)
         want = row(window.left_rank)
         result = {"rank": group.rank, "equal": bool(torch.equal(got, want)),
                   "max_abs_err": (got - want).abs().max().item(),
-                  "window_bytes": window.window_bytes, "ctas": window.ctas}
+                  "window_bytes": window.window_bytes, "ctas": window.ctas,
+                  "width": width}
     finally:
         window.close()
     return result

@@ -31,8 +31,8 @@ Every rank holds the full fp32 masters; with a ``*_sharded`` mode its
 optimizer state covers only its shard of each shardable leaf, and
 ``TrainState.ef_residual`` holds its error-feedback residuals.  A bucket
 that resolves to the ``ring_rdma`` tier runs over a ``PeerWindow`` the
-trainer builds for the widest such bucket and checks once per step, before
-the update; ``Trainer.close()`` releases it.
+trainer builds once (its size does not depend on the buckets' widths) and
+checks once per step, before the update; ``Trainer.close()`` releases it.
 
 The mesh (``Trainer(model, opt, mesh=build_mesh(...))``,
 ``parallel/mesh.py``) places every parameter by the logical-axis rules
@@ -569,10 +569,9 @@ class Trainer:
                                          int(bucket_mb * 1024 * 1024))
             if len(buckets):
                 self._bucket_layout = buckets
-                rdma = [b.width for b in buckets.buckets
-                        if self._resolved(b) == "ring_rdma"]
-                if rdma:
-                    self._peer_window = PeerWindow(self.dp_group, max(rdma))
+                if any(self._resolved(b) == "ring_rdma"
+                       for b in buckets.buckets):
+                    self._peer_window = PeerWindow(self.dp_group)
         if self.grad_sync.sharded_update and self.grad_sync.clip_norm is None:
             logger.warning(
                 "grad_sync=%s runs the optimizer on per-rank gradient "

@@ -235,7 +235,7 @@ def test_peer_window_refuses_a_cpu_group():
     group = types.SimpleNamespace(rank=0, world=4,
                                   device=torch.device("cpu"))
     with pytest.raises(ValueError, match="device memory"):
-        PeerWindow(group, 4096)
+        PeerWindow(group)
 
 
 # -- on the card -------------------------------------------------------------
@@ -263,13 +263,17 @@ def test_ring_add_matches_plain_on_card(cuda_device, width):
 @pytest.mark.cuda
 @pytest.mark.parametrize("world", [2, 4, 8])
 def test_rdma_ring_one_card_matches_plain_on_card(cuda_device, world):
+    """Widths of one chunk, of several, and a ragged one (a multiple of 128
+    but not of the chunk), in turns on one set of windows: the counters
+    and slots carry over between calls of different widths."""
     g = torch.Generator(device=cuda_device).manual_seed(world)
-    with rdma_ring.OneCardWindows(cuda_device, world, 4096) as windows:
-        for width in (128, 4096):
-            xs = torch.randn(world, world, width, generator=g,
-                             device=cuda_device)
-            want = rdma_ring.rdma_ring_plain(xs)
-            for _ in range(3):  # generations and slots reused across calls
+    cases = []
+    for width in (128, 4096, 1_000_064):
+        xs = torch.randn(world, world, width, generator=g, device=cuda_device)
+        cases.append((xs, rdma_ring.rdma_ring_plain(xs)))
+    with rdma_ring.OneCardWindows(cuda_device, world) as windows:
+        for _ in range(3):  # generations and slots reused across calls
+            for xs, want in cases:
                 assert torch.equal(rdma_ring.rdma_ring_one_card(xs, windows),
                                    want)
         windows.check()
@@ -282,7 +286,7 @@ def test_rdma_ring_raises_when_peers_never_arrive(cuda_device):
     second call queued on the broken windows leaves at once, so both take
     one timeout; fresh windows give the right sum again."""
     xs = torch.randn(2, 2, 128, device=cuda_device)
-    with rdma_ring.OneCardWindows(cuda_device, 2, 128,
+    with rdma_ring.OneCardWindows(cuda_device, 2,
                                   timeout_s=1.0) as windows:
         rdma_ring.rdma_ring_one_card(xs, windows)
         windows.check()
@@ -295,7 +299,7 @@ def test_rdma_ring_raises_when_peers_never_arrive(cuda_device):
         assert time.perf_counter() - t0 < 1.75
         with pytest.raises(RuntimeError, match="unusable"):
             rdma_ring.rdma_ring_one_card(xs, windows)
-    with rdma_ring.OneCardWindows(cuda_device, 2, 128) as windows:
+    with rdma_ring.OneCardWindows(cuda_device, 2) as windows:
         assert torch.equal(rdma_ring.rdma_ring_one_card(xs, windows),
                            rdma_ring.rdma_ring_plain(xs))
         windows.check()
