@@ -97,6 +97,28 @@ then runs, in order, failing on the first phase that fails:
    DIST_CKPT_BENCH line: persist GB/s by host count, the bytes a
    differential save writes against a full one, and the bytes a
    half-state read reads (0.5 of the full read);
+   [telemetry], after that trainer is freed: the rank's runtime digest
+   (observability/).  Every phase but this one and the dp leg's probed
+   run runs with the digest's scopes off (DLROVER_TPU_MEM_SCOPE=0,
+   DLROVER_TPU_JITSCOPE=0, DLROVER_TPU_DIGEST_EVERY=0), [training]
+   included, so their numbers stay those of earlier runs.  Here the same
+   trainer is made again from the same seed with them on (a digest every
+   step into a temp dir; the flash library's loaded handle dropped first,
+   so that the first watched step resolves it as a worker's first step
+   does) and takes [training]'s 5 steps: losses within 1e-6 relative of
+   [training]'s, flash launches 44 / 22 / 22 a step; the memory account
+   in GB, the digest file's keys and values, the gp_* phases and js_*
+   counters are printed, and it checks that the account sums exactly to
+   the sampled used_b, that used_b is torch.cuda.memory_allocated read at
+   every sample, that params are 4 B and the optimizer 2 x 2 B a
+   parameter, that used <= peak <= limit with the limit mem_get_info's
+   total, that collect_node_tpu_metrics(device="cuda") reads the same
+   bytes in MB, and that js_hits + js_misses is the number of libraries
+   the kernel build resolved in those steps.  Then 8 steps with the hooks
+   on and off in turns (step ms and the host ms spent in the hooks, each),
+   and 20 steps at the reference's default cadence (a digest every 20
+   steps), whose hook time must stay under 1% of the step; its numbers
+   go to a {"telemetry": {...}} line;
    [mesh], after that trainer is freed: one worker process started as the
    agent starts it (process_group.launch: DLROVER_TPU_PROCESS_ID=0,
    _NUM_PROCESSES=1, a 127.0.0.1 coordinator) runs bootstrap.init (which
@@ -234,8 +256,8 @@ then runs, in order, failing on the first phase that fails:
    exchange is host-staged), Llama-2-1B at full width with its depth cut
    to 2 layers, B=1 per rank, S=2048, bf16 grads on fp32 masters, bucket
    4 MB, transport ring_pallas_q: int8_sharded (1 warm-up and 3 timed
-   steps), int4_sharded, blockwise_sharded and exact_sharded (3 steps
-   each), then exact_sharded over the ring_pallas tier (3 steps), all
+   steps), int4_sharded (4 steps), blockwise_sharded and exact_sharded (3
+   steps each), then exact_sharded over the ring_pallas tier (3 steps), all
    from the same seeded weights.  It fails on a non-finite loss, a step-0
    loss that differs between runs, a quantized mode's loss further from
    exact_sharded's than its stated tolerance (int8 1e-4 relative, int4
@@ -246,7 +268,17 @@ then runs, in order, failing on the first phase that fails:
    buckets, accumulate = buckets x 3; the exact ring: add = 3 per bucket
    whose width is a multiple of 1024; no other ring kernel, and never the
    rdma ring, which needs a card per rank) or whose flash launches differ
-   from 2 forwards, one dQ and one dK/dV per layer.  The int8_sharded run
+   from 2 forwards, one dQ and one dK/dV per layer.  The int4_sharded run
+   probes its comm scope: the digest hooks at cadence 1, the
+   comm probe every 2 steps with the bucket chains on, so its third step
+   runs the latency and bandwidth probes over the gloo dp group and each
+   bucket's reduce-scatter chain twice more (an untimed and a timed call:
+   the encode and accumulate launches of that step count them), and its
+   fourth step's digest carries them; each rank's fxl_dp (us) and fxb_dp
+   (GB/s), each bucket's transport, width, wire bytes, chain ms and GB/s
+   on every rank, all finite and > 0, and the four digest files merged by
+   the port's three rules (latency the ranks' max, bandwidth their min).
+   The int8_sharded run
    ends with the ranks' checkpoint of their states, residuals included,
    held as the [mesh] legs' (the steps after the restores launching the
    ring kernels as the uninterrupted step does), and again under the
@@ -309,7 +341,8 @@ on each flash [cp] leg, ``launches_peer_restore`` over the [peer restore]
 phase's two steps after its restores, and ``off_diagonal`` its time,
 bound, plain and SDPA times at the cp=2 ring's off-diagonal block; each
 ring kernel's ``launches_load_state`` is its count over the step after
-the dp leg's ``load_state`` at 2 ranks; the flash and ring kernels'
+the dp leg's ``load_state`` at 2 ranks, and ``launches_comm_probe`` the
+launches the dp leg's bucket chains added, over every rank; the flash and ring kernels'
 ``launches_replica`` over every rank's steps after the [replica] leg's
 restores.  Without a CUDA device it exits 1 and prints
 no result.
@@ -398,7 +431,7 @@ DP_WORLD, DP_LAYERS, DP_BUCKET_MB = 4, 2, 4.0
 # (run, mode, transport, steps): the schedule's lr is 0 at step 0, so a
 # loss from step 2 on is the first to see an update
 DP_RUNS = (("int8_sharded", "int8_sharded", "ring_pallas_q", 4),
-           ("int4_sharded", "int4_sharded", "ring_pallas_q", 3),
+           ("int4_sharded", "int4_sharded", "ring_pallas_q", 4),
            ("blockwise_sharded", "blockwise_sharded", "ring_pallas_q", 3),
            ("exact_sharded", "exact_sharded", "auto", 3),
            ("exact_sharded/ring_pallas", "exact_sharded", "ring_pallas", 3))
@@ -416,6 +449,24 @@ EXACT_RING_RTOL = 1e-5
 # same card, so only a nondeterministic reduction could move it
 DP_STEP0_RTOL = 1e-6
 DP_TIMEOUT_S = 480.0
+# the dp leg's run that probes its comm scope: every digest hook at
+# cadence 1, the probe every 2 steps (its third step probes after writing
+# its digest, so the fourth step's digest carries the probe), each
+# bucket's chain run twice a probe (BucketScope.measure(reps=1): one
+# untimed call, one timed)
+DP_PROBE_RUN, DP_PROBE_EVERY, DP_PROBE_CHAINS = "int4_sharded", 2, 2
+# the runtime digest's scopes, off in every phase but [telemetry] and the
+# dp leg's probed run, so that those measure what they did before
+SCOPES_OFF = {"DLROVER_TPU_MEM_SCOPE": "0", "DLROVER_TPU_JITSCOPE": "0",
+              "DLROVER_TPU_DIGEST_EVERY": "0"}
+SCOPES_ON = {"DLROVER_TPU_MEM_SCOPE": "1", "DLROVER_TPU_JITSCOPE": "1",
+             "DLROVER_TPU_DIGEST_EVERY": "1"}
+# [telemetry]: the hooks on and off in turns, a step each; then steps at
+# the reference's default digest cadence, whose hook time a step must stay
+# under 1% of the step (the reference's budget for its flight recorder)
+TELEMETRY_TURNS = ("on", "off", "off", "on", "on", "off", "off", "on")
+TELEMETRY_DEFAULT_EVERY, TELEMETRY_HOOK_SHARE = 20, 0.01
+TELEMETRY_LOSS_RTOL = 1e-6
 # [dist bench]: the payload of the reference's persist bench (8 leaves)
 DIST_BENCH_MB = 1024
 # [flash checkpoint]: steps without a save, and steps trained while the
@@ -840,7 +891,10 @@ def time_kernels(fa, gen, S=TRAIN_S, causal=True):
     return timings
 
 
-def train(fa):
+def train_subject():
+    """[training]'s model, trainer, state and batch, from seed 0: the
+    llama2_1b preset with flash attention, the bf16-moment optimizer, bf16
+    grads on fp32 masters; and the flash launches a step must make."""
     import numpy as np
     import torch
 
@@ -850,7 +904,6 @@ def train(fa):
 
     cfg = LlamaConfig.llama2_1b(max_seq_len=TRAIN_S, attention_impl="flash")
     model = LlamaForCausalLM(cfg, device="cuda", seed=0)
-    n_params = model.num_params()
     trainer = Trainer(
         model,
         create_optimizer(peak_lr=3e-4, warmup_steps=10, total_steps=10_000,
@@ -865,6 +918,13 @@ def train(fa):
     per_step = {"flash_fwd": 2 * cfg.num_layers,
                 "flash_bwd_dq": cfg.num_layers,
                 "flash_bwd_dkv": cfg.num_layers}
+    return cfg, trainer, state, batch, per_step, model.num_params()
+
+
+def train(fa):
+    import torch
+
+    cfg, trainer, state, batch, per_step, n_params = train_subject()
     print(f"  llama2_1b: {n_params / 1e9:.3f}B params, {cfg.num_layers} "
           f"layers, hidden {cfg.hidden_size}, heads {cfg.num_heads}x"
           f"{cfg.head_dim}, vocab {cfg.vocab_size}; B={TRAIN_B} S={TRAIN_S}")
@@ -975,6 +1035,179 @@ def profile_step(trainer, state, batch, fa, per_step, step_s):
     for name, ms in by_name.most_common(8):
         print(f"    top kernel {ms:8.2f} ms  {name[:100]}")
     return state
+
+
+def telemetry_phase(fa, plain) -> dict:
+    """[telemetry]: [training]'s trainer again from the same seed, with
+    the rank's runtime digest on (module docstring).  Returns its
+    numbers."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from dlrover_tpu_torch.common import metric
+    from dlrover_tpu_torch.observability import (
+        flight_recorder,
+        goodput,
+        jitscope,
+        memscope,
+    )
+    from dlrover_tpu_torch.ops.cuda import _build
+    from dlrover_tpu_torch.parallel.dp_workers import env
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="telemetry_")
+    path = os.path.join(root, "runtime_metrics.json")
+    on = dict(SCOPES_ON, DLROVER_TPU_RUNTIME_METRICS_PATH=path)
+    device = torch.device("cuda", torch.cuda.current_device())
+    reads, resolved = [], []
+
+    def reader():
+        # the scope's own source, and the allocator's count read with it
+        stats = memscope.device_mem_stats(device)
+        reads.append((stats[0]["used_b"],
+                      float(torch.cuda.memory_allocated(device))))
+        return stats
+
+    def listener(name, cached, seconds):
+        resolved.append((name, cached, seconds))
+
+    trainer = state = None
+    try:
+        with env(on):
+            jitscope.install()
+            jitscope.reset_scope()
+            memscope.reset_scope(stats_reader=reader)
+            goodput.reset_ledger()
+            flight_recorder.recorder().reset()
+            _build.add_listener(listener)
+            # a worker resolves its kernel library inside its first step;
+            # this process loaded the flash library phases ago, so its
+            # handle is dropped: the first watched step resolves it again
+            fa._lib = None
+            _build._libs.pop(fa.KERNEL_SOURCE, None)
+            cfg, trainer, state, batch, per_step, n_params = train_subject()
+            losses = []
+            for step in range(1 + TIMED_STEPS):
+                before = dict(fa.launches)
+                state, metrics = trainer.train_step(state, batch)
+                losses.append(metrics["loss"].item())
+                torch.cuda.synchronize()
+                grown = {k: fa.launches[k] - before[k] for k in per_step}
+                if grown != per_step:
+                    raise AssertionError(f"[telemetry] step {step} launched "
+                                         f"{grown}, expected {per_step}")
+            _build.remove_listener(listener)
+            with open(path + ".rank0") as f:
+                digest = json.load(f)
+            account = memscope.scope().account()
+            sample = memscope.scope().sample()
+            node = metric.collect_node_tpu_metrics(device="cuda")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, plain["loss"]))
+        print(f"  losses with the hooks on {[round(v, 6) for v in losses]}; "
+              f"[training]'s {[round(v, 6) for v in plain['loss']]}; max "
+              f"rel {rel:.2e}")
+        if rel > TELEMETRY_LOSS_RTOL:
+            raise AssertionError(f"[telemetry] losses {rel:.2e} relative "
+                                 "from [training]'s")
+        subs, used = account["subsystems"], account["used_b"]
+        gb = {k: round(v / 1e9, 3) for k, v in dict(
+            subs, used=used, peak=account["peak_b"],
+            limit=account["limit_b"],
+            headroom=account["headroom_b"]).items()}
+        print(f"  account GB: {gb}")
+        print(f"  digest file ({len(digest)} keys): "
+              f"{json.dumps(digest, sort_keys=True)}")
+        print(f"  gp_*: {({k: v for k, v in digest.items() if k.startswith('gp_')})}")
+        print(f"  js_*: {({k: v for k, v in digest.items() if k.startswith('js_')})}; "
+              f"libraries resolved in the watched steps: {resolved}")
+        checks = {
+            "the account sums to used_b": account["account_sum_b"] == used,
+            "the digest's subsystems sum to mm_used_b": digest["mm_used_b"]
+            == sum(digest["mms_" + k] for k in memscope.SUBSYSTEMS),
+            "used_b is memory_allocated at every sample": reads and all(
+                u == a for u, a in reads),
+            "params are 4 B a parameter": subs["params"] == 4.0 * n_params,
+            "the optimizer is 2 x 2 B a parameter":
+            subs["optimizer"] == 4.0 * n_params,
+            "used <= peak <= limit":
+            used <= account["peak_b"] <= account["limit_b"],
+            "limit_b is mem_get_info's total":
+            account["limit_b"] == float(torch.cuda.mem_get_info(device)[1]),
+            "js_hits + js_misses = the libraries resolved":
+            digest["js_hits"] + digest["js_misses"] == len(resolved) >= 1,
+            "the node metric reads the same bytes, in MB": len(node.chips)
+            == torch.cuda.device_count() and any(
+                c.chip_id == device.index
+                and c.hbm_used_mb == sample["chips"][0]["used_b"] / 2**20
+                and c.hbm_total_mb == sample["chips"][0]["limit_b"] / 2**20
+                and c.hbm_peak_mb == sample["chips"][0]["peak_b"] / 2**20
+                for c in node.chips),
+        }
+        print(f"  node metric: {node.to_list()}")
+        failed = [name for name, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError(f"[telemetry] failed: {failed}")
+        # the hooks on and off in turns, one step each
+        times = {"on": [], "off": []}
+        hooks = {"on": [], "off": []}
+        for turn in TELEMETRY_TURNS:
+            with env(on if turn == "on" else SCOPES_OFF):
+                hooked = trainer.telemetry_s
+                t0 = time.perf_counter()
+                state, metrics = trainer.train_step(state, batch)
+                metrics["loss"].item()
+                torch.cuda.synchronize()
+                times[turn].append(time.perf_counter() - t0)
+                hooks[turn].append(trainer.telemetry_s - hooked)
+        # the reference's default cadence: one digest every 20 steps
+        with env(dict(on, DLROVER_TPU_DIGEST_EVERY=str(
+                TELEMETRY_DEFAULT_EVERY))):
+            hooked = trainer.telemetry_s
+            t0 = time.perf_counter()
+            for _ in range(TELEMETRY_DEFAULT_EVERY):
+                state, metrics = trainer.train_step(state, batch)
+            metrics["loss"].item()
+            torch.cuda.synchronize()
+            default_step = (time.perf_counter() - t0) / TELEMETRY_DEFAULT_EVERY
+            default_hook = ((trainer.telemetry_s - hooked)
+                            / TELEMETRY_DEFAULT_EVERY)
+        med = {k: statistics.median(v) for k, v in times.items()}
+        share = default_hook / default_step
+        print(f"  in turns {TELEMETRY_TURNS}: step ms on "
+              f"{[round(t * 1e3, 2) for t in times['on']]} (median "
+              f"{med['on'] * 1e3:.2f}), off "
+              f"{[round(t * 1e3, 2) for t in times['off']]} (median "
+              f"{med['off'] * 1e3:.2f}); host ms in the hooks a step: on "
+              f"{[round(t * 1e3, 3) for t in hooks['on']]}, off "
+              f"{[round(t * 1e3, 3) for t in hooks['off']]}")
+        print(f"  at the default cadence (a digest every "
+              f"{TELEMETRY_DEFAULT_EVERY} steps): {default_step * 1e3:.2f} ms "
+              f"a step, {default_hook * 1e3:.4f} ms of it in the hooks "
+              f"({share:.5f} of the step; budget {TELEMETRY_HOOK_SHARE})")
+        if share >= TELEMETRY_HOOK_SHARE:
+            raise AssertionError(f"[telemetry] hooks take {share:.4f} of a "
+                                 "step at the default cadence")
+    finally:
+        _build.remove_listener(listener)
+        shutil.rmtree(root, ignore_errors=True)
+        memscope.reset_scope()
+        jitscope.reset_scope()
+        del trainer, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    print(f"  [telemetry] took {seconds:.1f} s", flush=True)
+    return dict(losses=losses, max_rel=rel, account=gb,
+                step_ms_on=[t * 1e3 for t in times["on"]],
+                step_ms_off=[t * 1e3 for t in times["off"]],
+                hook_ms_on=[t * 1e3 for t in hooks["on"]],
+                hook_ms_off=[t * 1e3 for t in hooks["off"]],
+                default_step_ms=default_step * 1e3,
+                default_hook_ms=default_hook * 1e3, hook_share=share,
+                js={k: v for k, v in digest.items() if k.startswith("js_")},
+                seconds=seconds)
 
 
 def mesh_spec() -> dict:
@@ -2917,10 +3150,12 @@ def peer_window_leg():
 
 
 def expected_ring_launches(mode: str, transport: str, widths,
-                           names) -> dict:
-    """The ring kernels' launches one dp step must make on each rank."""
+                           names, chains: int = 0) -> dict:
+    """The ring kernels' launches one dp step must make on each rank,
+    where the comm probe ran each bucket's chain ``chains`` times more in
+    that step (each chain the same reduce-scatter as the step's)."""
     want = {name: 0 for name in names}
-    n_buckets = len(widths)
+    n_buckets = len(widths) * (1 + chains)
     if mode.startswith(("int8", "int4", "blockwise")):
         enc, acc = (("q8_encode", "q8_accum") if mode.startswith("int8")
                     else ("q4_encode", "q4_accum"))
@@ -2928,8 +3163,18 @@ def expected_ring_launches(mode: str, transport: str, widths,
     elif transport == "ring_pallas":
         # the hop add runs where the width meets the tier's tiling rule;
         # the other buckets take the ring's plain add
-        want["add"] = sum(w % 1024 == 0 for w in widths) * (DP_WORLD - 1)
+        want["add"] = (sum(w % 1024 == 0 for w in widths) * (DP_WORLD - 1)
+                       * (1 + chains))
     return want
+
+
+def probe_chains(name: str, step: int) -> int:
+    """The times the comm probe ran each bucket's chain in step ``step``
+    (0-based) of the dp leg's run ``name``: the trainer counts its digest
+    steps from its second step, and probes every DP_PROBE_EVERY of them."""
+    if name != DP_PROBE_RUN or step == 0 or step % DP_PROBE_EVERY:
+        return 0
+    return DP_PROBE_CHAINS
 
 
 def dp_leg():
@@ -2960,10 +3205,16 @@ def dp_leg():
                                clip_norm=1.0, transport=transport))
               for name, mode, transport, steps in DP_RUNS],
     )
+    root = tempfile.mkdtemp(prefix="dp_ckpt_")
+    probed = [r for r in spec["runs"] if r["name"] == DP_PROBE_RUN][0]
+    probed["env"] = dict(
+        SCOPES_ON, DLROVER_TPU_COMM_PROBE_EVERY=str(DP_PROBE_EVERY),
+        DLROVER_TPU_COMM_BUCKET_PROBE="1",
+        DLROVER_TPU_RUNTIME_METRICS_PATH=os.path.join(
+            root, "telemetry", "runtime_metrics.json"))
     # the first run (int8_sharded over ring_pallas_q) ends with a flash
     # checkpoint of every rank's state, residuals included
     first = spec["runs"][0]
-    root = tempfile.mkdtemp(prefix="dp_ckpt_")
     # [replica]'s runs go with load_state's in its spawn of 2 ranks
     lose = replica_runs(root)
     first["save"] = dict(dir=root, scope=f"dp{os.getpid()}")
@@ -3003,7 +3254,6 @@ def dp_leg():
     exact_loss = records["exact_sharded"][0]["loss"]
     for name, mode, transport, steps in DP_RUNS:
         recs = records[name]
-        want = expected_ring_launches(mode, transport, widths, names)
         for rec in recs:
             if rec["summary"]["signature"] != summary["signature"]:
                 raise AssertionError(f"{name}: ranks derived different "
@@ -3012,6 +3262,8 @@ def dp_leg():
                 raise AssertionError(f"{name}: params not bit-identical "
                                      f"across ranks: {rec['params_agree']}")
             for step, counts in enumerate(rec["launches"]):
+                want = expected_ring_launches(mode, transport, widths, names,
+                                              probe_chains(name, step))
                 if counts != want:
                     raise AssertionError(f"{name} step {step} launched "
                                          f"{counts}, expected {want}")
@@ -3058,7 +3310,58 @@ def dp_leg():
     print("  params bit-identical across ranks after every step; step "
           "times are for the record only (4 processes time-slice the card, "
           "the exchange goes through the host)")
-    return launches, widths, resume, resumed
+    probe_launches = check_dp_probe(records[DP_PROBE_RUN], widths, names)
+    return launches, widths, resume, resumed, probe_launches
+
+
+def check_dp_probe(recs, widths, names) -> dict:
+    """The dp leg's probed run: each rank's fabric digest (the latency
+    and bandwidth probes over the dp group) and each bucket's chain row,
+    all finite and > 0; the four digest files folded by the port's merge
+    rules (latency max, bandwidth min).  Returns the ring kernels'
+    launches the chains added, over every rank."""
+    from dlrover_tpu_torch.observability import commscope, jitscope, memscope
+
+    mode, transport = [(m, t) for n, m, t, _ in DP_RUNS
+                       if n == DP_PROBE_RUN][0]
+    probes = sum(probe_chains(DP_PROBE_RUN, s) > 0
+                 for s in range(len(recs[0]["launches"])))
+    merged = {}
+    for rank, rec in enumerate(recs):
+        digest, rows = rec["digest"], rec["comm_buckets"]
+        lat, bw = digest["fxl_dp"], digest["fxb_dp"]
+        print(f"  {DP_PROBE_RUN} rank {rank}: fxl_dp {lat} us, fxb_dp {bw} "
+              f"GB/s (probes over the gloo dp group, host-staged)")
+        if len(rows) != len(widths) * probes:
+            raise AssertionError(f"rank {rank}: {len(rows)} bucket chain "
+                                 f"rows, expected {len(widths) * probes}")
+        values = [lat, bw] + [r["chain_ms"] for r in rows] + [
+            r["gbps"] for r in rows]
+        if not all(math.isfinite(v) and v > 0 for v in values):
+            raise AssertionError(f"rank {rank}: a probe or chain value is "
+                                 f"not finite and > 0: {values}")
+        if {r["transport"] for r in rows} != {transport}:
+            raise AssertionError(f"rank {rank}: chains ran over "
+                                 f"{sorted({r['transport'] for r in rows})}")
+        for merge in (memscope.merge_digest, jitscope.merge_digest,
+                      commscope.merge_digest):
+            merge(merged, digest)
+    for i, row in enumerate(recs[0]["comm_buckets"]):
+        print(f"    bucket {i:2d}: {row['transport']} width {row['width']} "
+              f"wire_bytes {row['wire_bytes']} chain_ms "
+              f"{[r['comm_buckets'][i]['chain_ms'] for r in recs]} gbps "
+              f"{[r['comm_buckets'][i]['gbps'] for r in recs]}")
+    lats = [r["digest"]["fxl_dp"] for r in recs]
+    bws = [r["digest"]["fxb_dp"] for r in recs]
+    if merged["fxl_dp"] != max(lats) or merged["fxb_dp"] != min(bws):
+        raise AssertionError(f"merged fxl_dp {merged['fxl_dp']} / fxb_dp "
+                             f"{merged['fxb_dp']}, ranks {lats} / {bws}")
+    print(f"  the {len(recs)} digest files merged: "
+          f"{json.dumps(merged, sort_keys=True)}")
+    base = expected_ring_launches(mode, transport, widths, names)
+    with_chains = expected_ring_launches(mode, transport, widths, names,
+                                         DP_PROBE_CHAINS)
+    return {k: len(recs) * probes * (with_chains[k] - base[k]) for k in names}
 
 
 def replica_runs(root: str) -> list:
@@ -3281,6 +3584,7 @@ def run_phases() -> list:
 
     print(f"[device] {card_line()}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
+    os.environ.update(SCOPES_OFF)
     t0 = time.perf_counter()
     _build.build()
     print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
@@ -3341,6 +3645,11 @@ def run_phases() -> list:
     print("[dist bench]", flush=True)
     dist_bench_phase()
     del trainer, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("[telemetry]", flush=True)
+    telemetry = telemetry_phase(fa, plain)
+    print(json.dumps({"telemetry": telemetry}), flush=True)
     # the mesh's processes need the card's memory: release what the
     # single-device phases left in this process's caching allocator
     gc.collect()
@@ -3394,7 +3703,9 @@ def run_phases() -> list:
     peer_window_leg()
     print(f"[dp leg: {DP_WORLD} ranks on one card] (this process holds "
           f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB)", flush=True)
-    ring_launches, widths, resume_launches, resumed = dp_leg()
+    t0 = time.perf_counter()
+    ring_launches, widths, resume_launches, resumed, probe_launches = dp_leg()
+    print(f"  [dp leg] took {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"[replica: {REPLICA_WORLD} ranks on one card, in the spawn of the "
           "dp leg's load_state]", flush=True)
     replica_launches = check_replica(resumed)
@@ -3427,6 +3738,7 @@ def run_phases() -> list:
     ] + [
         dict(name=name, route="cuda", source=RING_SOURCE,
              replaces=RING_REPLACES[name], launches=ring_launches[name],
+             launches_comm_probe=probe_launches[name],
              launches_load_state=resume_launches[name],
              launches_replica=replica_launches[name],
              max_abs_err=ring_errors[name], atol=0.0,

@@ -3,7 +3,9 @@
 A copy of the knobs of ``dlrover_tpu/common/envs.py`` that the port's
 paths read (the grad sync, the flash checkpoint and its distributed
 persist, the node env they are scoped by, the worker bootstrap and the
-mesh): the same
+mesh, and the rank's runtime digest: tracing, metrics, the flight
+recorder, the goodput ledger and the memory, comm and compile scopes):
+the same
 names, defaults and parsing.  Values are read from ``os.environ`` at
 call time; a malformed value logs a warning and falls back to the
 default.  The directories that default under ``/tmp`` in the reference
@@ -108,6 +110,54 @@ DEFAULTS = {
     "DLROVER_TPU_LOG_LEVEL": "INFO",
     # training-event JSONL path; '' = a per-pid file under the temp dir
     "DLROVER_TPU_EVENT_FILE": "",
+    # Prometheus text endpoint of the card's runtime metrics
+    # (common/metric.py); '' = memory-only sampling
+    "DLROVER_TPU_DEVICE_METRICS_URL": "",
+    # -- the rank's runtime digest (trainer/train.py, observability/) --
+    # the per-rank digest file the agent folds into its heartbeat, and
+    # how often the trainer writes it (0: never)
+    "DLROVER_TPU_RUNTIME_METRICS_PATH": os.path.join(
+        _TMP, "runtime_metrics.json"),
+    "DLROVER_TPU_DIGEST_EVERY": 20,
+    # tracing: the switch, a nonzero id seed, a JSONL file for the span
+    # records ('' = the training-event file), head sampling of new roots,
+    # events kept per span
+    "DLROVER_TPU_TRACE": True,
+    "DLROVER_TPU_TRACE_SEED": 0,
+    "DLROVER_TPU_TRACE_FILE": "",
+    "DLROVER_TPU_TRACE_SAMPLE": 1.0,
+    "DLROVER_TPU_TRACE_MAX_EVENTS": 256,
+    # metrics: live label combinations per process (the rest dropped)
+    "DLROVER_TPU_METRICS_MAX_SERIES": 4096,
+    # flight recorder: the switch and its rings' capacities
+    "DLROVER_TPU_RECORDER": True,
+    "DLROVER_TPU_RECORDER_SPANS": 1024,
+    "DLROVER_TPU_RECORDER_EVENTS": 1024,
+    "DLROVER_TPU_RECORDER_STEPS": 512,
+    "DLROVER_TPU_RECORDER_LOG_LINES": 200,
+    # goodput ledger: the switch, the slot in seconds, live slots kept
+    "DLROVER_TPU_GOODPUT_LEDGER": True,
+    "DLROVER_TPU_GOODPUT_RES_S": 1.0,
+    "DLROVER_TPU_GOODPUT_WINDOW": 7200,
+    # comm scope: probe every N steps (0: never), the latency probe's and
+    # the bandwidth probe's bytes, timed repetitions, the bucket chains on
+    # the same cadence, the fabric model's EWMA factor
+    "DLROVER_TPU_COMM_PROBE_EVERY": 200,
+    "DLROVER_TPU_COMM_PROBE_LAT_BYTES": 64,
+    "DLROVER_TPU_COMM_PROBE_BW_BYTES": 1048576,
+    "DLROVER_TPU_COMM_PROBE_REPS": 4,
+    "DLROVER_TPU_COMM_EWMA_ALPHA": 0.5,
+    "DLROVER_TPU_COMM_BUCKET_PROBE": True,
+    # memory scope: the switch, a bytes limit for the CPU (0 = unknown),
+    # and the margin fit_report keeps below the measured limit
+    "DLROVER_TPU_MEM_SCOPE": True,
+    "DLROVER_TPU_MEM_CPU_LIMIT_B": 0.0,
+    "DLROVER_TPU_MEM_FIT_MARGIN": 0.08,
+    # compile scope: the switch, events kept, the dispatch-stall bound
+    # (0 = no stall detection)
+    "DLROVER_TPU_JITSCOPE": True,
+    "DLROVER_TPU_JITSCOPE_EVENTS": 256,
+    "DLROVER_TPU_JITSCOPE_STALL_MS": 500.0,
 }
 
 _TRUE_WORDS = ("1", "true", "yes", "on")

@@ -9,6 +9,12 @@ the machine with the card: a build there takes seconds, and a missing
 compiler or a failed build raises.  ``nvcc``'s report (``-Xptxas -v``:
 registers, shared memory and spills per kernel) is kept beside the library
 as ``<library>.log``.
+
+Each library ``build`` resolves is reported to the registered listeners
+(``add_listener``): ``(name, cached, seconds)``, ``cached`` when its
+source-hash file already existed, else the seconds its nvcc ran.  The
+compile observatory (``observability/jitscope.py``) counts those as
+persistent-cache hits and misses.
 """
 
 import ctypes
@@ -17,8 +23,9 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable, List
 
 CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -30,6 +37,26 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_listeners: List[Callable[[str, bool, float], None]] = []
+
+
+def add_listener(fn: Callable[[str, bool, float], None]) -> None:
+    """Call ``fn(name, cached, seconds)`` for every library a later
+    ``build`` resolves, in the thread that called it."""
+    _listeners.append(fn)
+
+
+def remove_listener(fn: Callable[[str, bool, float], None]) -> None:
+    if fn in _listeners:
+        _listeners.remove(fn)
+
+
+def _resolved(name: str, cached: bool, seconds: float) -> None:
+    for fn in list(_listeners):
+        try:
+            fn(name, cached, seconds)
+        except Exception:  # noqa: BLE001 - a listener never fails a build
+            pass
 
 
 def nvcc() -> str:
@@ -63,6 +90,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
     running = []
     for name, path in paths.items():
         if path.exists():
+            _resolved(name, True, 0.0)
             continue
         compiler = compiler or nvcc()
         tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
@@ -72,13 +100,14 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
              str(CSRC_DIR / f"{name}.cu")],
             stdout=log, stderr=subprocess.STDOUT,
         )
-        running.append((name, path, tmp, log, proc))
+        running.append((name, path, tmp, log, proc, time.perf_counter()))
     failed = []
-    for name, path, tmp, log, proc in running:
+    for name, path, tmp, log, proc, t0 in running:
         rc = proc.wait()
         log.close()
         if rc == 0:
             os.replace(tmp, path)
+            _resolved(name, False, time.perf_counter() - t0)
         else:
             failed.append(name)
             tmp.unlink(missing_ok=True)

@@ -633,3 +633,34 @@ def estimate_sync_bytes(params, world: int, policy: GradSyncPolicy) -> Dict:
     if quant > 0:
         result["reduction_x"] = round(exact / quant, 2)
     return result
+
+
+def estimate_bucket_bytes(buckets, policy: GradSyncPolicy,
+                          world: int) -> List[Dict]:
+    """Per-BUCKET bytes-on-wire accounting of the bucketed sync: padding
+    is charged per bucket (a bucket pads its packed row once to the block
+    grid) and quantization metadata (scales, refinement indices) is
+    itemized per bucket.  The comm scope's bucket chains report their
+    wire bytes from it (``observability/commscope.py``)."""
+    off = (world - 1) / world if world > 1 else 0.0
+    out = []
+    for b in buckets.buckets:
+        width = b.width
+        if policy.quantized:
+            block = policy.block_size
+            nblk = -(-width // block)
+            cb = codec_chunk_bytes(nblk, block, policy)
+            rs_payload = off * world * cb["payload"]
+            rs_meta = off * world * cb["metadata"]
+        else:
+            rs_payload = off * world * 4 * width
+            rs_meta = 0.0
+        out.append({
+            "bucket": b.index,
+            "leaves": len(b.slices),
+            "width": width,
+            "rs_payload_bytes": int(rs_payload),
+            "rs_metadata_bytes": int(rs_meta),
+            "allgather_bytes": int(off * world * 4 * width),
+        })
+    return out

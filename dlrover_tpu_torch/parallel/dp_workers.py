@@ -14,6 +14,7 @@ right neighbour through it.
 
 import contextlib
 import dataclasses
+import json
 import math
 import os
 import time
@@ -24,7 +25,10 @@ import numpy as np
 import torch
 from torch.distributed.tensor import Shard
 
+from dlrover_tpu_torch.common import envs
+from dlrover_tpu_torch.common.constants import ConfigPath
 from dlrover_tpu_torch.common.pytree import flatten_with_path
+from dlrover_tpu_torch.observability import flight_recorder
 from dlrover_tpu_torch.ops.cuda import flash_attention as fa
 from dlrover_tpu_torch.ops.cuda import rdma_ring
 from dlrover_tpu_torch.ops.cuda import ring_reduce_scatter as ring
@@ -139,7 +143,9 @@ def train_worker(group: DpGroup, spec: Dict[str, Any]) -> Dict[str, Any]:
     ``save`` ends it with ``save_and_restore``, and ``dist_save`` with
     another ``save_and_restore`` under the distributed persist; and
     ``"lose"`` (``{"dir", "scope", "mode"}``), which ends it with
-    ``lose_and_restore``.
+    ``lose_and_restore``; and ``"env"``, knobs set while the run's trainer
+    is made and steps (the telemetry's: ``DLROVER_TPU_DIGEST_EVERY``,
+    ``DLROVER_TPU_COMM_PROBE_EVERY``, ...).
 
     Returns, per run: losses, grad norms, step seconds (on the host clock,
     after a device synchronize), the ring and flash kernels' launches per
@@ -152,19 +158,26 @@ def train_worker(group: DpGroup, spec: Dict[str, Any]) -> Dict[str, Any]:
     ``read_stats`` (the bytes a restore from a sealed distributed commit
     read) and ``ef_digest`` (of the restored residuals); a saved one,
     ``ckpt`` and ``dist_ckpt``
-    (``save_and_restore``), and ``lost`` (``lose_and_restore``)."""
+    (``save_and_restore``), and ``lost`` (``lose_and_restore``).  A run
+    with ``"env"`` whose trainer wrote this rank's runtime digest adds
+    ``digest`` (the file) and ``comm_buckets`` (the attributes of the comm
+    scope's bucket-chain spans, from the flight recorder)."""
     out: Dict[str, Any] = {"rank": group.rank, "world": group.world,
                            "backend": group.backend, "runs": {}}
     for run in spec["runs"]:
         run_spec = dict(spec, **run.get("spec", {}))
-        trainer, batch = build_trainer(group, run_spec, run)
-        record = new_record()
-        if "resume" in run:
-            state = resume(trainer, group, run["resume"], record)
-        else:
-            state = trainer.create_state()
-        state = train_steps(trainer, state, batch, run["steps"], group,
-                            record)
+        with env(run.get("env", {})):
+            trainer, batch = build_trainer(group, run_spec, run)
+            record = new_record()
+            if "resume" in run:
+                state = resume(trainer, group, run["resume"], record)
+            else:
+                state = trainer.create_state()
+            flight_recorder.recorder().reset()
+            state = train_steps(trainer, state, batch, run["steps"], group,
+                                record)
+            if "env" in run:
+                telemetry_record(record)
         on_mesh = trainer.mesh is not None
         if on_mesh:
             record["shape"] = mesh_shape(trainer.mesh)
@@ -331,19 +344,38 @@ def resume(trainer, group: DpGroup, where: Dict[str, str],
     return state
 
 
+def telemetry_record(record: Dict[str, Any]) -> None:
+    """Add this rank's runtime digest file (when the trainer wrote one)
+    and the comm scope's bucket-chain spans to ``record``."""
+    path = (envs.get_str(ConfigPath.ENV_RUNTIME_METRICS)
+            + f".rank{torch.distributed.get_rank()}")
+    if os.path.exists(path):
+        with open(path) as f:
+            record["digest"] = json.load(f)
+        record["comm_buckets"] = [
+            dict(span["attrs"]) for span in flight_recorder.recorder().spans
+            if span["name"].startswith("comm.bucket")]
+
+
 @contextlib.contextmanager
-def knob(name: str, on: bool):
-    """The boolean knob ``name`` set to ``on`` while the block runs (the
-    engine reads its knobs when it is made)."""
-    old = os.environ.get(name)
-    os.environ[name] = "1" if on else "0"
+def env(values: Dict[str, str]):
+    """The env vars ``values`` set while the block runs."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
     try:
         yield
     finally:
-        if old is None:
-            os.environ.pop(name)
-        else:
-            os.environ[name] = old
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+
+
+def knob(name: str, on: bool):
+    """The boolean knob ``name`` set to ``on`` while the block runs (the
+    engine reads its knobs when it is made)."""
+    return env({name: "1" if on else "0"})
 
 
 def dist_persist(on: bool):

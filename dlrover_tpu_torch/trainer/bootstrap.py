@@ -9,9 +9,11 @@ rendezvous (``common/constants.NodeEnv``), and the training script calls
     mesh = build_mesh(MeshConfig(dp=-1, fsdp=2))
     trainer = Trainer(model, optimizer, mesh=mesh)
 
-Not ported yet (ROADMAP queue 1 item 7), so ``init`` does not set them up:
-the persistent compile cache, the compile observatory (jitscope) and the
-in-process worker monitor of the reference.
+``init`` also installs the compile observatory's hook on the kernel build
+(``observability/jitscope.py``) before the first kernel is built.  Not
+ported (ROADMAP item 7, the rest), so ``init`` does not set them up: the
+persistent compile cache (the port compiles no step) and the in-process
+worker monitor of the reference.
 """
 
 import dataclasses
@@ -95,4 +97,13 @@ def init(platform: Optional[str] = None) -> WorkerContext:
                     "coordinator=%s backend=%s", ctx.process_id,
                     ctx.num_processes, ctx.coordinator_addr,
                     dist.get_backend())
+    try:
+        # the compile observatory's hook must be live before the first
+        # kernel build, or the first (usually the biggest) build of the
+        # job goes unattributed
+        from dlrover_tpu_torch.observability import jitscope
+
+        jitscope.install()
+    except Exception as e:  # noqa: BLE001 - observability must not
+        logger.warning("jitscope install failed: %s", e)  # break boot
     return ctx

@@ -58,10 +58,12 @@ of a restore fails, every rank runs the replica restore and then the peer
 restore's ladder (a survivor fetches nothing), and agrees again after each,
 so every rank makes the same collectives.
 
-Telemetry (memscope, metrics, trace, timer) is ROADMAP queue 1 item 7: the
-engine marks its phases with ``torch.profiler.record_function`` spans
-under the reference's names (``flash.save``, ``flash.load``,
-``ckpt_device_to_host``, ``ckpt_shm_write``, ``ckpt_stream_stage``).
+Telemetry: the engine registers its snapshot segment with the memory
+scope as the host byte source ``ckpt_shm:<name>`` (its mapped size) and
+marks its phases with ``torch.profiler.record_function`` spans under the
+reference's names (``flash.save``, ``flash.load``,
+``ckpt_device_to_host``, ``ckpt_shm_write``, ``ckpt_stream_stage``).  Its
+trace spans, metrics and timer are ROADMAP item 7, the rest.
 """
 
 import collections
@@ -70,6 +72,7 @@ import math
 import os
 import threading
 import time
+import weakref
 import zlib
 from contextlib import contextmanager
 from typing import Any, Deque, Dict, List, Optional, Sequence, Tuple
@@ -406,6 +409,20 @@ class CheckpointEngine:
         self._storage = get_checkpoint_storage(path=checkpoint_dir)
         self._scope = scope or default_scope()
         self._shm = SharedMemoryBuffer(shm_name(self.process_id, self._scope))
+        # memory scope: the snapshot segment is this process's dominant
+        # /dev/shm footprint; the provider reads the MAPPED size only (0
+        # until the engine maps it), so a sample never maps a segment
+        # (by a weak reference: the scope must not keep a dropped engine's
+        # mapping alive)
+        try:
+            from dlrover_tpu_torch.observability import memscope
+
+            shm = weakref.ref(self._shm)
+            memscope.scope().register_host_provider(
+                f"ckpt_shm:{self._shm.name}",
+                lambda: float(shm().size) if shm() is not None else 0.0)
+        except Exception:  # noqa: BLE001 - telemetry must not break
+            pass  # engine construction
         self._replica = None
         if replica and self.num_processes > 1:
             from dlrover_tpu_torch.trainer.flash_checkpoint.replica import (
@@ -1700,6 +1717,7 @@ class CheckpointEngine:
         if stopped and saver_idle:
             # a persist still in flight releases this lock when it ends
             self._lock.close()
+        self._forget_shm_provider()
         if stopped:
             self._shm.close()
         else:
@@ -1715,6 +1733,16 @@ class CheckpointEngine:
         them would make a future unrelated run 'resume')."""
         if self._replica is not None:
             self._replica.unlink_backup()
+        self._forget_shm_provider()
         if not self._shm.attach():
             return
         self._shm.unlink()
+
+    def _forget_shm_provider(self):
+        try:
+            from dlrover_tpu_torch.observability import memscope
+
+            memscope.scope().deregister_host_provider(
+                f"ckpt_shm:{self._shm.name}")
+        except Exception:  # noqa: BLE001 - telemetry only
+            pass

@@ -24,6 +24,21 @@ gets the copy refreshed before its first step.
 with the wall time between successive steps: the flash checkpoint's stage
 pacer reads it to bound how much a background snapshot slows the steps.
 
+Telemetry (``observability/``), placed where the reference places it, each
+hook guarded so that it never breaks a step: the step runs under
+``jitscope.watch`` (the kernel builds it pays become compile events); the
+first step stands where the reference's first dispatch does, so the
+memory scope registers the state's plan and the first step's live-buffer
+delta after it, and the goodput ledger charges its kernel builds as
+``compile``; every later step feeds its time to the flight recorder and
+the goodput ledger, runs the comm probe every
+``DLROVER_TPU_COMM_PROBE_EVERY`` steps (a dp group or a mesh with an
+active axis) and, every ``DLROVER_TPU_DIGEST_EVERY`` steps, writes this
+rank's digest file ``RUNTIME_METRICS.rank<id>`` atomically: the step
+digest and the ``gp_*``, ``fxl_*`` / ``fxb_*``, ``mm_*`` / ``mms_*`` and
+``js_*`` keys.  ``telemetry_s`` sums the host seconds spent in these
+hooks.
+
 Data parallelism: ``Trainer(dp_group=...)`` (``parallel/process_group.py``)
 runs one rank per process, each on its own slice of the global batch, and
 ``grad_sync`` picks the sync (``parallel/collectives.GradSyncPolicy``).
@@ -93,11 +108,13 @@ as the reference's ``Trainer`` does not: ``pp`` > 1 raises, naming
 """
 
 import dataclasses
+import json
 import logging
 import math
+import os
 import time
 import weakref
-from typing import Any, Callable, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -105,6 +122,8 @@ import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.profiler import record_function
 
+from dlrover_tpu_torch.common import envs
+from dlrover_tpu_torch.common.constants import ConfigPath, NodeEnv
 from dlrover_tpu_torch.common.pytree import flatten_with_path
 from dlrover_tpu_torch.device import DeviceLike, resolve_device
 from dlrover_tpu_torch.ops.cuda import ring_reduce_scatter as ring
@@ -256,6 +275,7 @@ class Trainer:
         self._copy_source: Optional[weakref.ref] = None
         self._step_clock = get_step_clock()
         self._last_step_ts: Optional[float] = None
+        self._init_telemetry()
 
     # -- the mesh ----------------------------------------------------------
 
@@ -680,7 +700,20 @@ class Trainer:
         """One step on this rank's ``batch``.  Its phases are
         ``torch.profiler`` spans, ``trainer.forward_backward``,
         ``trainer.grad_sync`` (with a dp group) and ``trainer.update``:
-        context managers that record only while a profiler runs."""
+        context managers that record only while a profiler runs.  The
+        telemetry hooks run around it (module docstring)."""
+        if not self._steps_begun:
+            return self._first_step(state, batch)
+        result = self._step_fn(state, batch)
+        dur = self._tick()
+        t0 = time.perf_counter()
+        self._digest_steps += 1
+        self._note_step_time(self._digest_steps, dur)
+        self._maybe_probe_comm(self._digest_steps)
+        self.telemetry_s += time.perf_counter() - t0
+        return result
+
+    def _step(self, state: TrainState, batch) -> Tuple[TrainState, Dict]:
         batch = self._to_device(batch)
         if self._copy_source is None or self._copy_source() is not state:
             self.refresh_compute_copy(state)
@@ -688,7 +721,6 @@ class Trainer:
             with optim.sharded_leaves(self._shard_groups):
                 metrics = self._sync_step(state, batch)
             state.step += 1
-            self._tick()
             return state, metrics
         with record_function("trainer.forward_backward"):
             if self._fsdp:
@@ -714,16 +746,217 @@ class Trainer:
             optim.apply_updates(state.params, updates)
             self.refresh_compute_copy(state)
         state.step += 1
-        self._tick()
         return state, {"loss": loss, "grad_norm": grad_norm}
 
-    def _tick(self) -> None:
+    def _tick(self) -> Optional[float]:
         """Feed the staging pacer: the wall time between successive steps
-        tracks the step cadence in any loop that reads a result."""
+        tracks the step cadence in any loop that reads a result.  Returns
+        that time (None at the first step)."""
         now = time.monotonic()
+        dur = None
         if self._last_step_ts is not None:
-            self._step_clock.record(now - self._last_step_ts)
+            dur = now - self._last_step_ts
+            self._step_clock.record(dur)
         self._last_step_ts = now
+        return dur
+
+    # -- telemetry (observability/) ------------------------------------------
+
+    def _init_telemetry(self) -> None:
+        """The comm probe over the mesh's active axes or the dp group
+        (when ``DLROVER_TPU_COMM_PROBE_EVERY`` > 0) and the watched step
+        (``jitscope.watch``, when the compile scope is on)."""
+        self._comm_probe = None
+        self._comm_bucket_scope = None
+        self._digest_steps = 0
+        self._steps_begun = False
+        self.telemetry_s = 0.0
+        self._step_fn = self._step
+        try:
+            from dlrover_tpu_torch.observability import commscope
+
+            if commscope.probe_every() > 0:
+                self._comm_probe = (
+                    commscope.MeshProbe.for_mesh(self.mesh)
+                    if self.mesh is not None
+                    else commscope.MeshProbe.for_group("dp", self.dp_group))
+        except Exception as e:  # noqa: BLE001 - telemetry must not break
+            logger.debug("comm probe unavailable: %s", e)  # construction
+        try:
+            from dlrover_tpu_torch.observability import jitscope
+
+            if jitscope.enabled():
+                # the kernel builds a step pays become classified compile
+                # events; the hot path costs two counter reads
+                self._step_fn = jitscope.watch(
+                    self._step, "trainer.train_step",
+                    static={"donate": True, "accum": self.grad_accum_steps})
+        except Exception as e:  # noqa: BLE001 - telemetry must not break
+            logger.debug("jitscope watch unavailable: %s", e)  # the step
+
+    def _first_step(self, state: TrainState, batch):
+        """The first step, where the reference has its first dispatch:
+        the memory scope's device probe before it, then the goodput
+        ledger's compile window (when it built kernels) and the memory
+        scope's registration after it."""
+        t0 = time.perf_counter()
+        mem_before = 0.0
+        try:
+            from dlrover_tpu_torch.observability import memscope
+
+            if memscope.enabled():
+                memscope.scope().bind_device(self.device)
+                mem_before = memscope.scope().device_used_bytes()
+        except Exception:  # noqa: BLE001 - telemetry must not break
+            pass  # a training step
+        self.telemetry_s += time.perf_counter() - t0
+        start = time.time()
+        result = self._step_fn(state, batch)
+        end = time.time()
+        self._tick()
+        t0 = time.perf_counter()
+        try:
+            from dlrover_tpu_torch.observability import goodput
+
+            event = getattr(self._step_fn, "last_event", None)
+            if event and event["compile_s"] > 0:
+                # measured build seconds split the window: the compile
+                # head, the step's execution the remainder
+                goodput.charge_compile_window(start, end,
+                                              event["compile_s"])
+        except Exception:  # noqa: BLE001 - the ledger must not break
+            pass  # a training step
+        self._register_memscope(state, mem_before)
+        self._steps_begun = True
+        self.telemetry_s += time.perf_counter() - t0
+        return result
+
+    def mesh_axes(self) -> Optional[Dict[str, int]]:
+        """Axis name -> size of this trainer's layout: the mesh's, or the
+        dp group's as one axis ``dp``; None on one device."""
+        if self.mesh is not None:
+            return mesh_shape(self.mesh)
+        if self.dp_group is not None:
+            return {"dp": self.dp_group.world}
+        return None
+
+    def state_axes(self, state: TrainState) -> Dict[str, List[str]]:
+        """The axes that split each leaf of ``state``, by its path: on a
+        mesh the axes of its ``Shard`` placements (``state_placements``);
+        under a sharded dp update ``dp`` for the moments of each leaf the
+        layout shards (each rank keeps a chunk), and under a quantized
+        sync ``dp`` for the residuals (``(dp, *leaf)``, ``state_layout``).
+        A leaf it does not name is whole on every rank.  No
+        communication: the memory scope prices the state from it, where
+        the reference reads each leaf's ``PartitionSpec``."""
+        axes: Dict[str, List[str]] = {}
+        if self.mesh is not None:
+            for path, place in self.state_placements(state).items():
+                split = [a for a, p in zip(MESH_AXIS_NAMES, place)
+                         if isinstance(p, Shard)]
+                if split:
+                    axes[path] = split
+        if self._sync_active:
+            if self.grad_sync.sharded_update:
+                names = optim.moment_placements(
+                    state.opt_state, {n: n for n in self._named})
+                for path, name in names.items():
+                    if self._grad_layout.dims.get(name) is not None:
+                        axes.setdefault(f"opt_state/{path}", []).append("dp")
+            for name in state.ef_residual or {}:
+                axes[f"ef_residual/{name}"] = ["dp"]
+        return axes
+
+    def _register_memscope(self, state: TrainState, mem_before_b: float):
+        """Adopt the live train state as the memory scope's attribution
+        plan, price the bucketed grad-sync buffers, and book the first
+        step's live-buffer delta.  Never raises into the training
+        loop."""
+        try:
+            from dlrover_tpu_torch.observability import memscope
+
+            if not memscope.enabled():
+                return
+            sc = memscope.scope()
+            sc.register_state(state, self.mesh_axes(),
+                              self.state_axes(state))
+            if self._bucket_layout is not None:
+                sc.register_buckets(self._bucket_layout, self._sync_world)
+            if mem_before_b > 0:
+                sc.note_compile_delta(mem_before_b, sc.device_used_bytes())
+        except Exception as e:  # noqa: BLE001 - telemetry must not break
+            logger.debug("memscope registration failed: %s", e)  # a step
+
+    def _maybe_probe_comm(self, step: int):
+        """On the probe cadence, run the comm probe (and, when the sync
+        is bucketed, each bucket's chain) into the process comm scope.
+        Every rank fires them at the same step; a broken probe never
+        breaks the step."""
+        if self._comm_probe is None:
+            return
+        try:
+            from dlrover_tpu_torch.observability import commscope
+
+            every = commscope.probe_every()
+            if every <= 0 or step % every != 0:
+                return
+            self._comm_probe.probe_once(commscope.scope().fabric)
+            # the reference re-prices its transport grid here
+            # (_maybe_retune): ROADMAP item 6d
+            if (self._bucket_layout is not None
+                    and envs.get_bool("DLROVER_TPU_COMM_BUCKET_PROBE")):
+                if self._comm_bucket_scope is None:
+                    self._comm_bucket_scope = (
+                        commscope.BucketScope.for_trainer(self))
+                if self._comm_bucket_scope is not None:
+                    self._comm_bucket_scope.measure(reps=1)
+        except Exception as e:  # noqa: BLE001 - telemetry must not break
+            logger.debug("comm probe failed: %s", e)  # a training step
+
+    def _note_step_time(self, step: int, dur_s: float):
+        """Feed the flight recorder's step ring and the goodput ledger
+        and, every ``DLROVER_TPU_DIGEST_EVERY`` steps, write this rank's
+        digest file (``ConfigPath.RUNTIME_METRICS``.rank<id>), the file an
+        agent folds into its heartbeat.  Never raises into the training
+        loop."""
+        try:
+            from dlrover_tpu_torch.observability import (
+                commscope,
+                flight_recorder,
+                goodput,
+                jitscope,
+                memscope,
+            )
+
+            flight_recorder.on_step(step, dur_s)
+            goodput.on_step(step, dur_s)
+            every = envs.get_int("DLROVER_TPU_DIGEST_EVERY")
+            if every <= 0 or step % every != 0:
+                return
+            # the staged DCN-demotion poll goes here: ROADMAP item 6d
+            # the staged live-reshard poll goes here: ROADMAP item 6c
+            digest = flight_recorder.recorder().step_digest()
+            if not digest:
+                return
+            # this rank's cumulative goodput account, the fabric model
+            # (fxl_/fxb_), the memory account sampled here (mm_/mms_) and
+            # the compile counters (js_) ride the same file
+            if goodput.enabled():
+                digest.update(goodput.ledger().digest())
+            digest.update(commscope.scope().digest())
+            memscope.sample()
+            digest.update(memscope.scope().digest())
+            if jitscope.enabled():
+                digest.update(jitscope.scope().digest())
+            path = (envs.get_str(ConfigPath.ENV_RUNTIME_METRICS)
+                    + f".rank{_process_id()}")
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+            tmp = path + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump(digest, f)
+            os.replace(tmp, path)
+        except Exception as e:  # noqa: BLE001 - telemetry must not break
+            logger.debug("step digest drop failed: %s", e)  # a step
 
     def _clip(self, grads, grad_norm):
         """``GradSyncPolicy.clip_norm``: scale by min(1, clip / norm)."""
@@ -924,6 +1157,15 @@ class Trainer:
                 acc += g.to(acc.dtype)
             w_sum = w_sum + w
         return loss_sum, grad_sum, w_sum
+
+
+def _process_id() -> int:
+    """This rank's id in its digest file's name: the rank of the
+    ``torch.distributed`` world when one is initialised (the port's
+    identity of a rank), else ``NodeEnv.PROCESS_ID``."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank()
+    return envs.get_int(NodeEnv.PROCESS_ID)
 
 
 def _placed_box(shape: Tuple[int, ...], placements, coord: Dict[str, int],

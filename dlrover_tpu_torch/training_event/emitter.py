@@ -3,9 +3,11 @@
 Copy of ``dlrover_tpu/training_event/emitter.py``: master, agent and
 trainer emit begin/end/instant events that an offline tool assembles into
 the job's timeline.  Exceptions inside instrumentation never propagate into
-training.  Left out with the rest of the telemetry (ROADMAP queue 1 item
-7): the trace-context stamps and the flight recorder's event ring.  The
-default event file lies under the temp directory.
+training.  Every event carries the ids of the live trace span
+(``observability/trace.py``) and lands in the flight recorder's event
+ring; ``Process.emit_span`` writes a finished span's record into the same
+stream (the trace module's default sink).  The default event file lies
+under the temp directory.
 """
 
 import json
@@ -24,6 +26,9 @@ class EventType:
     BEGIN = "BEGIN"
     END = "END"
     INSTANT = "INSTANT"
+    # a finished trace span (observability/trace.py) riding the same
+    # exporter stream; the timeline assembler joins these across
+    # processes by trace id
     SPAN = "SPAN"
 
 
@@ -161,6 +166,24 @@ class Process:
         self._exporter = exporter or _default_exporter()
         self.pid = os.getpid()
 
+    @staticmethod
+    def _trace_stamp() -> Dict[str, str]:
+        """trace/span/parent ids of the live trace context, stamped on
+        every event; empty strings when nothing is live."""
+        try:
+            from dlrover_tpu_torch.observability import trace
+
+            sp = trace.current_span()
+            if sp is not None:
+                return {
+                    "trace_id": sp.trace_id,
+                    "span_id": sp.span_id,
+                    "parent_span_id": sp.parent_span_id,
+                }
+        except Exception:  # noqa: BLE001 - stamping is best-effort
+            pass
+        return {"trace_id": "", "span_id": "", "parent_span_id": ""}
+
     def _emit(self, name: str, event_type: str, span_id: str,
               content: Dict):
         try:
@@ -172,10 +195,31 @@ class Process:
                 "type": event_type,
                 "span": span_id,
                 "content": content,
+                **self._trace_stamp(),
             }
+            try:
+                # the flight recorder's event ring (SPAN records reach it
+                # from trace._export instead: emit_span must not feed it,
+                # or spans would land twice)
+                from dlrover_tpu_torch.observability import flight_recorder
+
+                flight_recorder.on_event(event)
+            except Exception:  # noqa: BLE001 - recorder is best-effort
+                pass
             self._exporter.export(event)
         except Exception as e:  # noqa: BLE001 - never break training
             logger.debug("event export failed: %s", e)
+
+    def emit_span(self, record: Dict):
+        """Export a finished trace-span record (``type="SPAN"``) into
+        this process's event stream.  The record comes fully formed from
+        ``observability/trace.py``; only the process envelope is added."""
+        try:
+            self._exporter.export(
+                {"target": self.target, "pid": self.pid, **record}
+            )
+        except Exception as e:  # noqa: BLE001 - never break training
+            logger.debug("span export failed: %s", e)
 
     def instant(self, name: str, content: Optional[Dict] = None):
         self._emit(name, EventType.INSTANT, "", content or {})
