@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (dlrover_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--launcher-alone]
 
-Builds the CUDA kernels from dlrover_tpu_torch/csrc (nvcc, at first use),
-then runs, in order, failing on the first phase that fails:
+With ``--launcher-alone`` it runs only the build, [training] and
+[launcher], nothing beside the drill, and prints {"launcher": {...}} in
+place of the kernels' line: the recovery_s to report.  With no argument
+it builds the CUDA kernels from dlrover_tpu_torch/csrc (nvcc, at first
+use), then runs, in order, failing on the first phase that fails:
 
 1. device: the card's name and power limit, as nvidia-smi reports them;
    Then each kernel's registers and spills (nvcc -Xptxas -v) and, per
@@ -38,8 +41,8 @@ then runs, in order, failing on the first phase that fails:
    forward and backward;
 4. training: Llama-2-1B at full width and depth (22 layers), flash
    attention, B=4, S=2048 from a seeded numpy batch, AdamW with bf16
-   moments, bf16 grads on fp32 masters; one warm-up step and 4 timed
-   steps, each with a finite loss and the kernel launch counts a step
+   moments, bf16 grads on fp32 masters; one warm-up step and 9 timed
+   steps (the uninterrupted run of [launcher]'s 10), each with a finite loss and the kernel launch counts a step
    must make (2 forwards per layer with remat, one dQ and one dK/dV);
    the mean, median and shortest step; then one more step under
    torch.profiler for the device time by phase and by kernel family, and
@@ -63,8 +66,9 @@ then runs, in order, failing on the first phase that fails:
    generation is made odd (torn) must restore the storage step.  Every
    shm segment and the checkpoint directory are released at its end, and
    its numbers go to a {"ckpt": {...}} JSON line;
-   [dist persist], on the same trainer and state (cut in depth as above
-   when /dev/shm needs it): a storage save with DLROVER_TPU_DIST_PERSIST=1
+   [dist persist], on the same trainer and state cut to DIST_CKPT_LAYERS
+   (11) of its 22 layers (for the script's time limit; and
+   further as above when /dev/shm needs it): a storage save with DLROVER_TPU_DIST_PERSIST=1
    (distributed.py; synchronous, into a fresh directory, removed after)
    must seal with bytes_written equal to the state's bytes; a second save
    of the same state, labelled the next step, must seal writing 0 bytes
@@ -119,6 +123,30 @@ then runs, in order, failing on the first phase that fails:
    and 20 steps at the reference's default cadence (a digest every 20
    steps), whose hook time must stay under 1% of the step; its numbers
    go to a {"telemetry": {...}} line;
+   [launcher], in a thread beside the [mesh] phase's legs of ranks (below:
+   the worker's ~35 GB and the ranks' ~16 fit the card together, and the
+   script keeps within its time limit): the port's standalone launcher
+   (trainer/elastic_run.py: its local master, elastic agent and master
+   client, over HTTP) runs the worker
+   dlrover_tpu_torch/examples/train_llama_ckpt.py at llama2_1b ([training]'s
+   model and recipe) through bench.recovery_drill(platform=""): the worker
+   hard-crashes at step 7 (os._exit(17)) after the memory save of step 6,
+   the agent persists that snapshot on the failure and restarts the
+   worker in place (NodeFailureDiagnostician: "restarting workers in
+   place"), and the new worker resumes from the shm snapshot and trains
+   to step 10 (a disk save there).  /dev/shm (one segment of the state)
+   and the temp dir's disk (two persisted steps) are checked first.  It
+   fails unless the launcher exits 0; the output holds "simulating crash
+   at step 7", "resumed from step 6", "done at step 10" and the blocking
+   memory save of step 6 (llama2_1b's saves are synchronous: an async one
+   would still be staging when the crash tears it); every step of both
+   workers launched 44 / 22 / 22 flash kernels and has the loss of
+   [training]'s same step bitwise (the uninterrupted run: same model,
+   seed, batch and optimizer; so a restore that lost the moments or the
+   schedule's count fails); and recovery_s (the crash to the first
+   finished step after the restore) is printed beside the card's name
+   and power limit, named recovery_s_beside_mesh_legs here, since the
+   legs share the host (--launcher-alone takes it alone);
    [mesh], after that trainer is freed: one worker process started as the
    agent starts it (process_group.launch: DLROVER_TPU_PROCESS_ID=0,
    _NUM_PROCESSES=1, a 127.0.0.1 coordinator) runs bootstrap.init (which
@@ -131,8 +159,8 @@ then runs, in order, failing on the first phase that fails:
    phase's; then a probe of whether gloo carries all_gather_into_tensor,
    reduce_scatter_tensor and all_reduce on CUDA tensors (2 ranks on the
    card; NCCL refuses two ranks on one card), printed; then ranks that
-   share the card over gloo, host-staged, at full width and 2 layers,
-   global B=4, 3 steps: tp=2 (2 ranks) always, and fsdp=2 (2 ranks) and
+   share the card over gloo, host-staged, at full width and 1 layer
+   (DP_LAYERS), global B=4, 3 steps: tp=2 (2 ranks) always, and fsdp=2 (2 ranks) and
    fsdp=2 x tp=2 (4 ranks) only if the probe found all three ops carried
    (tp=2's ranks run beside the fsdp legs' on the card, so their step
    seconds share it);
@@ -179,12 +207,12 @@ then runs, in order, failing on the first phase that fails:
    relative error of 1e-2, rank r launching r + 1 forward, r + 1 dQ and
    r + 1 dK/dV kernels; the forward+backward seconds of each against
    one-rank flash's; then ranks sharing the card over gloo, full width,
-   global B=4, 3 steps: the MoE (flash) on ep=2 and dp=2 x ep=2 (2
-   layers: 4 ranks of 4 layers do not fit the card), the Llama
-   with ring attention (remat on) on cp=2 and tp=2 x cp=2 (2 layers),
-   and the flash kernels over cp: the Llama (remat on) on cp=2 and
-   tp=2 x cp=2 (2 layers) and the MoE on cp=2 (2 layers: each rank holds
-   every expert, and two ranks of 4 layers do not fit); each run's losses
+   global B=4, 3 steps, 1 layer (DP_LAYERS): the MoE
+   (flash) on ep=2 and dp=2 x ep=2 (4 ranks of 4 layers do not fit the
+   card), the Llama with ring attention (remat on) on cp=2 and tp=2 x
+   cp=2, and the flash kernels over cp: the Llama (remat on) on cp=2 and
+   tp=2 x cp=2 and the MoE on cp=2 (each rank holds every expert, and
+   two ranks of 4 layers do not fit); each run's losses
    and grad norms equal on every rank and within the [mesh] legs' limits
    of one rank at the same depth (the MoE; the Llama with reference
    attention for the ring, with flash for the flash legs), its flash
@@ -254,7 +282,7 @@ then runs, in order, failing on the first phase that fails:
    each rank's slots must hold its left neighbour's row exactly;
 9. the dp leg: 4 rank processes on the one card over a gloo group (the
    exchange is host-staged), Llama-2-1B at full width with its depth cut
-   to 2 layers, B=1 per rank, S=2048, bf16 grads on fp32 masters, bucket
+   to 1 layer (DP_LAYERS), B=1 per rank, S=2048, bf16 grads on fp32 masters, bucket
    4 MB, transport ring_pallas_q: int8_sharded (1 warm-up and 3 timed
    steps), int4_sharded (4 steps), blockwise_sharded and exact_sharded (3
    steps each), then exact_sharded over the ring_pallas tier (3 steps), all
@@ -292,7 +320,7 @@ then runs, in order, failing on the first phase that fails:
    finite loss, and the int8 encode and accumulate kernels launched as
    the new degree's buckets need;
    [replica], in the spawn of the 2 ranks of load_state above, after it:
-   the dp leg's model (full width, 2 layers, B=2 per rank), one step, then
+   the dp leg's model (full width, 1 layer, B=2 per rank), one step, then
    dp_workers.lose_and_restore: a memory save, the uninterrupted next
    step, rank 1 (as its replacement would) drops its segment and its
    backup and opens a fresh checkpointer, every rank restores into a
@@ -337,7 +365,9 @@ bytes as ``window_bytes``); each flash kernel's
 ``launches_ckpt`` over every rank's steps after the [mesh] legs'
 restores, ``launches_moe`` over the [moe] phase's steps, ``launches_pp``
 over every rank's steps of the [pp] legs, ``launches_cp`` a step by rank
-on each flash [cp] leg, ``launches_peer_restore`` over the [peer restore]
+on each flash [cp] leg, ``launches_launcher`` over both workers' steps in
+the [launcher] phase (counted by each worker, read from its step lines),
+``launches_peer_restore`` over the [peer restore]
 phase's two steps after its restores, and ``off_diagonal`` its time,
 bound, plain and SDPA times at the cp=2 ring's off-diagonal block; each
 ring kernel's ``launches_load_state`` is its count over the step after
@@ -373,6 +403,11 @@ GRAD_REL = 0.05
 REL_TOL = 1e-2
 REL_TILE = 64
 TRAIN_B, TRAIN_S, TIMED_STEPS = 4, 2048, 4
+# [launcher]: the worker crashes at step 7 of 10; [training] takes the
+# 10 steps uninterrupted (one warm-up, 9 timed), and every step of both
+# workers must have its loss bitwise
+LAUNCHER_CRASH_STEP, LAUNCHER_STEPS = 7, 10
+TRAIN_STEPS = LAUNCHER_STEPS
 # (B, S, H, H_kv, D, causal) of the kernel-vs-plain checks: small shapes
 # (causal and not, GQA 4:2, head_dim 64 and 128); off the 128-row tiles:
 # below one tile, ragged (a multiple of neither 64 nor 128), the ragged
@@ -425,9 +460,10 @@ RDMA_TIME_WIDTHS = (DP_LARGEST_ROW, 262_144)
 # the stuck-peer check's wait limit (the windows' default is a minute)
 RDMA_TIMEOUT_S = 2.0
 PEER_WINDOW_WIDTH = 1_048_576
-# the rank legs' depth at full width (the dp leg, [mesh], [ep], [cp], [pp]
-# and [replica]): 2 layers keep the whole script well inside its limit
-DP_WORLD, DP_LAYERS, DP_BUCKET_MB = 4, 2, 4.0
+# the rank legs' depth at full width (the dp leg, [mesh], [ep], [cp] and
+# [replica]): 1 layer (cut from 4, then 2) keeps the
+# whole script inside its limit beside the [launcher] drill
+DP_WORLD, DP_LAYERS, DP_BUCKET_MB = 4, 1, 4.0
 # (run, mode, transport, steps): the schedule's lr is 0 at step 0, so a
 # loss from step 2 on is the first to see an update
 DP_RUNS = (("int8_sharded", "int8_sharded", "ring_pallas_q", 4),
@@ -473,12 +509,15 @@ DIST_BENCH_MB = 1024
 # snapshot stages; bytes of the segment's meta on top of the state's
 CKPT_STEPS = 4
 CKPT_META_MARGIN = 64 << 20
+# the depth [dist persist] and [peer restore] checkpoint at: llama2_1b cut
+# from 22 layers to keep the script within its time limit beside the
+# [launcher] drill (their rates per byte stay comparable)
+DIST_CKPT_LAYERS = 11
 # the forward of the step from the restored state against the first step
 # from the snapshot: the same weights, batch and kernels on one card
 RESTORED_LOSS_RTOL = 1e-6
-# [mesh]: steps of the world-1 run (as many as [training] takes before
-# its profiled step), and its losses against [training]'s: a mesh of ones
-# places nothing, so the step is the plain path's step
+# [mesh]: steps of the world-1 run, and its losses against [training]'s
+# first: a mesh of ones places nothing, so the step is the plain path's
 MESH_STEPS = 1 + TIMED_STEPS
 MESH_LOSS_RTOL = 1e-6
 # the ranks that share the card ([mesh], [ep] and [cp]): steps, depth
@@ -526,12 +565,6 @@ RING_ATOL = {"float32": 2e-3, "bfloat16": FWD_ATOL}
 # [cp flash] op: timed forward-and-backward calls of the ring of flash
 # blocks (and of one-rank flash on the whole sequence)
 RING_FLASH_ITERS = 5
-# dp=2 x ep=2 at 4 layers ran out of the card's memory (4 ranks of ~22
-# GiB: the optimizer holds fp32 copies of every leaf at once), so its
-# depth is cut to 2; so is the MoE's cp=2 leg, whose ranks each hold
-# every expert (at 4 layers two ranks of ~38 GiB ran out)
-EP_DP_LAYERS = 2
-CP_MOE_LAYERS = EP_DP_LAYERS
 # [gpt]: GPTConfig.gpt2_xl at full width and depth; B and S are nanoGPT's
 # config/train_gpt2.py batch_size and block_size (the reference's
 # canonical demo job)
@@ -541,7 +574,8 @@ VIT_B = 64
 # a tiny model's fp32 logits on the card against the same weights on the
 # CPU: one function, only the summation order differs (no TF32)
 CARD_CPU_ATOL = 1e-4
-# [pp]: llama2_1b width cut to DP_LAYERS layers (1 a stage on pp=2), S =
+PP_LAYERS = 2
+# [pp]: llama2_1b width cut to PP_LAYERS layers (1 a stage on pp=2), S =
 # TRAIN_S, PP_MICROBATCHES microbatches; the legs' global batch (pp=2 at
 # B=4, dp=2 x pp=2 at B=8)
 PP_MICROBATCHES = 4
@@ -932,7 +966,7 @@ def train(fa):
     step_s, losses = [], []
     torch.cuda.synchronize()
     fa.reset_launches()
-    for step in range(1 + TIMED_STEPS):
+    for step in range(TRAIN_STEPS):
         before = dict(fa.launches)
         t0 = time.perf_counter()
         state, metrics = trainer.train_step(state, batch)
@@ -1104,9 +1138,10 @@ def telemetry_phase(fa, plain) -> dict:
             account = memscope.scope().account()
             sample = memscope.scope().sample()
             node = metric.collect_node_tpu_metrics(device="cuda")
-        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, plain["loss"]))
+        want = plain["loss"][:len(losses)]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
         print(f"  losses with the hooks on {[round(v, 6) for v in losses]}; "
-              f"[training]'s {[round(v, 6) for v in plain['loss']]}; max "
+              f"[training]'s {[round(v, 6) for v in want]}; max "
               f"rel {rel:.2e}")
         if rel > TELEMETRY_LOSS_RTOL:
             raise AssertionError(f"[telemetry] losses {rel:.2e} relative "
@@ -1232,8 +1267,9 @@ def mesh_spec() -> dict:
 def mesh_phase(plain):
     """The [mesh] phase: the worker bootstrap, the mesh and the mesh path
     of the Trainer, and the flash checkpoint of the ranks' legs (module
-    docstring).  Returns the flash launches of the world-1 run and of the
-    steps after the legs' restores."""
+    docstring).  Returns the flash launches of the world-1 run, and the
+    ranks' legs to run (``rank_legs``, which returns the flash launches of
+    the steps after the legs' restores)."""
     from dlrover_tpu_torch.models.llama import LlamaConfig
     from dlrover_tpu_torch.parallel import mesh_workers, process_group
 
@@ -1258,9 +1294,9 @@ def mesh_phase(plain):
                              "one-rank NCCL group")
     if set(rec["shape"].values()) != {1}:
         raise AssertionError(f"mesh {rec['shape']}: expected all ones")
-    if len(rec["loss"]) != len(plain["loss"]):
-        raise AssertionError(f"{len(rec['loss'])} mesh steps against "
-                             f"{len(plain['loss'])} plain steps")
+    if len(rec["loss"]) != MESH_STEPS:
+        raise AssertionError(f"{len(rec['loss'])} mesh steps, expected "
+                             f"{MESH_STEPS}")
     layers = LlamaConfig.llama2_1b().num_layers
     per_step = {"flash_fwd": 2 * layers, "flash_bwd_dq": layers,
                 "flash_bwd_dkv": layers}
@@ -1293,7 +1329,7 @@ def mesh_phase(plain):
           f"(rank 1 {probe[1]}); the fsdp legs "
           f"{'run' if fsdp_ok else 'are left out: FSDP2 calls these'}",
           flush=True)
-    return launches, rank_legs(spec, fsdp_ok)
+    return launches, lambda: rank_legs(spec, fsdp_ok)
 
 
 def rank_legs(spec, fsdp_ok: bool) -> dict:
@@ -1923,30 +1959,30 @@ def ep_cp_phase() -> dict:
                                  max_seq_len=TRAIN_S))
         return dict(fields, family="moe") if moe else fields
 
-    # one rank at each leg's depth, the spec the legs are held against
-    refs = {"moe4": model("flash", DP_LAYERS, moe=True),
-            "moe2": model("flash", EP_DP_LAYERS, moe=True),
-            "reference4": model("reference", DP_LAYERS),
-            "flash4": model("flash", DP_LAYERS)}
+    # one rank at the legs' depth, by model: the specs the legs are held
+    # against
+    refs = {"moe": model("flash", DP_LAYERS, moe=True),
+            "reference": model("reference", DP_LAYERS),
+            "flash": model("flash", DP_LAYERS)}
     ring = model("ring", DP_LAYERS)
     flash = {layers: dict.fromkeys(("flash_fwd", "flash_bwd_dq",
                                     "flash_bwd_dkv"), layers)
-             for layers in (0, DP_LAYERS, EP_DP_LAYERS)}
+             for layers in (0, DP_LAYERS)}
     # (name, ranks, axes, spec, reference, flash per step): one spawn per
     # world size runs its legs in turn
-    legs = [("[ep] ep2", 2, dict(dp=1, ep=2), refs["moe4"], "moe4",
+    legs = [("[ep] ep2", 2, dict(dp=1, ep=2), refs["moe"], "moe",
              flash[DP_LAYERS]),
-            ("[cp] cp2", 2, dict(dp=1, cp=2), ring, "reference4", flash[0]),
-            ("[ep] dp2_ep2", 4, dict(dp=2, ep=2), refs["moe2"], "moe2",
-             flash[EP_DP_LAYERS]),
-            ("[cp] tp2_cp2", 4, dict(dp=1, tp=2, cp=2), ring, "reference4",
+            ("[cp] cp2", 2, dict(dp=1, cp=2), ring, "reference", flash[0]),
+            ("[ep] dp2_ep2", 4, dict(dp=2, ep=2), refs["moe"], "moe",
+             flash[DP_LAYERS]),
+            ("[cp] tp2_cp2", 4, dict(dp=1, tp=2, cp=2), ring, "reference",
              flash[0]),
-            ("[cp] cp2_flash", 2, dict(dp=1, cp=2), refs["flash4"], "flash4",
+            ("[cp] cp2_flash", 2, dict(dp=1, cp=2), refs["flash"], "flash",
              cp_flash_launches(DP_LAYERS, remat=True)),
-            ("[cp] cp2_moe", 2, dict(dp=1, cp=2), refs["moe2"], "moe2",
-             cp_flash_launches(CP_MOE_LAYERS, remat=False)),
-            ("[cp] tp2_cp2_flash", 4, dict(dp=1, tp=2, cp=2), refs["flash4"],
-             "flash4", cp_flash_launches(DP_LAYERS, remat=True))]
+            ("[cp] cp2_moe", 2, dict(dp=1, cp=2), refs["moe"], "moe",
+             cp_flash_launches(DP_LAYERS, remat=False)),
+            ("[cp] tp2_cp2_flash", 4, dict(dp=1, tp=2, cp=2), refs["flash"],
+             "flash", cp_flash_launches(DP_LAYERS, remat=True))]
     cp_launches = {k: {} for k in ("flash_fwd", "flash_bwd_dq",
                                    "flash_bwd_dkv")}
     ref_losses = {}
@@ -2198,7 +2234,7 @@ def pp_phase() -> dict:
     from dlrover_tpu_torch.parallel.pipeline import microbatch_efficiency
 
     spec = dict(preset="llama2_1b", state_dict=None, seed=0,
-                model=dict(num_layers=DP_LAYERS, attention_impl="flash",
+                model=dict(num_layers=PP_LAYERS, attention_impl="flash",
                            max_seq_len=TRAIN_S),
                 optimizer=dict(peak_lr=3e-4, warmup_steps=10,
                                total_steps=10_000,
@@ -2214,7 +2250,7 @@ def pp_phase() -> dict:
                           "labels": ids[:, 1:].astype(np.int32)})
         t0 = time.perf_counter()
         ref = mesh_workers.reference_pipeline(spec, run, "cuda")
-        print(f"  {DP_LAYERS} layers on one rank, no pipeline, B="
+        print(f"  {PP_LAYERS} layers on one rank, no pipeline, B="
               f"{batch_rows}: losses {[round(v, 6) for v in ref['loss']]}; "
               f"step s {[round(v, 3) for v in ref['step_s']]}; "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -2241,7 +2277,7 @@ def pp_phase() -> dict:
         recs = [r["runs"][name] for r in ranks]
         # per rank a step: each stage's layers once per microbatch, and
         # the forward again in remat's recompute; bubbles compute nothing
-        per = DP_LAYERS // axes["pp"] * PP_MICROBATCHES
+        per = PP_LAYERS // axes["pp"] * PP_MICROBATCHES
         want = {"flash_fwd": 2 * per, "flash_bwd_dq": per,
                 "flash_bwd_dkv": per}
         check_rank_leg(f"[pp] {name}", recs, ref, want,
@@ -2291,12 +2327,14 @@ def ckpt_depth(state, num_layers: int, shm_free: int) -> int:
     return int(depth)
 
 
-def ckpt_subject(trainer, state, batch, per_step, copies: int = 1):
+def ckpt_subject(trainer, state, batch, per_step, copies: int = 1,
+                 max_layers: int = 0):
     """What a checkpoint phase saves: the training phase's trainer and
     state, or, when ``copies`` segments of its state do not fit in
-    /dev/shm at once, a trainer of the largest depth at full width whose
-    state does, one step trained, printed as "reduced: depth N of 22".
-    Returns ``(trainer, state, depth, flash launches per step)``."""
+    /dev/shm at once or its depth is above ``max_layers`` (0: no bound), a
+    trainer of the largest depth at full width whose state does and that
+    is within the bound, one step trained, printed as "reduced: depth N of
+    22".  Returns ``(trainer, state, depth, flash launches per step)``."""
     import torch
 
     from dlrover_tpu_torch.common.pytree import flatten_with_path
@@ -2312,10 +2350,13 @@ def ckpt_subject(trainer, state, batch, per_step, copies: int = 1):
           f"free {shm_free / 1e9:.1f} GB; host RAM available "
           f"{ram / 1e9:.1f} GB", flush=True)
     depth = ckpt_depth(state, layers, shm_free // copies)
+    if max_layers:
+        depth = min(depth, max_layers)
     if depth < layers:
         print(f"  reduced: depth {depth} of {layers} (shm "
               f"{shm_free / 1e9:.1f} GB free for {copies} "
-              f"segment{'s' if copies > 1 else ''})", flush=True)
+              f"segment{'s' if copies > 1 else ''}; at most "
+              f"{max_layers or layers} layers)", flush=True)
         cfg = dataclasses.replace(trainer.model.config, num_layers=depth)
         trainer = Trainer(
             LlamaForCausalLM(cfg, device=trainer.device, seed=0),
@@ -2500,7 +2541,8 @@ def dist_persist_phase(fa, trainer, state, batch, per_step, then=None):
     from dlrover_tpu_torch.trainer.flash_checkpoint import distributed
 
     trainer, state, depth, per_step = ckpt_subject(
-        trainer, state, batch, per_step, copies=2 if then else 1)
+        trainer, state, batch, per_step, copies=2 if then else 1,
+        max_layers=DIST_CKPT_LAYERS)
     payload = bench.state_nbytes(state) + sum(
         8 for _, leaf in flatten_with_path(state)
         if not isinstance(leaf, torch.Tensor))  # the ints: 0-d int64
@@ -3556,23 +3598,232 @@ def dp_resume(spec, first, saved_recs, more_runs=()) -> tuple:
     return ring_launches, ranks
 
 
+STEP_LINE = re.compile(r"^step=(\d+) loss=(\S+) launches=(\{.*\})$")
+# the launcher's log lines that time the recovery: (name, text)
+RECOVERY_EVENTS = (
+    ("failure seen", "worker failure, exit codes"),
+    ("persist begun", "save-on-failure: persisting shm step"),
+    ("restart decided", "restarting workers in place"),
+    ("worker started", "started 1 worker process(es), node_rank=0 restart=1"),
+)
+
+
+def reap_adopted(grace_s: float = 30.0) -> None:
+    """Reap what a finished launcher left to this subreaper: the resource
+    trackers of its agent and workers outlive them by a moment and then
+    wait, exited, for their new parent, this process.  Whatever is still
+    running after ``grace_s`` is left to stop_processes."""
+    import multiprocessing
+
+    known = {p.pid for p in multiprocessing.active_children()}
+    known.add(resource_tracker_pid())
+    deadline = time.monotonic() + grace_s
+    while time.monotonic() < deadline:
+        left = [pid for pid in descendant_pids() if pid not in known]
+        if not left:
+            return
+        for pid in left:
+            try:
+                os.waitpid(pid, os.WNOHANG)
+            except ChildProcessError:  # not ours (yet): a grandchild
+                pass
+        time.sleep(0.1)
+
+
+def log_ts(line: str):
+    """The wall-clock seconds of a launcher log line, or None."""
+    m = re.match(r"\[(\d{4}-\d\d-\d\d \d\d:\d\d:\d\d),(\d{3})\]", line)
+    if not m:
+        return None
+    return (time.mktime(time.strptime(m.group(1), "%Y-%m-%d %H:%M:%S"))
+            + int(m.group(2)) / 1e3)
+
+
+def recovery_timeline(lines, crash_ts: float) -> str:
+    """The recovery's events as seconds after the crash, from the agent's
+    log lines and the resumed worker's ready_ts/load_s and resume_ts."""
+    marks = []
+    for name, text in RECOVERY_EVENTS:
+        for line in lines:
+            if text in line and log_ts(line) is not None:
+                marks.append((name, log_ts(line) - crash_ts))
+                break
+    ready = [line for line in lines if line.startswith("ready_ts=")]
+    if len(ready) == 2:
+        fields = dict(f.split("=") for f in ready[1].split())
+        marks.append(("worker ready (restore "
+                      f"{float(fields['load_s']):.2f} s)",
+                      float(fields["ready_ts"]) - crash_ts))
+    for line in lines:
+        if line.startswith("resume_ts="):
+            marks.append(("first step done",
+                          float(line.split()[0].split("=")[1]) - crash_ts))
+    return "; ".join(f"{name} +{s:.2f} s" for name, s in marks)
+
+
+def launcher_phase(per_step: dict, state_bytes: int, plain: dict,
+                   beside=None):
+    """[launcher]: the recovery drill through the port's launcher at
+    llama2_1b, run in a thread while this one runs ``beside()`` (a later
+    phase whose memory fits beside the worker's, so that the script keeps
+    within its time limit), or alone.  Every step's loss of both workers
+    is held bitwise to ``plain``'s, [training]'s uninterrupted run.
+    Returns the drill's flash launches over both workers' steps and
+    recovery_s (named for the load it was taken under), and what
+    ``beside`` returned."""
+    import ast
+    import shutil
+    import tempfile
+
+    from dlrover_tpu_torch.trainer.flash_checkpoint import bench
+
+    check_shm(state_bytes + CKPT_META_MARGIN, "the worker's snapshot")
+    free = shutil.disk_usage(tempfile.gettempdir()).free
+    need = 2 * state_bytes
+    print(f"  {tempfile.gettempdir()} free {free / 1e9:.1f} GB; two "
+          f"persisted steps need {need / 1e9:.1f} GB", flush=True)
+    if free < need:
+        raise AssertionError(f"the temp dir's disk has {free / 1e9:.2f} GB "
+                             f"free, the drill needs {need / 1e9:.2f} GB")
+    fd, log_path = tempfile.mkstemp(prefix="chip_smoke_launcher_",
+                                    suffix=".log")
+    os.close(fd)
+    t0 = time.perf_counter()
+    try:
+        with ThreadPoolExecutor(1) as pool:
+            drill = pool.submit(
+                bench.recovery_drill, timeout=900.0, platform="",
+                preset="llama2_1b",
+                extra_env={"DLROVER_TPU_MASTER_SERVICE_TYPE": "http"},
+                log_path=log_path)
+            try:
+                beside_result = beside() if beside else None
+            finally:
+                result = drill.result()
+        took = time.perf_counter() - t0
+        with open(log_path) as f:
+            output = f.read()
+    finally:
+        os.unlink(log_path)
+        reap_adopted()
+    print("[launcher] the drill's results"
+          + (" (it ran beside the phases above)" if beside else ""),
+          flush=True)
+    lines = [line.strip() for line in output.splitlines()]
+    if "recovery_error" in result:
+        print("\n".join(lines[-60:]))
+        raise AssertionError(f"the recovery drill failed: "
+                             f"{result['recovery_error']}")
+    for marker in (f"simulating crash at step {LAUNCHER_CRASH_STEP}",
+                   f"resumed from step {LAUNCHER_CRASH_STEP - 1}",
+                   f"done at step {LAUNCHER_STEPS}, loss="):
+        if not any(line.startswith(marker) for line in lines):
+            raise AssertionError(f"the launcher's output lacks {marker!r}")
+    if not any("restarting workers in place" in line for line in lines):
+        raise AssertionError("the agent did not restart the worker in place "
+                             "through NodeFailureDiagnostician")
+    # the snapshot the new worker resumes from came from a blocking memory
+    # save (engine._save_to_memory's line; an async one stages behind the
+    # step and would be torn by the crash one step later)
+    saved = f"flash-ckpt memory snapshot step={LAUNCHER_CRASH_STEP - 1} blocked"
+    if not any(saved in line for line in lines):
+        raise AssertionError(f"the launcher's output lacks {saved!r}")
+    crash = lines.index(f"simulating crash at step {LAUNCHER_CRASH_STEP}")
+    runs = ([], [])  # (step, loss, launches) of each worker
+    for i, line in enumerate(lines):
+        m = STEP_LINE.match(line)
+        if m:
+            runs[i > crash].append((int(m.group(1)), float(m.group(2)),
+                                    ast.literal_eval(m.group(3))))
+    want_steps = (list(range(1, LAUNCHER_CRASH_STEP + 1)),
+                  list(range(LAUNCHER_CRASH_STEP, LAUNCHER_STEPS + 1)))
+    for run, want in zip(runs, want_steps):
+        if [s for s, _, _ in run] != want:
+            raise AssertionError(f"worker steps {[s for s, _, _ in run]}, "
+                                 f"expected {want}")
+        for step, loss, launched in run:
+            want = plain["loss"][step - 1]
+            if launched != per_step or loss != want:
+                raise AssertionError(
+                    f"step {step}: loss {loss!r}, [training]'s {want!r}; "
+                    f"launched {launched}, expected {per_step}")
+    print(f"  worker 1: steps 1-{LAUNCHER_CRASH_STEP}, worker 2: steps "
+          f"{LAUNCHER_CRASH_STEP}-{LAUNCHER_STEPS}, each step {per_step}; "
+          "every loss bitwise [training]'s same step: "
+          f"{[loss for _, loss, _ in runs[0]]} before the crash, "
+          f"{[loss for _, loss, _ in runs[1]]} after the restore",
+          flush=True)
+    for line in lines:
+        if "save-on-failure" in line or "restarting workers" in line:
+            print(f"  {line}")
+    crash_ts = next(float(line.split("=")[1]) for line in lines
+                    if line.startswith("crash_ts="))
+    print(f"  after the crash: {recovery_timeline(lines, crash_ts)}")
+    # beside the legs the host's cores and memory bandwidth are shared:
+    # that recovery_s is named so, and the one to report is the drill's
+    # alone (--launcher-alone)
+    key = "recovery_s_beside_mesh_legs" if beside else "recovery_s"
+    print(f"  {key}={result['recovery_s']} (resumed step "
+          f"{result['recovery_resumed_step']}) on {card_line()}; the "
+          f"phase took {took:.1f} s", flush=True)
+    launched = {k: sum(r[2][k] for run in runs for r in run)
+                for k in per_step}
+    return {"launches": launched, key: result["recovery_s"],
+            "phase_s": round(took, 1)}, beside_result
+
+
 def main() -> int:
     import torch
 
+    alone = sys.argv[1:] == ["--launcher-alone"]
+    if sys.argv[1:] and not alone:
+        print(f"usage: {sys.argv[0]} [--launcher-alone]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     adopt_orphans()
     try:
-        record = run_phases()
+        record = launcher_alone() if alone else run_phases()
     finally:
         stop_processes()
-    print(json.dumps({"kernels": record}))
+    print(json.dumps({"launcher": record} if alone else {"kernels": record}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def launcher_alone() -> dict:
+    """``--launcher-alone``: the build, [training] (the uninterrupted run
+    the workers' losses are held to) and [launcher] with nothing beside
+    it, so that its recovery_s is the drill's own.  Returns the
+    [launcher] record."""
+    import torch
+
+    from dlrover_tpu_torch.ops.cuda import _build
+    from dlrover_tpu_torch.ops.cuda import flash_attention as fa
+    from dlrover_tpu_torch.trainer.flash_checkpoint.bench import state_nbytes
+
+    print(f"[device] {card_line()}; torch {torch.__version__} "
+          f"cuda {torch.version.cuda}", flush=True)
+    os.environ.update(SCOPES_OFF)
+    t0 = time.perf_counter()
+    _build.build()
+    print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
+    print("[training]", flush=True)
+    _, trainer, state, batch, plain = train(fa)
+    layers = trainer.model.config.num_layers
+    per_step = {"flash_fwd": 2 * layers, "flash_bwd_dq": layers,
+                "flash_bwd_dkv": layers}
+    state_bytes = state_nbytes(state)
+    del trainer, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("[launcher] (alone)", flush=True)
+    record, _ = launcher_phase(per_step, state_bytes, plain)
+    return record
 
 
 def run_phases() -> list:
@@ -3644,6 +3895,12 @@ def run_phases() -> list:
                      for k in REPLACES}
     print("[dist bench]", flush=True)
     dist_bench_phase()
+    per_step = {"flash_fwd": 2 * trainer.model.config.num_layers,
+                "flash_bwd_dq": trainer.model.config.num_layers,
+                "flash_bwd_dkv": trainer.model.config.num_layers}
+    from dlrover_tpu_torch.trainer.flash_checkpoint.bench import state_nbytes
+
+    state_bytes = state_nbytes(state)
     del trainer, state, batch
     gc.collect()
     torch.cuda.empty_cache()
@@ -3656,7 +3913,17 @@ def run_phases() -> list:
     torch.cuda.empty_cache()
     print(f"[mesh] (this process holds "
           f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB)", flush=True)
-    mesh_launches, ckpt_launches = mesh_phase(plain)
+    mesh_launches, legs = mesh_phase(plain)
+    # the launcher's worker takes ~35 GB of the card, the legs' ranks ~16
+    # at once (a world-1 worker's ~35 beside it would leave too little):
+    # its drill runs beside the legs
+    print("[launcher] (its drill runs beside the [mesh] legs)", flush=True)
+    t0 = time.perf_counter()
+    launcher, ckpt_launches = launcher_phase(per_step, state_bytes, plain,
+                                             beside=legs)
+    print(json.dumps({"launcher": launcher}), flush=True)
+    print(f"  [launcher] and the [mesh] legs took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
     print("[moe]", flush=True)
@@ -3730,6 +3997,7 @@ def run_phases() -> list:
              launches_moe=moe_launches[name],
              launches_pp=pp_launches[name],
              launches_peer_restore=peer_launches[name],
+             launches_launcher=launcher["launches"][name],
              launches_replica=replica_launches[name],
              launches_cp=cp_launches[name],
              off_diagonal=off_diagonal[name],

@@ -3,14 +3,18 @@
 A copy of the knobs of ``dlrover_tpu/common/envs.py`` that the port's
 paths read (the grad sync, the flash checkpoint and its distributed
 persist, the node env they are scoped by, the worker bootstrap and the
-mesh, and the rank's runtime digest: tracing, metrics, the flight
-recorder, the goodput ledger and the memory, comm and compile scopes):
-the same
-names, defaults and parsing.  Values are read from ``os.environ`` at
-call time; a malformed value logs a warning and falls back to the
-default.  The directories that default under ``/tmp`` in the reference
-default under the process's temp directory here
-(``tempfile.gettempdir()``, which honours ``TMPDIR``).
+mesh, the rank's runtime digest: tracing, metrics, the flight
+recorder, the goodput ledger and the memory, comm and compile scopes,
+and the job runtime: the launcher, the local master, its admission
+control, the agent's transport and its retry budget): the same names,
+defaults and parsing, and the reference's per-call ``default=``
+override for the sites whose default is computed.  A knob is added with
+the port of the code that reads it.  Values are read from
+``os.environ`` at call time; a malformed value logs a warning and falls
+back to the default, and an unknown name raises ``KeyError``.  The
+directories that default under ``/tmp`` in the reference default under
+the process's temp directory here (``tempfile.gettempdir()``, which
+honours ``TMPDIR``).
 """
 
 import logging
@@ -158,8 +162,69 @@ DEFAULTS = {
     "DLROVER_TPU_JITSCOPE": True,
     "DLROVER_TPU_JITSCOPE_EVENTS": 256,
     "DLROVER_TPU_JITSCOPE_STALL_MS": 500.0,
+    # -- the job runtime: launcher, master, agent (trainer/elastic_run.py,
+    # master/, agent/elastic_agent.py, agent/master_client.py) --
+    # master transport (grpc or http) and listen port (0: a free one)
+    "DLROVER_TPU_MASTER_SERVICE_TYPE": "grpc",
+    "DLROVER_TPU_MASTER_PORT": 0,
+    # the gRPC master's thread pool; 0 = MAX_WAITERS + MAX_INFLIGHT +
+    # headroom, so blocked long-polls never starve ordinary RPCs
+    "DLROVER_TPU_MASTER_GRPC_WORKERS": 0,
+    # stable node id (falls back to NODE_RANK), role, pod-slice index
+    "DLROVER_TPU_NODE_ID": 0,
+    "DLROVER_TPU_NODE_TYPE": "worker",
+    "DLROVER_TPU_SLICE_ID": 0,
+    # scale plans move in units of this many hosts
+    "DLROVER_TPU_NODE_UNIT": 1,
+    # where the agent drops the auto-parallelism config for workers
+    "DLROVER_TPU_PARAL_CONFIG_PATH": os.path.join(
+        _TMP, "auto_paral_config.json"),
+    # the pre-training network/node check; master-side pre-checks
+    "DLROVER_TPU_NETWORK_CHECK": False,
+    "DLROVER_TPU_PRE_CHECK": True,
+    # hang detection: mode (0 off, 1 step watermark, 2 timer metrics)
+    # and the downtime (s) that makes a hang verdict
+    "DLROVER_TPU_HANG_DETECTION": 1,
+    "DLROVER_TPU_HANG_DOWNTIME": 300,
+    # agent heartbeat silence that marks a node NO_HEARTBEAT (s)
+    "DLROVER_TPU_HEARTBEAT_TIMEOUT": 180,
+    # stragglers: elapsed > avg x ratio; the digest step-time screen;
+    # relaunch what the device evidence marks (opt-in)
+    "DLROVER_TPU_STRAGGLER_RATIO": 1.6,
+    "DLROVER_TPU_STRAGGLER_STEP_RATIO": 1.5,
+    "DLROVER_TPU_EXCLUDE_STRAGGLER": False,
+    # step-report gap the perf monitor counts as downtime (s)
+    "DLROVER_TPU_STALL_THRESHOLD": 15.0,
+    # a saver busy on one persist longer than this is stalled (s)
+    "DLROVER_TPU_CKPT_STALL_S": 600.0,
+    # sustained admission refusals/s that make an overload storm
+    "DLROVER_TPU_OVERLOAD_STORM_RATE": 50.0,
+    # relaunch workers on any exit reason; the master's auto-scaler;
+    # the brain's address ('' = local heuristics)
+    "DLROVER_TPU_RELAUNCH_ALWAYS": False,
+    "DLROVER_TPU_AUTO_SCALE": False,
+    "DLROVER_TPU_BRAIN_ADDR": "",
+    # long-poll waits block server-side, in chunks of at most MAX_S
+    "DLROVER_TPU_LONGPOLL": True,
+    "DLROVER_TPU_LONGPOLL_MAX_S": 30.0,
+    # admission control: the work pool, the wait pool (0 = unlimited),
+    # the queueing bound and the retry-after hint
+    "DLROVER_TPU_SERVICER_MAX_INFLIGHT": 256,
+    "DLROVER_TPU_SERVICER_MAX_WAITERS": 4096,
+    "DLROVER_TPU_SERVICER_QUEUE_TIMEOUT_S": 0.5,
+    "DLROVER_TPU_SERVICER_RETRY_AFTER_S": 0.25,
+    # the agent->master transport's retry budget, the circuit breaker
+    # (0 = off), jitter
+    "DLROVER_TPU_RPC_RETRY_ATTEMPTS": 8,
+    "DLROVER_TPU_RPC_RETRY_BASE_S": 0.5,
+    "DLROVER_TPU_RPC_RETRY_MAX_S": 8.0,
+    "DLROVER_TPU_RPC_RETRY_DEADLINE_S": 60.0,
+    "DLROVER_TPU_RETRY_CB_THRESHOLD": 0,
+    "DLROVER_TPU_RETRY_CB_COOLDOWN_S": 30.0,
+    "DLROVER_TPU_RETRY_JITTER": True,
 }
 
+_MISSING = object()
 _TRUE_WORDS = ("1", "true", "yes", "on")
 _FALSE_WORDS = ("0", "false", "no", "off", "")
 
@@ -169,12 +234,19 @@ def _complain(name: str, value: str, type_: str, fallback) -> None:
                    type_, fallback)
 
 
-def get_str(name: str) -> str:
-    return os.environ.get(name, DEFAULTS[name])
+def _fallback(name: str, default):
+    registered = DEFAULTS[name]  # an unknown name raises KeyError
+    return registered if default is _MISSING else default
 
 
-def get_int(name: str) -> int:
-    fallback = DEFAULTS[name]
+def get_str(name: str, default=_MISSING) -> str:
+    fallback = _fallback(name, default)
+    value = os.environ.get(name)
+    return fallback if value is None else value
+
+
+def get_int(name: str, default=_MISSING) -> int:
+    fallback = _fallback(name, default)
     value = os.environ.get(name)
     if value is None:
         return fallback
@@ -186,8 +258,8 @@ def get_int(name: str) -> int:
         return fallback
 
 
-def get_float(name: str) -> float:
-    fallback = DEFAULTS[name]
+def get_float(name: str, default=_MISSING) -> float:
+    fallback = _fallback(name, default)
     value = os.environ.get(name)
     if value is None:
         return fallback
@@ -198,11 +270,11 @@ def get_float(name: str) -> float:
         return fallback
 
 
-def get_bool(name: str) -> bool:
-    fallback = DEFAULTS[name]
+def get_bool(name: str, default=_MISSING) -> bool:
+    fallback = _fallback(name, default)
     value = os.environ.get(name)
     if value is None:
-        return fallback
+        return bool(fallback)
     word = value.strip().lower()
     if word in _TRUE_WORDS:
         return True

@@ -6,10 +6,13 @@ Prometheus text exposition format (0.0.4), with the same metric catalog
 (:data:`METRICS`).  The port's memory, comm and compile scopes write their
 counters and gauges here (``mem_samples_total``,
 ``comm_probe_latency_us``, ``comm_bucket_exchange_seconds``,
-``compile_seconds_total``, ...).  Left out, with their callers (ROADMAP
-item 11): the catalog's entries of the control plane's metrics (RPCs,
-retries, breakers, checkpoint phases, chaos faults, the master's series,
-Brain), its named helpers and the catalog's markdown generator.
+``compile_seconds_total``, ...), and the job runtime its RPCs, retries,
+breakers, admission refusals and long-polls (:func:`observe_rpc`,
+:func:`record_retry`, :func:`record_breaker`, :func:`record_overload`,
+:func:`record_longpoll_coalesced`, :func:`observe_longpoll`).  Left out,
+with their callers (ROADMAP item 11, the rest): the catalog's entries of
+the checkpoint phases, chaos faults, the master's series and Brain, their
+helpers and the catalog's markdown generator.
 
 Deliberately dependency-free (no prometheus_client).  Cardinality is
 bounded: at most ``DLROVER_TPU_METRICS_MAX_SERIES`` label combinations
@@ -319,6 +322,39 @@ def registry() -> MetricsRegistry:
 
 #: name -> (type, label names, help)
 METRICS: Dict[str, Tuple[str, Tuple[str, ...], str]] = {
+    "dlrover_tpu_rpc_requests_total": (
+        "counter", ("method", "code", "transport"),
+        "control-plane RPCs by method and outcome (code=ok|error|"
+        "overload)",
+    ),
+    "dlrover_tpu_rpc_duration_seconds": (
+        "histogram", ("method", "transport"),
+        "control-plane RPC service time; long-poll blocks and overload "
+        "refusals are excluded (see longpoll_wait_seconds)",
+    ),
+    "dlrover_tpu_retry_total": (
+        "counter", ("policy", "outcome"),
+        "retry-policy activity (outcome=attempt_failed|exhausted|"
+        "recovered)",
+    ),
+    "dlrover_tpu_breaker_transitions_total": (
+        "counter", ("policy", "state"),
+        "circuit-breaker state transitions (state=open|half_open|"
+        "closed)",
+    ),
+    "dlrover_tpu_servicer_overload_total": (
+        "counter", ("method", "pool"),
+        "requests refused by admission control (answered with a "
+        "retry-after hint, not executed)",
+    ),
+    "dlrover_tpu_longpoll_coalesced_total": (
+        "counter", ("kind",),
+        "long-poll waits coalesced onto an identical in-flight wait",
+    ),
+    "dlrover_tpu_longpoll_wait_seconds": (
+        "histogram", ("kind", "outcome"),
+        "server-side long-poll block duration (outcome=hit|expired)",
+    ),
     "dlrover_tpu_metrics_dropped_series_total": (
         "counter", (),
         "label combinations dropped by the per-process series budget "
@@ -383,3 +419,85 @@ METRICS: Dict[str, Tuple[str, Tuple[str, ...], str]] = {
 
 def _help(name: str) -> str:
     return METRICS[name][2]
+
+
+# ---------------------------------------------------------------------------
+# Named helpers of the control plane: one vocabulary, so dashboards key on
+# stable metric names.
+# ---------------------------------------------------------------------------
+
+
+def observe_rpc(method: str, ok: bool, dur_s: float,
+                transport: str = "master",
+                code: Optional[str] = None,
+                record_duration: bool = True) -> None:
+    """One served/issued RPC: the R, E and D of RED in two writes.
+    ``code`` overrides the ok/error outcome label — admission control
+    uses ``"overload"`` so shed load is distinguishable from failures
+    (an overload was refused with a retry hint, not broken).
+    ``record_duration=False`` counts the request without a histogram
+    sample: a refusal's ~0s turnaround is not a service time, and a
+    flood of them would read as the master getting FASTER under
+    overload — the exact regime the duration percentiles diagnose."""
+    reg = registry()
+    reg.counter_inc(
+        "dlrover_tpu_rpc_requests_total",
+        help="control-plane RPCs by method and outcome",
+        method=method, code=code or ("ok" if ok else "error"),
+        transport=transport,
+    )
+    if record_duration:
+        reg.observe(
+            "dlrover_tpu_rpc_duration_seconds", dur_s,
+            help="control-plane RPC duration (seconds)",
+            method=method, transport=transport,
+        )
+
+
+def record_retry(policy: str, outcome: str) -> None:
+    """``outcome``: attempt_failed | exhausted | recovered."""
+    registry().counter_inc(
+        "dlrover_tpu_retry_total",
+        help="retry-policy activity by policy name and outcome",
+        policy=policy, outcome=outcome,
+    )
+
+
+def record_breaker(policy: str, state: str) -> None:
+    """``state``: open | half_open | closed."""
+    registry().counter_inc(
+        "dlrover_tpu_breaker_transitions_total",
+        help="circuit-breaker state transitions by policy name",
+        policy=policy, state=state,
+    )
+
+
+def record_overload(method: str, pool: str) -> None:
+    """One admission-control rejection (the request was answered with
+    ``OVERLOADED`` + retry-after, not executed)."""
+    registry().counter_inc(
+        "dlrover_tpu_servicer_overload_total",
+        help="requests rejected by admission control",
+        method=method, pool=pool,
+    )
+
+
+def record_longpoll_coalesced(kind: str) -> None:
+    """A long-poll joined an identical in-flight wait instead of
+    opening its own (``kind``: kv/rdzv/...)."""
+    registry().counter_inc(
+        "dlrover_tpu_longpoll_coalesced_total",
+        help="long-poll waits coalesced onto an identical in-flight wait",
+        kind=kind,
+    )
+
+
+def observe_longpoll(kind: str, dur_s: float, hit: bool) -> None:
+    """One served long-poll chunk: how long it blocked and whether the
+    awaited state arrived (hit) or the chunk expired (miss)."""
+    reg = registry()
+    reg.observe(
+        "dlrover_tpu_longpoll_wait_seconds", dur_s,
+        help="server-side long-poll block duration (seconds)",
+        kind=kind, outcome="hit" if hit else "expired",
+    )

@@ -4,10 +4,12 @@ Copy of ``dlrover_tpu/observability/trace.py``.  One trace is one causal
 story: a 128-bit ``trace_id`` minted at the root operation, a 64-bit
 ``span_id`` per operation and ``parent_span_id`` links forming the tree.
 The current span rides a :mod:`contextvars` ContextVar; a span's
-``traceparent()`` is what crosses a process boundary.  Left out with the
-RPCs that carry it (ROADMAP item 11): parsing a remote ``traceparent``
-into a server span, span events from retries and chaos faults, and the
-registry of open spans that an incident dump reads.
+``traceparent()`` is what crosses a process boundary: the master client
+puts :func:`current_traceparent` into each envelope, and the servicer
+opens a :func:`server_span` parented to it.  Retries and the admission
+control attach events to the live span (:func:`add_event`).  Left out
+(ROADMAP item 11, the rest): the registry of open spans that an incident
+dump reads.
 
 Every finished span feeds the flight recorder's span ring
 (``flight_recorder.on_span``) and the goodput ledger
@@ -39,6 +41,8 @@ from dlrover_tpu_torch.common.log import logger
 
 #: span kinds (OpenTelemetry vocabulary, lowercase)
 INTERNAL = "internal"
+CLIENT = "client"
+SERVER = "server"
 
 _TRACEPARENT_VERSION = "00"
 
@@ -107,6 +111,28 @@ class TraceContext:
         return (
             f"{_TRACEPARENT_VERSION}-{self.trace_id}-{self.span_id}-{flags}"
         )
+
+
+def parse_traceparent(header: str) -> Optional[TraceContext]:
+    """``00-<32 hex>-<16 hex>-<2 hex>`` -> TraceContext, else None.
+    Unknown versions are accepted (forward compatibility), malformed
+    ids are not."""
+    if not header:
+        return None
+    parts = header.strip().split("-")
+    if len(parts) < 4:
+        return None
+    version, trace_id, span_id, flags = parts[0], parts[1], parts[2], parts[3]
+    if len(version) != 2 or len(trace_id) != 32 or len(span_id) != 16:
+        return None
+    try:
+        int(trace_id, 16), int(span_id, 16)
+        sampled = bool(int(flags, 16) & 1)
+    except ValueError:
+        return None
+    if int(trace_id, 16) == 0 or int(span_id, 16) == 0:
+        return None
+    return TraceContext(trace_id=trace_id, span_id=span_id, sampled=sampled)
 
 
 class Span:
@@ -228,6 +254,26 @@ def current_span() -> Optional[Span]:
     return _CURRENT.get()
 
 
+def current_traceparent() -> str:
+    """The header to inject into an outgoing RPC ("" when no live
+    span / tracing off)."""
+    sp = _CURRENT.get()
+    if sp is None or not enabled():
+        return ""
+    return sp.traceparent()
+
+
+def add_event(name: str, **attrs: Any) -> bool:
+    """Attach an event to the live span, if any.  The hook the retry
+    policy, circuit breaker and admission control call: they never hold
+    a span themselves."""
+    sp = _CURRENT.get()
+    if sp is None:
+        return False
+    sp.add_event(name, **attrs)
+    return True
+
+
 def _sampled_root() -> bool:
     sample = envs.get_float("DLROVER_TPU_TRACE_SAMPLE")
     if sample >= 1.0:
@@ -281,6 +327,17 @@ def span(name: str, kind: str = INTERNAL,
         _CURRENT.reset(token)
         sp.end()
         _export(sp)
+
+
+@contextlib.contextmanager
+def server_span(name: str, traceparent: str,
+                attrs: Optional[Dict[str, Any]] = None):
+    """Open the server side of an RPC: parented to the remote caller's
+    span when ``traceparent`` parses, a fresh root otherwise."""
+    with span(
+        name, kind=SERVER, attrs=attrs, parent=parse_traceparent(traceparent)
+    ) as sp:
+        yield sp
 
 
 # ---------------------------------------------------------------------------

@@ -1,1 +1,2 @@
-"""Optimizer recipe, the training harness and flash checkpoint."""
+"""Optimizer recipe, the training harness, flash checkpoint, the worker
+bootstrap and the launcher (``elastic_run``)."""

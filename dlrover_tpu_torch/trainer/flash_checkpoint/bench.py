@@ -7,8 +7,10 @@ while the snapshot stages behind them, the time until the step is
 persisted, and the restores from shm and from storage.  ``chip_smoke.py``
 calls ``run`` on its ``llama2_1b`` trainer.  ``peer_recovery_bench`` is the
 reference's measurement of the peer restore (four local hosts, one dead).
-The reference's recovery, reshard and staging drills run in subprocesses
-and belong to ROADMAP queue 1 items 11 and 6c; they are not ported here.
+``recovery_drill`` is the reference's worker-kill drill through the port's
+launcher (``trainer/elastic_run.py``).  The reference's reshard and staging
+drills belong to ROADMAP queue 1 items 6c and 11 (the rest); they are not
+ported here.
 
 Every time is a host clock around work that ends in a device synchronize
 (``utils/timing.hard_block``), so it includes the card's queued work.
@@ -17,6 +19,9 @@ Every time is a host clock around work that ends in a device synchronize
 import contextlib
 import os
 import shutil
+import signal
+import subprocess
+import sys
 import tempfile
 import time
 import uuid
@@ -35,6 +40,11 @@ from dlrover_tpu_torch.utils.timing import hard_block
 
 # the step labels of the warm-up memory save and the measured storage save
 WARMUP_STEP, SAVE_STEP = 0, 1
+
+# the directory that holds the port's package: the launched processes'
+# PYTHONPATH root and working directory
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))))
 
 
 def _timed_step(trainer, state, batch) -> Tuple[Any, float, float]:
@@ -272,3 +282,89 @@ def peer_recovery_bench(size_mb: float = 8.0) -> dict:
             with contextlib.suppress(Exception):
                 shm.unlink()
         shutil.rmtree(workdir, ignore_errors=True)
+
+
+def _subprocess_env() -> Dict[str, str]:
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env.pop("DLROVER_TPU_MASTER_ADDR", None)
+    return env
+
+
+def recovery_drill(timeout: float = 420.0, platform: str = "cpu",
+                   preset: str = "tiny",
+                   extra_env: Optional[Dict[str, str]] = None,
+                   log_path: str = "") -> dict:
+    """Worker-kill recovery drill: the launcher spawns a master, an agent
+    and a worker (``examples/train_llama_ckpt.py`` at ``preset``); the
+    worker hard-crashes at step 7 of 10, the agent restarts it, and it
+    resumes from the shm snapshot.  Measures crash -> first completed
+    post-restore step (detection, respawn, rendezvous, restore and the
+    step: everything a real recovery pays).
+
+    The reference's drill, with what differs: ``platform=""`` runs the
+    worker on the card (``"cpu"``, the default, on the CPU); the port
+    compiles no step, so there is no compile cache to point the worker
+    at; ``preset``, ``extra_env`` (more of the launcher's environment,
+    e.g. ``DLROVER_TPU_MASTER_SERVICE_TYPE``) and ``log_path`` (where the
+    launcher's combined output is written) are the port's.  The
+    launcher's process group is killed when ``timeout`` runs out.
+    Returns ``recovery_s`` and ``recovery_resumed_step``, or
+    ``recovery_error``."""
+    ckpt_dir = tempfile.mkdtemp(prefix="dlrover_tpu_recdrill_")
+    env = _subprocess_env()
+    env.update(
+        {
+            "DLROVER_TPU_CRASH_AT_STEP": "7",
+            "DLROVER_TPU_TOTAL_STEPS": "10",
+            "DLROVER_TPU_JOB_NAME": f"rec{uuid.uuid4().hex[:8]}",
+        }
+    )
+    env.update(extra_env or {})
+    cmd = [
+        sys.executable, "-m", "dlrover_tpu_torch.trainer.elastic_run",
+        "--standalone", "--nproc_per_node=1",
+        *([f"--platform={platform}"] if platform else []),
+        "--max-restarts=2",
+        "-m", "dlrover_tpu_torch.examples.train_llama_ckpt",
+        ckpt_dir, preset,
+    ]
+    try:
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env, cwd=REPO, start_new_session=True,
+        )
+        try:
+            stdout, stderr = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired as e:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+            return {"recovery_error": str(e)[:300]}
+        combined = stdout + stderr
+        if log_path:
+            with open(log_path, "w") as f:
+                f.write(combined)
+        crash_ts = resume_ts = None
+        resumed_step = None
+        for line in combined.splitlines():
+            line = line.strip()
+            if line.startswith("crash_ts="):
+                crash_ts = float(line.split("=", 1)[1])
+            elif line.startswith("resume_ts="):
+                parts = line.split()
+                resume_ts = float(parts[0].split("=", 1)[1])
+                resumed_step = int(parts[1].split("=", 1)[1])
+        if proc.returncode != 0 or crash_ts is None or resume_ts is None:
+            return {
+                "recovery_error": (
+                    f"rc={proc.returncode}: " + combined[-400:]
+                )
+            }
+        return {
+            "recovery_s": round(resume_ts - crash_ts, 2),
+            "recovery_resumed_step": resumed_step,
+        }
+    except OSError as e:
+        return {"recovery_error": str(e)[:300]}
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)

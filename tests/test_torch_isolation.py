@@ -39,17 +39,22 @@ def _imported_modules(path: Path):
 # a dotted module name of the JAX package; a path (dlrover_tpu/...) or a
 # directory name is not one
 MODULE_NAME = re.compile(r"(?<![\w./-])dlrover_tpu(?:\.[A-Za-z_]\w*)+")
+# the master's gRPC service name, a string constant of its own: a name on
+# the wire that both packages' masters and clients share (the client's
+# method paths, "/dlrover_tpu.Master/get", are not matched at all), not a
+# module; test_wire_name_is_no_module holds that no module bears it
+WIRE_NAMES = ("dlrover_tpu.Master",)
 
 
 def _named_modules(path: Path):
     """The JAX package's modules that the file's string constants name,
-    docstrings and other bare string statements aside."""
+    docstrings, other bare string statements and the wire names aside."""
     tree = ast.parse(path.read_text(), filename=str(path))
     bare = {id(node.value) for node in ast.walk(tree)
             if isinstance(node, ast.Expr)}
     for node in ast.walk(tree):
         if (isinstance(node, ast.Constant) and isinstance(node.value, str)
-                and id(node) not in bare):
+                and id(node) not in bare and node.value not in WIRE_NAMES):
             for match in MODULE_NAME.finditer(node.value):
                 yield match.group(0)
 
@@ -87,6 +92,21 @@ def test_string_checker_catches_a_module_run_by_name(tmp_path):
     )
     assert list(_named_modules(sample)) == [
         "dlrover_tpu.trainer.elastic_run", "dlrover_tpu.master.main"]
+
+
+def test_wire_name_is_no_module(tmp_path):
+    for name in WIRE_NAMES:
+        parts = name.split(".")
+        assert not (ROOT.joinpath(*parts).with_suffix(".py").exists()
+                    or ROOT.joinpath(*parts).exists()), name
+    sample = tmp_path / "sample.py"
+    sample.write_text(
+        'SERVICE_NAME = "dlrover_tpu.Master"\n'
+        'cmd = "python -m dlrover_tpu.Master.main"\n'
+        'mod = "dlrover_tpu.master.main"\n'
+    )
+    assert list(_named_modules(sample)) == [
+        "dlrover_tpu.Master.main", "dlrover_tpu.master.main"]
 
 
 def test_checker_catches_each_form(tmp_path):
