@@ -95,6 +95,25 @@ use), then runs, in order, failing on the first phase that fails:
    peer_read_gbps, bytes_peer and bytes_manifest of each, then
    bench.peer_recovery_bench() at its default (8 MB, 4 local hosts, one
    dead), all in a {"peer_restore": {...}} line;
+   [chaos], inside [peer restore]'s lifetime (diagnosis/chaos_drill.py,
+   chaos/): (a) the eight scenarios of the port's drill with their states
+   on the card, each ok with every check true, at least one fault fired
+   and its INCIDENT.json classified as INCIDENT_EXPECTATIONS says, and
+   torn_shm, node_flap, kv_timeout and heartbeat_loss replayed at seed 13
+   to equal normalized traces; (b) at full width on [dist persist]'s
+   trainer and state: a fresh scope restores the sealed commit; storage_crc
+   in a fresh directory under DLROVER_TPU_VERIFY_CRC=eager (a clean
+   storage save of that state, one train step that must give the
+   uninterrupted loss, a save of the stepped state with one persisted
+   chunk torn after its CRC record, then a fresh scope's restore, which
+   must refuse the newer step for its checksum in its log and land
+   torch.equal on the older one); torn_shm on the sealed commit (an async
+   memory save of the next step dies at stream chunk 2, the segment reads
+   torn, and the restore lands torch.equal on the sealed step); after
+   each restore one step must give the uninterrupted loss (1e-6
+   relative) with one step's flash launches, and each leg's incident
+   must read ckpt and its chaos point; seconds of each scenario and of
+   the phase go to a {"chaos": {...}} line;
    [dist bench]: the reference's persist bench (dist_bench.py: hosts
    simulated in this process, 1, 2 and 4 of them, one coordinator) at 1024
    MB when the temp dir's disk and the host's RAM allow (64 MB else), its
@@ -368,7 +387,8 @@ over every rank's steps of the [pp] legs, ``launches_cp`` a step by rank
 on each flash [cp] leg, ``launches_launcher`` over both workers' steps in
 the [launcher] phase (counted by each worker, read from its step lines),
 ``launches_peer_restore`` over the [peer restore]
-phase's two steps after its restores, and ``off_diagonal`` its time,
+phase's two steps after its restores, ``launches_chaos`` over the
+[chaos] phase's three steps at full width, and ``off_diagonal`` its time,
 bound, plain and SDPA times at the cp=2 ring's off-diagonal block; each
 ring kernel's ``launches_load_state`` is its count over the step after
 the dp leg's ``load_state`` at 2 ranks, and ``launches_comm_probe`` the
@@ -381,6 +401,7 @@ no result.
 import dataclasses
 import gc
 import json
+import logging
 import math
 import os
 import re
@@ -513,6 +534,10 @@ CKPT_META_MARGIN = 64 << 20
 # from 22 layers to keep the script within its time limit beside the
 # [launcher] drill (their rates per byte stay comparable)
 DIST_CKPT_LAYERS = 11
+# [chaos]: the drill's scenarios replayed at this seed must give equal
+# normalized fault traces
+CHAOS_REPLAY_SEED = 13
+CHAOS_REPLAYED = ("torn_shm", "node_flap", "kv_timeout", "heartbeat_loss")
 # the forward of the step from the restored state against the first step
 # from the snapshot: the same weights, batch and kernels on one card
 RESTORED_LOSS_RTOL = 1e-6
@@ -1455,6 +1480,70 @@ def check_shm(need: int, what: str) -> None:
     if free < need:
         raise AssertionError(f"/dev/shm has {free / 1e9:.2f} GB free, "
                              f"{what} needs {need / 1e9:.2f} GB")
+
+
+def check_disk(need: int, what: str) -> None:
+    """Print the temp dir's free disk beside what ``what`` needs; fail
+    when it does not fit."""
+    import shutil
+    import tempfile
+
+    root = tempfile.gettempdir()
+    free = shutil.disk_usage(root).free
+    print(f"  {root} free {free / 1e9:.1f} GB; {what} needs "
+          f"{need / 1e9:.1f} GB", flush=True)
+    if free < need:
+        raise AssertionError(f"the temp dir's disk has {free / 1e9:.2f} GB "
+                             f"free, {what} needs {need / 1e9:.2f} GB")
+
+
+def restore_exact(ckpt, target, trainer, want, want_step, label):
+    """Restore ``target`` through the Checkpointer ``ckpt`` (timed, the
+    card synchronized); fail unless it gives ``want_step`` with every
+    leaf ``torch.equal`` to ``want`` (path -> leaf).  Returns the
+    restored state and the restore's seconds."""
+    import torch
+
+    from dlrover_tpu_torch.common.pytree import flatten_with_path
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored, got = ckpt.load_checkpoint(target, trainer=trainer)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    leaves = flatten_with_path(restored) if restored is not None else []
+    bad = [path for path, leaf in leaves
+           if not (torch.equal(leaf, want[path])
+                   if isinstance(leaf, torch.Tensor)
+                   else leaf == want[path])]
+    print(f"  {label}: the restore gave step {got} in {seconds:.3f} s; "
+          f"{len(leaves) - len(bad)} of {len(want)} leaves torch.equal to "
+          "the saved state", flush=True)
+    if got != want_step or bad or len(leaves) != len(want):
+        raise AssertionError(f"{label}: the restore gave step {got} (want "
+                             f"{want_step}); leaves that differ: {bad[:5]}")
+    return restored, seconds
+
+
+def step_after_restore(fa, trainer, state, batch, uninterrupted, per_step,
+                       label):
+    """One step from a restored ``state``; fail unless its loss is the
+    uninterrupted run's within RESTORED_LOSS_RTOL and it made one step's
+    flash launches ``per_step``.  Returns the loss and the launches."""
+    fa.reset_launches()
+    _, metrics = trainer.train_step(state, batch)
+    loss = metrics["loss"].item()
+    launches = dict(fa.launches)
+    print(f"  {label}: one step, loss {loss!r} (uninterrupted "
+          f"{uninterrupted!r}), flash launches {launches}", flush=True)
+    if not (math.isfinite(loss) and abs(loss - uninterrupted)
+            <= RESTORED_LOSS_RTOL * abs(uninterrupted)):
+        raise AssertionError(f"{label}: loss {loss} after the restore, "
+                             f"{uninterrupted} uninterrupted")
+    if launches != per_step:
+        raise AssertionError(f"{label}: the step launched {launches}, "
+                             f"expected {per_step}")
+    return loss, launches
 
 
 def check_ckpt_leg(name, saved, per_step, launches) -> None:
@@ -2659,7 +2748,6 @@ def peer_restore_phase(fa, batch, trainer, ckpt_dir, step, want,
     record."""
     import torch
 
-    from dlrover_tpu_torch.common.pytree import flatten_with_path
     from dlrover_tpu_torch.trainer.flash_checkpoint import (
         Checkpointer,
         bench,
@@ -2696,41 +2784,18 @@ def peer_restore_phase(fa, batch, trainer, ckpt_dir, step, want,
                 or not equal:
             raise AssertionError(f"the {rung} recovery reported {report} "
                                  f"(meta equal to the donor's: {equal})")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        restored, got = ckpt.load_checkpoint(trainer.create_state(),
-                                             trainer=trainer)
-        torch.cuda.synchronize()
-        restore_s = time.perf_counter() - t0
-        bad = [path for path, leaf in flatten_with_path(restored)
-               if not (torch.equal(leaf, want[path])
-                       if isinstance(leaf, torch.Tensor)
-                       else leaf == want[path])]
-        if got != step or bad:
-            raise AssertionError(f"{rung}: the restore gave step {got} "
-                                 f"(want {step}); leaves that differ: "
-                                 f"{bad[:5]}")
-        fa.reset_launches()
-        _, metrics = trainer.train_step(restored, batch)
-        loss = metrics["loss"].item()
-        launches = dict(fa.launches)
-        del restored
         print(f"  {rung} rung: mttr_s {report['mttr_s']:.3f}, "
               f"peer_read_gbps {report['peer_read_gbps']:.3f}, bytes_peer "
               f"{report['bytes_peer']}, bytes_manifest "
               f"{report['bytes_manifest']} ({report['storage_reads']} shard "
-              f"reads), the meta byte-equal to the donor's; the "
-              f"Checkpointer's restore of the filled segment "
-              f"{restore_s:.3f} s, {len(want)} leaves torch.equal; one step: "
-              f"loss {loss!r} (uninterrupted {uninterrupted!r}), flash "
-              f"launches {launches}", flush=True)
-        if not (math.isfinite(loss) and abs(loss - uninterrupted)
-                <= RESTORED_LOSS_RTOL * abs(uninterrupted)):
-            raise AssertionError(f"{rung}: loss {loss} after the restore, "
-                                 f"{uninterrupted} uninterrupted")
-        if launches != per_step:
-            raise AssertionError(f"{rung}: the step launched {launches}, "
-                                 f"expected {per_step}")
+              f"reads), the meta byte-equal to the donor's", flush=True)
+        restored, restore_s = restore_exact(
+            ckpt, trainer.create_state(), trainer, want, step,
+            f"{rung}: the Checkpointer's restore of the filled segment")
+        loss, launches = step_after_restore(
+            fa, trainer, restored, batch, uninterrupted, per_step,
+            f"{rung}: the step from it")
+        del restored
         ckpt.engine.unlink_memory()
         return dict(report, restore_s=restore_s, loss_after_restore=loss,
                     launches=launches)
@@ -2781,6 +2846,229 @@ def peer_restore_phase(fa, batch, trainer, ckpt_dir, step, want,
             c.close()
     print(f"  the phase took {time.perf_counter() - phase_t0:.1f} s",
           flush=True)
+    return record
+
+
+class _Logged(logging.Handler):
+    """Keeps the warnings of a logger while a restore runs ([chaos] reads
+    a refusal's stated reason from them)."""
+
+    def __init__(self):
+        super().__init__(level=logging.WARNING)
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def chaos_phase(fa, batch, trainer, ckpt_dir, step, want, uninterrupted,
+                per_step, donor) -> dict:
+    """The [chaos] phase (module docstring): the drill's eight scenarios
+    on the card, then storage_crc and torn_shm at full width on [dist
+    persist]'s trainer, its sealed commit of ``step`` in ``ckpt_dir`` and
+    its saved state ``want``.  Returns its JSON record; its
+    ``launches`` are the flash launches of its three steps."""
+    import shutil
+    import tempfile
+    from unittest import mock
+
+    import torch
+
+    from dlrover_tpu_torch import chaos
+    from dlrover_tpu_torch.common.log import logger
+    from dlrover_tpu_torch.diagnosis import chaos_drill as drill
+    from dlrover_tpu_torch.parallel.dp_workers import dist_persist
+    from dlrover_tpu_torch.trainer.flash_checkpoint import (
+        Checkpointer,
+        StorageType,
+        snapshot,
+    )
+
+    phase_t0 = time.perf_counter()
+    record = {"scenarios": {}, "full_width": {}}
+
+    # (a) the drill's scenarios, their states on the card
+    for name in drill.PORTED:
+        result = drill.run_scenario(name, 0, device="cuda")
+        want_phase, want_point = drill.INCIDENT_EXPECTATIONS[name]
+        incident = result.get("incident") or {}
+        got = (incident.get("phase"), (incident.get("chaos") or {}).get(
+            "point"))
+        print(f"  {name}: ok {result['ok']}, {len(result['checks'])} checks,"
+              f" faults_fired {result['faults_fired']}, incident {got}, "
+              f"{result['wall_s']} s", flush=True)
+        if not result["ok"] or result["faults_fired"] < 1 or \
+                got != (want_phase, want_point) or chaos.is_active():
+            raise AssertionError(f"chaos scenario {name}: {result}")
+        record["scenarios"][name] = dict(
+            seconds=result["wall_s"], faults_fired=result["faults_fired"],
+            phase=got[0], point=got[1])
+    for name in CHAOS_REPLAYED:
+        traces = [drill.normalized_trace(drill.run_scenario(
+            name, CHAOS_REPLAY_SEED, device="cuda")["trace"])
+            for _ in range(2)]
+        if traces[0] != traces[1] or not traces[0]:
+            raise AssertionError(f"{name} at seed {CHAOS_REPLAY_SEED} "
+                                 f"replayed {traces}")
+    print(f"  {', '.join(CHAOS_REPLAYED)} replayed at seed "
+          f"{CHAOS_REPLAY_SEED}: equal normalized traces", flush=True)
+
+    # (b) at full width
+    state_bytes = sum(t.numel() * t.element_size() for t in want.values()
+                      if isinstance(t, torch.Tensor))
+    # storage_crc's two persisted steps in a fresh directory, and one
+    # snapshot segment mapped at a time
+    check_disk(2 * state_bytes, "storage_crc's two persisted steps")
+    check_shm(state_bytes + CKPT_META_MARGIN, "a snapshot segment")
+    launches = {k: 0 for k in per_step}
+    made = []
+    crc_dir = tempfile.mkdtemp(prefix="dlrover_tpu_torch_crc_")
+    workdir = tempfile.mkdtemp(prefix="dlrover_tpu_torch_incidents_")
+    tag = f"chaos{os.getpid()}"
+
+    def checkpointer(directory, scope, async_snapshot=False):
+        # the engines on [dist persist]'s directory take its persist, as
+        # that phase's do; the fresh directory's take the legacy one, so
+        # both of its saves go through the same persist
+        with dist_persist(directory == ckpt_dir):
+            made.append(Checkpointer(directory, scope=f"{tag}{scope}",
+                                     async_snapshot=async_snapshot,
+                                     device=trainer.device))
+        return made[-1]
+
+    def restore(ckpt, target, label, want_step):
+        return restore_exact(ckpt, target, trainer, want, want_step, label)
+
+    def step_from(state, label):
+        _, got = step_after_restore(fa, trainer, state, batch,
+                                    uninterrupted, per_step, label)
+        for k in launches:
+            launches[k] += got.get(k, 0)
+
+    def incident(name, checks):
+        found = drill.capture_incident(name, workdir, checks)["incident"]
+        got = (found["phase"], (found["chaos"] or {}).get("point"))
+        if got != drill.INCIDENT_EXPECTATIONS[name] or \
+                not all(checks.values()):
+            raise AssertionError(f"{name}: incident {found}, {checks}")
+        return got
+
+    try:
+        # the sealed commit into a fresh scope: the state both legs use
+        first = checkpointer(ckpt_dir, "r")
+        state, _ = restore(first, trainer.create_state(),
+                           "the sealed commit, a fresh scope", step)
+        first.engine.unlink_memory()
+
+        # storage_crc: a clean save of the state, then of the next step
+        # with one persisted chunk torn after its CRC record
+        t0 = time.perf_counter()
+        # eager: the restore checks every chunk's CRC before it picks a
+        # step; one writer: the chunks reach the point in offset order
+        with mock.patch.dict(os.environ, DLROVER_TPU_VERIFY_CRC="eager",
+                             DLROVER_TPU_PERSIST_WRITERS="1"):
+            drill.reset_evidence()
+            chaos.configure(chaos.scenario_plan("storage_crc", 0))
+            chaos.clear("storage.write_chunk")
+            saver = checkpointer(crc_dir, "a")
+            saver.save_checkpoint(step, state, StorageType.DISK,
+                                  trainer=trainer)
+            if not saver.wait_latest_checkpoint(timeout=900):
+                raise AssertionError("storage_crc: the clean save of step "
+                                     f"{step} did not persist")
+            # as the drill does: the plan's one spec cleared disarms the
+            # engine, so the re-targeted spec counts from the next save
+            chunks = chaos.engine().call_count("storage.write_chunk")
+            chaos.inject(chaos.FaultSpec(point="storage.write_chunk",
+                                         kind=chaos.TORN_WRITE,
+                                         on_calls=[chunks + 1]))
+            step_from(state, "storage_crc, the step after the clean save")
+            saver.save_checkpoint(step + 1, state, StorageType.DISK,
+                                  trainer=trainer)
+            if not saver.wait_latest_checkpoint(timeout=900):
+                raise AssertionError("storage_crc: the save of step "
+                                     f"{step + 1} did not persist")
+            saver.engine.unlink_memory()
+            torn = [r for r in chaos.trace()
+                    if r["kind"] == chaos.TORN_WRITE]
+            if len(torn) != 1:
+                raise AssertionError(f"storage_crc: faults {chaos.trace()}")
+            logged = _Logged()
+            logger.addHandler(logged)
+            try:
+                restored, restore_s = restore(
+                    checkpointer(crc_dir, "b"), state,
+                    "storage_crc, a fresh scope", step)
+            finally:
+                logger.removeHandler(logged)
+            refusals = [line for line in logged.lines
+                        if f"checkpoint step {step + 1} unreadable" in line
+                        and "checksum mismatch" in line]
+            print(f"  storage_crc: the torn chunk is call "
+                  f"{torn[0]['call']} of the point since it was armed; step "
+                  f"{step + 1} refused: {refusals[:1]}", flush=True)
+            if not refusals:
+                raise AssertionError("storage_crc: the restore did not "
+                                     f"refuse step {step + 1} for its CRC: "
+                                     f"{logged.lines}")
+            step_from(restored, "storage_crc, the step from the older step")
+            checks = {}
+            got = incident("storage_crc", checks)
+            chaos.clear()
+            crc_s = time.perf_counter() - t0
+            record["full_width"]["storage_crc"] = dict(
+                seconds=crc_s, torn_call=torn[0]["call"],
+                restore_s=restore_s, refused=refusals[0], incident=got)
+            print(f"  storage_crc at full width: incident {got}, "
+                  f"{crc_s:.1f} s", flush=True)
+        shutil.rmtree(crc_dir, ignore_errors=True)
+
+        # torn_shm: over the sealed commit, an async memory save of the
+        # next step dies at stream chunk 2
+        t0 = time.perf_counter()
+        drill.reset_evidence()
+        chaos.configure(chaos.scenario_plan("torn_shm", 0))
+        ckpt = checkpointer(ckpt_dir, "t", async_snapshot=True)
+        ckpt.save_checkpoint(step + 1, restored, StorageType.MEMORY,
+                             trainer=trainer)
+        try:
+            ckpt.wait_latest_checkpoint(timeout=900)
+            died = None
+        except RuntimeError as e:
+            died = e
+        fired = [(r["point"], r["call"]) for r in chaos.trace()]
+        torn_now = snapshot.is_torn(ckpt.engine._shm)
+        print(f"  torn_shm: the save of step {step + 1} raised "
+              f"{type(getattr(died, '__cause__', None)).__name__}; faults "
+              f"{fired}; the segment reads torn: {torn_now}", flush=True)
+        if not isinstance(getattr(died, "__cause__", None),
+                          chaos.ChaosError) or not torn_now or \
+                fired != [("snapshot.stream_chunk", 2)]:
+            raise AssertionError(f"torn_shm: {died!r}, {fired}, {torn_now}")
+        restored, restore_s = restore(ckpt, restored,
+                                      "torn_shm, the same scope", step)
+        step_from(restored, "torn_shm, the step from the sealed step")
+        checks = {}
+        got = incident("torn_shm", checks)
+        chaos.clear()
+        torn_s = time.perf_counter() - t0
+        record["full_width"]["torn_shm"] = dict(
+            seconds=torn_s, restore_s=restore_s, fault=fired[0],
+            incident=got)
+        print(f"  torn_shm at full width: incident {got}, {torn_s:.1f} s",
+              flush=True)
+        del state, restored
+    finally:
+        chaos.clear()
+        for c in made:
+            c.engine.unlink_memory()
+            c.close()
+        shutil.rmtree(crc_dir, ignore_errors=True)
+        shutil.rmtree(workdir, ignore_errors=True)
+    record["launches"] = launches
+    record["seconds"] = time.perf_counter() - phase_t0
+    print(f"  the phase took {record['seconds']:.1f} s; flash launches of "
+          f"its 3 steps {launches}", flush=True)
     return record
 
 
@@ -3672,19 +3960,12 @@ def launcher_phase(per_step: dict, state_bytes: int, plain: dict,
     recovery_s (named for the load it was taken under), and what
     ``beside`` returned."""
     import ast
-    import shutil
     import tempfile
 
     from dlrover_tpu_torch.trainer.flash_checkpoint import bench
 
     check_shm(state_bytes + CKPT_META_MARGIN, "the worker's snapshot")
-    free = shutil.disk_usage(tempfile.gettempdir()).free
-    need = 2 * state_bytes
-    print(f"  {tempfile.gettempdir()} free {free / 1e9:.1f} GB; two "
-          f"persisted steps need {need / 1e9:.1f} GB", flush=True)
-    if free < need:
-        raise AssertionError(f"the temp dir's disk has {free / 1e9:.2f} GB "
-                             f"free, the drill needs {need / 1e9:.2f} GB")
+    check_disk(2 * state_bytes, "two persisted steps")
     fd, log_path = tempfile.mkstemp(prefix="chip_smoke_launcher_",
                                     suffix=".log")
     os.close(fd)
@@ -3877,11 +4158,13 @@ def run_phases() -> list:
          "flash_bwd_dkv": trainer.model.config.num_layers})
     print(json.dumps({"ckpt": ckpt_record}), flush=True)
     print("[dist persist]", flush=True)
-    peer_record = {}
+    peer_record, chaos_record = {}, {}
 
     def peer_phase(*args):
         print("[peer restore]", flush=True)
         peer_record.update(peer_restore_phase(fa, batch, *args))
+        print("[chaos]", flush=True)
+        chaos_record.update(chaos_phase(fa, batch, *args))
 
     dist_record = dist_persist_phase(
         fa, trainer, state, batch,
@@ -3890,6 +4173,7 @@ def run_phases() -> list:
          "flash_bwd_dkv": trainer.model.config.num_layers}, then=peer_phase)
     print(json.dumps({"dist_persist": dist_record}), flush=True)
     print(json.dumps({"peer_restore": peer_record}), flush=True)
+    print(json.dumps({"chaos": chaos_record}), flush=True)
     peer_launches = {k: peer_record["peer"]["launches"][k]
                      + peer_record["manifest"]["launches"][k]
                      for k in REPLACES}
@@ -3997,6 +4281,7 @@ def run_phases() -> list:
              launches_moe=moe_launches[name],
              launches_pp=pp_launches[name],
              launches_peer_restore=peer_launches[name],
+             launches_chaos=chaos_record["launches"][name],
              launches_launcher=launcher["launches"][name],
              launches_replica=replica_launches[name],
              launches_cp=cp_launches[name],

@@ -19,8 +19,9 @@ torn-generation re-check, and the step counts as persisted only once the
 coordinator sealed it — no done files, no rename.  Its coordinator is
 process 0's over the world's store; a saver with no world (an agent
 process) refuses a ``dist`` event of several processes with
-``NotImplementedError``, since the master's commit RPC is not ported
-(ROADMAP queue 1 item 11).
+``NotImplementedError``: the saver does not yet find the master's commit
+RPC by itself (``distributed.MasterCommitClient`` is injected through
+``distributed.set_commit_client``; ROADMAP queue 1 item 11).
 
 Save-on-failure: when the agent detects worker death it calls
 ``save_shm_on_failure`` which persists any shm snapshot newer than the
@@ -41,8 +42,6 @@ import time
 import uuid
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Tuple
-
-import torch
 
 from dlrover_tpu_torch.common import envs
 from dlrover_tpu_torch.common.constants import CheckpointConstant
@@ -251,19 +250,32 @@ class AsyncCheckpointSaver:
             ack.set()
 
     def _run_save(self, event: Dict):
+        from dlrover_tpu_torch.observability import metrics as obs_metrics
+        from dlrover_tpu_torch.observability import trace
+
         proc_lock = self._proc_locks.setdefault(
             int(event["process_id"]), threading.Lock()
         )
+        t0, ok = time.monotonic(), False
         try:
             with proc_lock:
-                with torch.profiler.record_function("flash.persist"):
+                # persist span: shm -> durable storage for one step;
+                # storage chaos faults fired below attribute here
+                with trace.span(
+                    "flash.persist",
+                    attrs={"step": int(event.get("step", -1))},
+                ):
                     self._handle_save(event)
+            ok = True
         except Exception as e:  # noqa: BLE001 - saver must survive
             logger.exception("async ckpt persist failed: %s", event)
             with self._outstanding_lock:
                 if self._error is None:
                     self._error = e
         finally:
+            obs_metrics.observe_ckpt_phase(
+                "persist", time.monotonic() - t0, ok=ok
+            )
             with self._outstanding_lock:
                 self._outstanding -= 1
                 if self._outstanding == 0:

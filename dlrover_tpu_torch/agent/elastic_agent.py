@@ -17,8 +17,7 @@ saver's queue and takes the agent side.
 
 What differs from the copy: the worker's ``PYTHONPATH`` root is this
 package's; the peer serve endpoint exports no compile cache (the port
-compiles no step, ROADMAP item 7, the rest); the chaos point of the
-heartbeat is a comment; and a ``brain_scale_plan`` with ``live_reshard``
+compiles no step, ROADMAP item 7, the rest); and a ``brain_scale_plan`` with ``live_reshard``
 or a ``brain_demote`` logs a warning and the loop goes on (the port has
 neither the live reshard, ROADMAP item 6c, nor the hierarchy demotion,
 item 6d).
@@ -349,11 +348,17 @@ class ElasticAgent:
     # -- heartbeat ---------------------------------------------------------
 
     def _heartbeat_loop(self):
+        from dlrover_tpu_torch import chaos
+
         ctx = Context.singleton_instance()
         while not self._stop_heartbeat.wait(ctx.heartbeat_interval_secs):
             try:
-                # chaos point "agent.heartbeat" (DROP/FLAP: swallowed;
-                # ROADMAP item 7, the rest)
+                fault = chaos.point("agent.heartbeat",
+                                    node_id=self._client.node_id)
+                if fault is not None and fault.kind in (
+                    chaos.DROP, chaos.FLAP
+                ):
+                    continue  # heartbeat swallowed (partition/agent stall)
                 actions = self._client.report_heart_beat(
                     digest=self._collect_digest()
                 )

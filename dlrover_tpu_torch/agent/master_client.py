@@ -9,9 +9,10 @@ and HTTP flavors.  The wire is the reference's (the envelope, the
 ``/report`` and ``/get`` routes, the ``dlrover_tpu.Master`` gRPC
 service), so a port agent talks to a reference master and back.
 
-What differs from the copy: the chaos points are comments where they
-would fire (the port has no chaos engine, ROADMAP item 7, the rest), and
-``grpc`` is imported inside ``GrpcMasterClient`` as in the reference.
+Its chaos points are the reference's (``master_client.transport`` inside
+the retried unit, ``kv_store.set``/``.get``/``.wait`` and
+``master_client.barrier``); ``grpc`` is imported inside
+``GrpcMasterClient`` as in the reference.
 """
 
 import random
@@ -19,6 +20,7 @@ import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
+from dlrover_tpu_torch import chaos
 from dlrover_tpu_torch.common import coalesce
 from dlrover_tpu_torch.common import comm
 from dlrover_tpu_torch.common import envs
@@ -166,14 +168,16 @@ class MasterClient:
             # each attempt is a CHILD span and the envelope is rebuilt
             # under it: a retried call shows N attempt spans and the
             # server links to the one that got through.  The chaos
-            # point "master_client.transport" would sit here, inside the
-            # retried unit (ROADMAP item 7, the rest).
+            # point sits INSIDE the retried unit: an injected transport
+            # fault exercises the same retry path a real connection
+            # failure does.
             t0, sent = time.monotonic(), False
             try:
                 with trace.span(
                     f"rpc.attempt/{method}", kind=trace.CLIENT
                 ):
                     envelope = self._envelope(payload)
+                    chaos.point("master_client.transport", op="report")
                     reply = comm.Message.from_json(
                         self._report_raw(envelope)
                     )
@@ -204,7 +208,7 @@ class MasterClient:
                     f"rpc.attempt/{method}", kind=trace.CLIENT
                 ):
                     envelope = self._envelope(payload)
-                    # chaos point "master_client.transport" (op="get")
+                    chaos.point("master_client.transport", op="get")
                     reply = comm.Message.from_json(self._get_raw(envelope))
                     sent = True
             finally:
@@ -344,20 +348,26 @@ class MasterClient:
 
     # kv store
     #
-    # The reference's chaos points here model what a kv consumer sees: a
-    # dropped get reads as "key not there yet", a dropped set reports
-    # failure without reaching the store (ROADMAP item 7, the rest).
+    # Chaos points model the FAILURE MODES a kv consumer actually sees:
+    # a dropped get reads as "key not there yet" (what a master-side
+    # timeout looks like to kv_store_wait), a dropped set reports
+    # failure without reaching the store.  exception/delay kinds work
+    # at every point for free.
 
     def kv_store_set(self, key: str, value: bytes) -> bool:
         with trace.span("kv.set", kind=trace.CLIENT, attrs={"key": key}):
-            # chaos point "kv_store.set" (DROP/FLAP: returns False)
+            fault = chaos.point("kv_store.set", key=key)
+            if fault is not None and fault.kind in (chaos.DROP, chaos.FLAP):
+                return False
             return self._report(
                 comm.KeyValuePair(key=key, value=value)
             ).success
 
     def kv_store_get(self, key: str) -> bytes:
         with trace.span("kv.get", kind=trace.CLIENT, attrs={"key": key}):
-            # chaos point "kv_store.get" (DROP/FLAP: returns b"")
+            fault = chaos.point("kv_store.get", key=key)
+            if fault is not None and fault.kind in (chaos.DROP, chaos.FLAP):
+                return b""
             resp = self._get(comm.KVStoreGetRequest(key=key))
             return resp.value if isinstance(resp, comm.KeyValuePair) else b""
 
@@ -422,12 +432,17 @@ class MasterClient:
                             deadline - time.time(),
                             envs.get_float("DLROVER_TPU_LONGPOLL_MAX_S"),
                         )
-                        # chaos point "kv_store.wait" (DROP/FLAP: the
-                        # chunk "expires")
-                        t0 = time.time()
-                        value = self._kv_wait_rpc(key, chunk, min_value)
-                        if value == b"":
-                            pace_reissue(t0, min(chunk, poll))
+                        fault = chaos.point("kv_store.wait", key=key)
+                        if fault is not None and fault.kind in (
+                            chaos.DROP, chaos.FLAP
+                        ):
+                            value: Optional[bytes] = b""  # chunk "expired"
+                            time.sleep(min(chunk, 0.05))
+                        else:
+                            t0 = time.time()
+                            value = self._kv_wait_rpc(key, chunk, min_value)
+                            if value == b"":
+                                pace_reissue(t0, min(chunk, poll))
                         if value is None:
                             continue  # legacy master: re-enter as poll loop
                         polls += 1
@@ -818,7 +833,10 @@ class MasterClient:
             "barrier", kind=trace.CLIENT,
             attrs={"name": name, "notify": notify},
         ):
-            # chaos point "master_client.barrier" (DROP/FLAP: False)
+            # ctx key must not collide with point()'s positional `name`
+            fault = chaos.point("master_client.barrier", barrier=name)
+            if fault is not None and fault.kind in (chaos.DROP, chaos.FLAP):
+                return False
             if notify:
                 return self._report(
                     comm.SyncBarrierRequest(barrier_name=name, notify=True)

@@ -5,8 +5,9 @@ paths read (the grad sync, the flash checkpoint and its distributed
 persist, the node env they are scoped by, the worker bootstrap and the
 mesh, the rank's runtime digest: tracing, metrics, the flight
 recorder, the goodput ledger and the memory, comm and compile scopes,
-and the job runtime: the launcher, the local master, its admission
-control, the agent's transport and its retry budget): the same names,
+the job runtime: the launcher, the local master, its admission
+control, the agent's transport and its retry budget, and fault
+injection and the incident engine): the same names,
 defaults and parsing, and the reference's per-call ``default=``
 override for the sites whose default is computed.  A knob is added with
 the port of the code that reads it.  Values are read from
@@ -162,6 +163,26 @@ DEFAULTS = {
     "DLROVER_TPU_JITSCOPE": True,
     "DLROVER_TPU_JITSCOPE_EVENTS": 256,
     "DLROVER_TPU_JITSCOPE_STALL_MS": 500.0,
+    # synthetic bytes the chaos point mem.pressure adds to the sampled
+    # in-use figure per fired fault (cumulative: an injected leak)
+    "DLROVER_TPU_MEM_CHAOS_INFLATE_B": 268435456.0,
+    # -- fault injection (chaos/): arming from the env (tests and drills
+    # only; the switch stays off by default), an inline JSON plan or a
+    # path to one, the seed override, the JSONL file fired faults append to
+    "DLROVER_TPU_CHAOS": False,
+    "DLROVER_TPU_CHAOS_SPEC": "",
+    "DLROVER_TPU_CHAOS_SEED": 0,
+    "DLROVER_TPU_CHAOS_TRACE_FILE": "",
+    # -- the incident engine (observability/incidents.py): the root of
+    # the per-incident directories, the per-kind dedup window, how long a
+    # finalize waits for agent dumps, the incidents kept on disk --
+    "DLROVER_TPU_INCIDENT_DIR": os.path.join(_TMP, "incidents"),
+    "DLROVER_TPU_INCIDENT_COOLDOWN_S": 300.0,
+    "DLROVER_TPU_INCIDENT_GRACE_S": 60.0,
+    "DLROVER_TPU_INCIDENT_MAX": 16,
+    # the memory forecast horizon (s): a memory incident counts an earlier
+    # hbm_leak/mem_pressure incident as its forecast within twice this
+    "DLROVER_TPU_MEM_FORECAST_S": 600.0,
     # -- the job runtime: launcher, master, agent (trainer/elastic_run.py,
     # master/, agent/elastic_agent.py, agent/master_client.py) --
     # master transport (grpc or http) and listen port (0: a free one)

@@ -2,10 +2,10 @@
 
 Copy of ``dlrover_tpu/common/storage.py`` (``CheckpointStorage``,
 ``PosixDiskStorage``, ``write_chunks``/``chunk_spans`` and the deletion
-strategies).  The agent's async saver talks only to this interface.  Left
-out: the chaos hooks (fault injection is ROADMAP queue 1 item 7) and the
-fsspec backend for URL paths (item 7 too): ``get_checkpoint_storage`` refuses
-a URL path.
+strategies), with its chaos points ``storage.write`` and
+``storage.write_chunk``.  The agent's async saver talks only to this
+interface.  Left out: the fsspec backend for URL paths (ROADMAP queue 1
+item 7): ``get_checkpoint_storage`` refuses a URL path.
 """
 
 import os
@@ -15,7 +15,34 @@ import zlib
 from abc import ABC, abstractmethod
 from typing import Dict, List, Optional
 
+from dlrover_tpu_torch import chaos
 from dlrover_tpu_torch.common.log import logger
+
+
+def _chaos_write(path: str):
+    """``storage.write`` chaos point: delay = slow NFS/GCS stall,
+    exception = transport failure; ``torn_write``/``drop`` are returned
+    for the write implementations to act on (truncate the payload /
+    skip the write)."""
+    return chaos.point("storage.write", path=path)
+
+
+def _chaos_chunk(content, path: str, offset: int):
+    """``storage.write_chunk`` chaos point, fired per persist chunk.
+    ``torn_write`` corrupts the chunk bytes ON DISK while the CRC
+    record still describes the intended bytes — exactly what a torn
+    page-cache writeback looks like to a later restore.  The chunk is
+    only copied when a fault actually fires."""
+    fault = chaos.point("storage.write_chunk", path=path, offset=offset)
+    if fault is not None and fault.kind == chaos.TORN_WRITE:
+        torn = bytearray(content)
+        # flip the middle byte: detectable by CRC, invisible to size
+        # checks — the silent-corruption shape CRC verification exists
+        # for
+        if torn:
+            torn[len(torn) // 2] ^= 0xFF
+        return bytes(torn)
+    return content
 
 
 def chunk_spans(total: int, chunk_bytes: int) -> List[tuple]:
@@ -102,20 +129,53 @@ class CheckpointStorage(ABC):
         fixed-size chunks, returning per-chunk integrity records
         ``[{"offset", "nbytes", "crc32"}, ...]``.
 
-        The base implementation writes one object — correct for object
-        stores, which lack random writes.  Posix overrides with a parallel
-        positional-write pool."""
+        The base implementation streams sequentially through one handle
+        — correct for object stores, which lack random writes (a
+        concurrent multipart upload would slot in here).  Posix
+        overrides with a parallel positional-write pool.
+
+        Chaos parity with the posix pool: the whole-payload
+        ``storage.write`` point fires FIRST (same call ordering), a DROP
+        returns intact CRC records with nothing on the store (lost
+        PUT), and a TORN_WRITE uploads only the first half of the
+        payload (killed mid-upload leaves a truncated object — restore's
+        size probe catches it, where posix leaves a full-size file with
+        zeroed tail for the CRC probe).  Per-chunk ``storage.
+        write_chunk`` faults corrupt chunk bytes while records stay
+        intact, identically to posix."""
+        fault = _chaos_write(path)
         view = memoryview(content).cast("B")
-        records = [
-            {"offset": off, "nbytes": n,
-             "crc32": zlib.crc32(view[off : off + n])}
-            for off, n in chunk_spans(len(view), chunk_bytes)
-        ]
-        self._write_payload(view, path)
+        total = len(view)
+        records: List[Dict] = []
+        out = view
+        for off, n in chunk_spans(total, chunk_bytes):
+            records.append({
+                "offset": off,
+                "nbytes": n,
+                "crc32": zlib.crc32(view[off : off + n]),
+            })
+            if chaos.is_active():
+                # same per-chunk injection point as the posix pool, so a
+                # chaos plan behaves identically across backends
+                mv = view[off : off + n]
+                torn = _chaos_chunk(mv, path, off)
+                if torn is not mv:
+                    if out is view:
+                        out = bytearray(view)
+                    out[off : off + n] = torn
+        if fault is not None and fault.kind == chaos.DROP:
+            # injected lost PUT: intact CRC records, nothing stored
+            return records
+        if fault is not None and fault.kind == chaos.TORN_WRITE:
+            out = memoryview(out).cast("B")[: max(1, total // 2)]
+        self._write_payload(out, path)
         return records
 
     def _write_payload(self, content, path: str):
-        """Raw single-object write used by the base ``write_chunks``."""
+        """Raw single-object write used by the base ``write_chunks`` —
+        the whole-payload chaos point already fired there, so backends
+        whose ``write`` injects faults override this with a fault-free
+        write to avoid double-charging the chaos schedule."""
         self.write_bytes(content, path)
 
     @abstractmethod
@@ -192,8 +252,13 @@ class PosixDiskStorage(CheckpointStorage):
         self._mmap_cache: dict = {}
 
     def write(self, content, path: str):
+        fault = _chaos_write(path)
+        if fault is not None and fault.kind == chaos.DROP:
+            return  # injected silent write loss
         self.safe_makedirs(os.path.dirname(path))
         mode = "wb" if isinstance(content, (bytes, bytearray, memoryview)) else "w"
+        if fault is not None and fault.kind == chaos.TORN_WRITE:
+            content = content[: max(1, len(content) // 2)]
         with open(path, mode) as f:
             f.write(content)
             f.flush()
@@ -232,9 +297,27 @@ class PosixDiskStorage(CheckpointStorage):
         ``writers`` threads pwrite disjoint chunks concurrently (pwrite
         releases the GIL, so page-cache memcpys genuinely overlap) while
         each computes its chunk's CRC32.  One fsync at the end."""
+        fault = _chaos_write(path)
         view = memoryview(content).cast("B")
         total = len(view)
         spans = chunk_spans(total, chunk_bytes)
+        if fault is not None and fault.kind == chaos.DROP:
+            # injected silent write loss: return intact CRC records with
+            # NOTHING on disk — restore's size/CRC probes must catch it
+            return [
+                {"offset": off, "nbytes": n,
+                 "crc32": zlib.crc32(view[off : off + n])}
+                for off, n in spans
+            ]
+        # torn_write at whole-payload granularity: the file keeps its
+        # full size (pre-truncated) but bytes past the midpoint never
+        # land — what a killed writer leaves behind.  Per-chunk
+        # corruption is the `storage.write_chunk` point's job.
+        write_limit = (
+            max(1, total // 2)
+            if fault is not None and fault.kind == chaos.TORN_WRITE
+            else total
+        )
         self.safe_makedirs(os.path.dirname(path))
         fd = os.open(path, os.O_CREAT | os.O_WRONLY | os.O_TRUNC, 0o644)
         try:
@@ -245,9 +328,14 @@ class PosixDiskStorage(CheckpointStorage):
                 off, n = span
                 mv = view[off : off + n]
                 crc = zlib.crc32(mv)
+                data = _chaos_chunk(mv, path, off) if \
+                    chaos.is_active() else mv
                 written = 0
-                while written < n:
-                    written += os.pwrite(fd, mv[written:], off + written)
+                limit = max(0, min(n, write_limit - off))
+                while written < limit:
+                    written += os.pwrite(
+                        fd, data[written:limit], off + written
+                    )
                 return {"offset": off, "nbytes": n, "crc32": crc}
 
             if writers <= 1 or len(spans) <= 1:

@@ -1,8 +1,8 @@
 """Servicer admission control: bounded concurrency with backpressure.
 
-Copy of ``dlrover_tpu/master/admission.py``, its imports the port's. The
-chaos point of admission (``servicer.admission``) is a comment where it
-would fire: the port has no chaos engine yet (ROADMAP item 7, the rest).
+Copy of ``dlrover_tpu/master/admission.py``, its imports the port's, with
+the chaos point of admission (``servicer.admission``: a DROP or FLAP is a
+forced shed).
 
 The master is one process serving every agent in the job; without a
 bound, a 10k-agent herd turns each RPC into a lock convoy and p99
@@ -137,10 +137,12 @@ class AdmissionController:
     def admit(self, method: str, wait: bool = False) -> Optional[_Pool]:
         """Returns the pool to release, or None when the request must be
         rejected with an overload response."""
+        from dlrover_tpu_torch import chaos
+
         pool = self._pool(wait)
-        # chaos point "servicer.admission" (DROP/FLAP: a forced shed;
-        # ROADMAP item 7, the rest)
-        forced = False
+        fault = chaos.point("servicer.admission", method=method,
+                            pool=pool.name)
+        forced = fault is not None and fault.kind in (chaos.DROP, chaos.FLAP)
         if not forced and pool.try_acquire():
             return pool
         # mark the shed on the server span the servicer already opened,

@@ -17,9 +17,11 @@ Failure matrix (what each crash window leaves behind):
 
 * host dies before/while writing shards → its manifest never arrives,
   the step never seals; orphan ``shards/`` files are GC'd later.
-* host dies between its shard write and its report → same as above.
-* coordinator dies before writing the union manifest → step unsealed; a
-  re-report of any manifest (idempotent) retries the seal.
+* host dies between its shard write and its report (the
+  ``ckpt.phase1_report`` chaos point) → same as above.
+* coordinator dies before writing the union manifest (the
+  ``ckpt.phase2_commit`` chaos point) → step unsealed; a re-report of
+  any manifest (idempotent) retries the seal.
 * coordinator dies between the manifest write and the COMMITTED pointer →
   the manifest-scan fallback in ``distributed.read_committed_step`` still
   finds the sealed step (a manifest file exists only for fully covered
@@ -33,9 +35,10 @@ shm snapshots that peers can serve to a replaced process
 the master; the port reaches it in-process (``peer_restore.LocalPeerClient``)
 or over the world's c10d store (``peer_restore.StorePeerClient``).
 
-Not ported: the chaos point of phase 2, its trace span and metrics, and
-the broker's ``/recovery`` dashboard feed and MTTR sentinel (ROADMAP queue 1
-item 7).
+Phase 2 runs under the reference's ``ckpt.phase2_commit`` trace span and
+chaos point, and records ``ckpt_phase_seconds{phase="phase2_seal"}``.  Not
+ported: the broker's ``/recovery`` dashboard feed and MTTR sentinel
+(ROADMAP_LAUNCHER_REST: they need the master's time-series store).
 """
 
 import json
@@ -44,6 +47,7 @@ import threading
 import time
 from typing import Any, Dict, List, Optional
 
+from dlrover_tpu_torch import chaos
 from dlrover_tpu_torch.common import envs
 from dlrover_tpu_torch.common.log import logger
 from dlrover_tpu_torch.common.storage import get_checkpoint_storage
@@ -180,34 +184,53 @@ class CkptCommitCoordinator:
         ``pending.sealing``); only the final COMMITTED-pointer publish
         re-takes the lock, so status readers see 'sealed' and 'COMMITTED
         advanced' atomically and the pointer never moves backwards.  A
-        failure marks the pending error and leaves the previous commit
-        intact; the next (re-)report retries."""
+        failure (injected via ``ckpt.phase2_commit`` or real) marks the
+        pending error and leaves the previous commit intact; the next
+        (re-)report retries."""
+        from dlrover_tpu_torch.observability import metrics as obs_metrics
+        from dlrover_tpu_torch.observability import trace
+
         step = pending.step
-        ok = False
+        t0, ok = time.monotonic(), False
         try:
-            storage.write_atomic(
-                json.dumps(union), dist.manifest_path(ckpt_dir, step),
-            )
-            with self._mu:
-                if step > self._committed.get(ckpt_dir, -1):
-                    # a handful of bytes by local atomic rename: cheap
-                    # enough under the lock, which keeps the advance
-                    # monotonic under concurrent seals
-                    storage.write_atomic(
-                        str(step), dist.committed_path(ckpt_dir)
+            with trace.span(
+                "ckpt.phase2_commit",
+                attrs={"step": step, "hosts": len(pending.manifests)},
+            ):
+                fault = chaos.point("ckpt.phase2_commit", step=step)
+                if fault is not None and fault.kind in (
+                    chaos.DROP, chaos.FLAP
+                ):
+                    # injected coordinator death before the commit
+                    # record: nothing published, step stays unsealed
+                    raise chaos.ChaosError(
+                        "chaos: coordinator died before phase-2 commit"
                     )
-                    self._committed[ckpt_dir] = step
-                pending.sealed = True
-                pending.error = ""
-                pending.sealed_at = time.time()
-            ok = True
-            logger.info(
-                "ckpt coordinator: sealed step %d in %s (%d hosts, "
-                "%.1f MB new bytes)", step, ckpt_dir,
-                len(pending.manifests), pending.bytes_written / 1e6,
-            )
-        except Exception as e:  # noqa: BLE001 - the previous commit
-            # stays restorable; a re-report retries
+                storage.write_atomic(
+                    json.dumps(union),
+                    dist.manifest_path(ckpt_dir, step),
+                )
+                with self._mu:
+                    if step > self._committed.get(ckpt_dir, -1):
+                        # the pointer file is a handful of bytes and the
+                        # write is a local atomic rename: cheap enough
+                        # to keep under the lock, which is what makes
+                        # the advance monotonic under concurrent seals
+                        storage.write_atomic(
+                            str(step), dist.committed_path(ckpt_dir)
+                        )
+                        self._committed[ckpt_dir] = step
+                    pending.sealed = True
+                    pending.error = ""
+                    pending.sealed_at = time.time()
+                ok = True
+                logger.info(
+                    "ckpt coordinator: sealed step %d in %s (%d hosts, "
+                    "%.1f MB new bytes)", step, ckpt_dir,
+                    len(pending.manifests), pending.bytes_written / 1e6,
+                )
+        except Exception as e:  # noqa: BLE001 - seal failure must not
+            # crash the servicer; the previous commit stays restorable
             with self._mu:
                 pending.error = f"{type(e).__name__}: {e}"
             logger.error(
@@ -219,6 +242,9 @@ class CkptCommitCoordinator:
         finally:
             with self._mu:
                 pending.sealing = False
+            obs_metrics.observe_ckpt_phase(
+                "phase2_seal", time.monotonic() - t0, ok=ok
+            )
         return ok
 
     def _build_union(self, pending: _PendingCommit) -> Dict:

@@ -1,9 +1,8 @@
 """Master-side key-value store.
 
-Copy of ``dlrover_tpu/master/kv_store.py``, its imports the port's. Its
-three chaos points (``kv_server.set``, ``.get``, ``.wait``) are comments
-where they would fire: the port has no chaos engine yet (ROADMAP item 7,
-the rest).
+Copy of ``dlrover_tpu/master/kv_store.py``, its imports the port's, with
+its three chaos points (``kv_server.set``, ``.get``, ``.wait``: a DROP or
+FLAP is a lost write, an absent key, a wait that times out).
 
 The JAX package's counterpart of DLRover's
 ``dlrover/python/master/elastic_training/kv_store_service.py:45``.  On GPU
@@ -38,17 +37,25 @@ class KVStoreService:
         self._cond = threading.Condition(self._lock)
 
     def set(self, key: str, value: bytes):
+        from dlrover_tpu_torch import chaos
+
         # child of the servicer's server span (same thread/context):
         # master-side kv latency becomes visible under the RPC it served
         with trace.span("kv_server.set", attrs={"key": key}):
-            # chaos point "kv_server.set" (DROP/FLAP: a lost write; item 7)
+            fault = chaos.point("kv_server.set", key=key)
+            if fault is not None and fault.kind in (chaos.DROP, chaos.FLAP):
+                return  # injected lost write inside the master
             with self._cond:
                 self._store[key] = value
                 self._cond.notify_all()
 
     def get(self, key: str) -> bytes:
+        from dlrover_tpu_torch import chaos
+
         with trace.span("kv_server.get", attrs={"key": key}):
-            # chaos point "kv_server.get" (DROP/FLAP: key absent; item 7)
+            fault = chaos.point("kv_server.get", key=key)
+            if fault is not None and fault.kind in (chaos.DROP, chaos.FLAP):
+                return b""  # injected read timeout: key looks absent
             with self._lock:
                 return self._store.get(key, b"")
 
@@ -61,10 +68,14 @@ class KVStoreService:
         ``add`` companion).  Every mutation notifies the store's
         Condition, so this is the server half of the long-poll protocol
         — one blocked RPC replaces a client's sleep-poll loop."""
+        from dlrover_tpu_torch import chaos
+
         # the master-side kv wait IS the stall a blocked consumer sees:
         # trace it so a rendezvous hang points at the key it waited on
         with trace.span("kv_server.wait", attrs={"key": key}) as sp:
-            # chaos point "kv_server.wait" (DROP/FLAP: a timeout; item 7)
+            fault = chaos.point("kv_server.wait", key=key)
+            if fault is not None and fault.kind in (chaos.DROP, chaos.FLAP):
+                return b""  # injected wait timeout: key never shows up
             deadline = time.time() + timeout
             with self._cond:
                 while not self._ready(key, min_value):

@@ -7,9 +7,14 @@ distributed master minus platform scalers/watchers: the agent on this host
 rendezvouses through it, workers fetch data shards and publish kv-store
 entries, heartbeats feed hang detection.
 
-What differs from the copy (ROADMAP item 11, the rest): the perf-regression
-sentinels and the incident engine are not built, so a hang the
-diagnostician fires broadcasts its restart with no coordinated evidence.
+The incident engine (``observability/incidents.py``) is built and attached
+to the diagnosis manager and the servicer: a hang the diagnostician fires
+opens a ``hang`` incident whose ``flight_dump`` broadcast is queued ahead
+of the restart, the agents' dumps land in it, and its finalize writes a
+classified ``INCIDENT.json``.  What differs from the copy
+(``ROADMAP_LAUNCHER_REST``): the perf-regression sentinels are not
+registered and the incident engine has no time-series store, since the
+master's time-series store is not ported.
 """
 
 import threading
@@ -142,11 +147,22 @@ class LocalJobMaster:
                 metric_context=self.servicer.metric_context,
             )
         )
-        # the reference registers its perf-regression sentinels over the
-        # heartbeat-digest time series here, and an incident engine that
-        # captures coordinated evidence of a hang (broadcast flight dumps
-        # -> merged timeline + classified INCIDENT.json): not ported
-        # (ROADMAP item 11, the rest)
+        # incident engine: a hang fired by the diagnostician above also
+        # captures coordinated evidence (broadcast flight dumps ->
+        # merged timeline + classified INCIDENT.json) — the standalone
+        # master keeps the same detection -> evidence -> verdict loop.
+        # The reference's perf-regression sentinels over the
+        # heartbeat-digest time series register here too; they and the
+        # store wait (ROADMAP_LAUNCHER_REST)
+        from dlrover_tpu_torch.observability.incidents import (
+            IncidentManager,
+        )
+
+        self.incident_manager = IncidentManager(
+            job_context=self._job_context
+        )
+        self.diagnosis_manager.set_incident_manager(self.incident_manager)
+        self.servicer.set_incident_manager(self.incident_manager)
         self._server = create_master_service(
             port, self.servicer, ctx.master_service_type
         )

@@ -1,8 +1,8 @@
 """Master-side elastic rendezvous.
 
-Copy of ``dlrover_tpu/master/rdzv_manager.py``, its imports the port's.
-The chaos point of a join (``rdzv.join``) is a comment where it would
-fire: the port has no chaos engine yet (ROADMAP item 7, the rest).
+Copy of ``dlrover_tpu/master/rdzv_manager.py``, its imports the port's,
+with the chaos point of a join (``rdzv.join``: a DROP or FLAP swallows the
+join, and the agent's poll loop re-joins).
 
 The JAX package's counterpart of DLRover's
 ``dlrover/python/master/elastic_training/rdzv_manager.py`` (RendezvousManager
@@ -140,13 +140,19 @@ class RendezvousManager(ABC):
         """Add a host to the waiting set; returns the round it will join.
         ``node_unit`` (hosts per slice) comes from the agent's launch config
         and overrides the manager default so worlds stay slice-aligned."""
+        from dlrover_tpu_torch import chaos
         from dlrover_tpu_torch.observability import trace
 
         with trace.span(
             "rdzv.join", attrs={"node_id": node_id, "node_rank": node_rank}
         ):
-            # chaos point "rdzv.join" (DROP/FLAP: the join is swallowed
-            # and the agent re-joins; ROADMAP item 7, the rest)
+            fault = chaos.point("rdzv.join", node_id=node_id)
+            if fault is not None and fault.kind in (chaos.DROP, chaos.FLAP):
+                # the join is swallowed (node flapped mid-rendezvous):
+                # the agent's poll loop re-joins, the round seals without
+                # losing the other members' progress
+                with self._lock:
+                    return self._rdzv_round
             with self._lock:
                 if node_unit > 1:
                     self._node_unit = node_unit

@@ -7,11 +7,13 @@ a ``get`` (request→typed response) or a ``report`` (fire→ack), dispatched
 on the dataclass type inside the envelope.  New features add a dataclass +
 handler, never a service method.
 
-What differs from the copy (ROADMAP item 11, the rest): the servicer keeps
+An agent's flight dump (``IncidentDumpReport``) lands in its incident
+through the attached incident engine (the local master attaches one).
+What differs from the copy (``ROADMAP_LAUNCHER_REST``): the servicer keeps
 no time-series store and no ``datascope`` shard telemetry, so a heartbeat
 digest and a recovery report feed the metric context and the peer broker
-only; the incident dump and the brain ack answer as the reference's
-servicer does with no incident manager and no brain attached.
+only; the brain ack answers as the reference's servicer does with no
+brain attached.
 """
 
 import time
@@ -117,8 +119,7 @@ class MasterServicer:
 
     def set_incident_manager(self, incident_manager: Any):
         """Attach the incident engine so agent flight dumps
-        (``IncidentDumpReport``) land in their incident directory.  The
-        port has no incident engine yet (ROADMAP item 11, the rest)."""
+        (``IncidentDumpReport``) land in their incident directory."""
         self._incident_manager = incident_manager
 
     def set_brain(self, brain: Any):

@@ -1,8 +1,8 @@
 """Dynamic data-shard task dispatch.
 
-Copy of ``dlrover_tpu/master/task_manager.py``, its imports the port's.
-The chaos point of a lease (``data.lease``) is a comment where it would
-fire: the port has no chaos engine yet (ROADMAP item 7, the rest).
+Copy of ``dlrover_tpu/master/task_manager.py``, its imports the port's,
+with the chaos point of a lease (``data.lease``: a DROP answers an empty
+batch, a DELAY stalls that lease alone).
 
 The JAX package's counterpart of DLRover's ``dlrover/python/master/shard/``
 (``TaskManager`` ``task_manager.py:35``, ``recover_tasks`` ``:174``,
@@ -18,6 +18,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
+from dlrover_tpu_torch import chaos
 from dlrover_tpu_torch.common.log import logger
 from dlrover_tpu_torch.master.dataset_splitter import (
     DatasetSplitter,
@@ -250,9 +251,16 @@ class TaskManager:
         tasks plus the dataset's finished flag.  A missing dataset reads
         as finished (mirrors the single-task path, where a lost dataset
         yields an invalid task and the consumer stops)."""
+        # chaos fires OUTSIDE the lock: a data.lease DELAY stalls THIS
+        # lease without wedging every other dispatcher thread — and
+        # inside the timed window, so the injected stall books into
+        # the lease's service latency exactly like a real slow dispatch
         t0 = time.time()
-        # chaos point "data.lease" (DROP: an empty batch): no chaos engine
-        # in the port yet (ROADMAP item 7, the rest)
+        fault = chaos.point(
+            "data.lease", node=node_id, dataset=dataset_name
+        )
+        if fault is not None and fault.kind == chaos.DROP:
+            return [], False
         with self._lock:
             tasks, finished = self._lease_locked(
                 node_id, dataset_name, count
@@ -274,7 +282,11 @@ class TaskManager:
         dispatchable, the dataset finishes, or ``timeout`` passes.
         An empty batch with ``finished=False`` means re-poll."""
         t0 = time.time()
-        # chaos point "data.lease" (DROP: an empty batch; item 7, the rest)
+        fault = chaos.point(
+            "data.lease", node=node_id, dataset=dataset_name
+        )
+        if fault is not None and fault.kind == chaos.DROP:
+            return [], False
         deadline = time.time() + max(0.0, timeout)
         queue_wait = 0.0
         with self._lock:

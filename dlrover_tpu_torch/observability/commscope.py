@@ -33,8 +33,10 @@ Port of ``dlrover_tpu/observability/commscope.py``, three pieces:
 and keeps the ``exposed_comm`` sub-account per (transport, axis).
 
 Everything here is guarded by its callers: a broken probe never breaks a
-training step.  The chaos points ``comm.axis_delay.<axis>`` and
-``comm.probe.init`` are ROADMAP item 7's rest.
+training step.  The chaos point ``comm.axis_delay.<axis>`` fires inside
+the probe's timed latency window and each bucket's timed window on the
+sync axis (a seeded DELAY is an injected per-axis link latency), and a
+probe warms the engine with ``comm.probe.init`` when it is made.
 """
 
 import threading
@@ -54,6 +56,19 @@ from dlrover_tpu_torch.parallel.mesh import axis_fabric
 DIGEST_LAT = "fxl_"
 DIGEST_BW = "fxb_"
 
+
+
+#: chaos injection point prefix: ``comm.axis_delay.<axis>`` fires
+#: inside the probe's timed latency window (and each bucket
+#: measurement window on the sync axis), so a seeded DELAY fault IS an
+#: injected per-axis link latency.
+AXIS_DELAY_POINT = "comm.axis_delay."
+
+
+def _fire_axis_delay(axis: str) -> None:
+    from dlrover_tpu_torch import chaos
+
+    chaos.point(AXIS_DELAY_POINT + axis, axis=axis)
 
 
 def merge_digest(dst: Dict[str, float], src: Dict[str, Any]) -> None:
@@ -194,8 +209,12 @@ class MeshProbe:
         # (axis, kind) -> (collective on its input, the group's device)
         self._fns: Dict[Any, Any] = {}
         self.probes_done = 0
-        # the reference warms its chaos engine here (the point
-        # comm.probe.init): ROADMAP item 7, the rest
+        # warm the chaos engine's one-time env probe NOW: the first
+        # injection-point call pays it, and it must not land inside the
+        # first probe's timed latency window (a ~1ms phantom "link")
+        from dlrover_tpu_torch import chaos
+
+        chaos.point("comm.probe.init")
 
     @classmethod
     def for_mesh(cls, mesh, **kwargs) -> Optional["MeshProbe"]:
@@ -277,8 +296,9 @@ class MeshProbe:
             # group's buffers and connections
             self._run(axis, "lat")
             t0 = _time.perf_counter()
-            # the chaos point comm.axis_delay.<axis> (an injected link
-            # latency inside this window) is ROADMAP item 7, the rest
+            # the injected per-axis link latency lands INSIDE the timed
+            # window — chaos prices the axis exactly like a slow link
+            _fire_axis_delay(axis)
             for _ in range(self.reps):
                 self._run(axis, "lat")
             lat_s = (_time.perf_counter() - t0) / self.reps
@@ -433,8 +453,9 @@ class BucketScope:
                 },
             ) as sp:
                 t0 = _time.perf_counter()
-                # the chaos point comm.axis_delay.<axis> fires here in the
-                # reference: ROADMAP item 7, the rest
+                # the injected axis latency prices every exchange
+                # riding this axis, not just the probe
+                _fire_axis_delay(self._axis)
                 for _ in range(reps):
                     chain()
                 _sync(device)

@@ -10,16 +10,24 @@ per-rank digest file the trainer writes (``trainer/train.py``).
 Appends are single ``deque.append`` calls on ``maxlen`` deques: no lock,
 O(1).  Feeds are one-directional and guarded by their callers, so a
 broken recorder never breaks training.  ``DLROVER_TPU_RECORDER=0`` turns
-every append into a flag check.  Left out with the incident engine that
-reads it (ROADMAP item 11): the snapshot of the rings, every thread's
-stack, the open spans and the metrics into one incident dump.
+every append into a flag check.  :meth:`FlightRecorder.snapshot` freezes
+the rings, every thread's Python stack, the open spans and the metrics
+registry into one JSON document, and :func:`dump` writes it: the unit the
+incident engine (``observability/incidents.py``) collects from every
+process (the master's own at the open, each agent's over the report RPC).
+The role tag is ``DLROVER_TPU_ROLE`` (``proc`` by default), as in
+``trace.py``.
 """
 
+import json
 import logging
+import os
+import sys
 import threading
 import time
+import traceback
 from collections import deque
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 from dlrover_tpu_torch.common import envs
 from dlrover_tpu_torch.common.log import logger
@@ -27,6 +35,21 @@ from dlrover_tpu_torch.common.log import logger
 
 def enabled() -> bool:
     return envs.get_bool("DLROVER_TPU_RECORDER")
+
+
+def all_thread_stacks() -> Dict[str, List[str]]:
+    """Formatted Python stacks of every live thread, keyed
+    ``"<thread name>:<ident>"`` — the ``sys._current_frames`` analogue
+    of a ``faulthandler`` dump, but structured and capturable without a
+    file descriptor.  Needs no cooperation from a stuck thread, which
+    is the whole point: the thread wedged inside a collective cannot
+    report itself."""
+    names = {t.ident: t.name for t in threading.enumerate()}
+    out: Dict[str, List[str]] = {}
+    for ident, frame in sys._current_frames().items():
+        key = f"{names.get(ident, '?')}:{ident}"
+        out[key] = traceback.format_stack(frame)
+    return out
 
 
 class _RingLogHandler(logging.Handler):
@@ -128,6 +151,58 @@ class FlightRecorder:
             "steps": float(len(durs)),
             "ts": round(samples[-1][0], 6),
         }
+
+    def snapshot(self, stacks: bool = True) -> Dict[str, Any]:
+        """Freeze the rings + live-thread stacks + open spans + metrics
+        into one JSON-serializable document (the incident dump unit)."""
+        snap: Dict[str, Any] = {
+            "role": os.environ.get("DLROVER_TPU_ROLE", "proc"),
+            "pid": os.getpid(),
+            "ts": round(time.time(), 6),
+            "uptime_s": round(time.time() - self._t0, 3),
+            "totals": {
+                "spans": self.total_spans,
+                "events": self.total_events,
+                "steps": self.total_steps,
+            },
+            "spans": list(self.spans),
+            "events": list(self.events),
+            "steps": [list(s) for s in self.steps],
+            "logs": list(self.logs),
+            "step_digest": self.step_digest(),
+        }
+        try:
+            from dlrover_tpu_torch.observability import trace
+
+            # the stuck operation is exactly the span that never
+            # finished — it is NOT in the spans ring, only here
+            snap["open_spans"] = trace.open_spans()
+        except Exception:  # noqa: BLE001 - snapshot is best-effort
+            snap["open_spans"] = []
+        try:
+            from dlrover_tpu_torch.observability import metrics
+
+            snap["metrics"] = metrics.registry().snapshot()
+        except Exception:  # noqa: BLE001
+            snap["metrics"] = {}
+        if stacks:
+            snap["stacks"] = all_thread_stacks()
+        return snap
+
+
+def dump(dir_path: str, tag: str,
+         snapshot: Optional[Dict[str, Any]] = None) -> str:
+    """Write a snapshot into ``dir_path/dump_<tag>.json`` (atomic
+    tmp+rename) and return the path."""
+    snap = snapshot if snapshot is not None else recorder().snapshot()
+    os.makedirs(dir_path, exist_ok=True)
+    path = os.path.join(dir_path, f"dump_{tag}.json")
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(snap, f, sort_keys=True)
+    os.replace(tmp, path)
+    return path
+
 
 _RECORDER: Optional[FlightRecorder] = None
 _RECORDER_MU = threading.Lock()

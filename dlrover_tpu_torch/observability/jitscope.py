@@ -32,9 +32,14 @@ counting per thread and per process.
 
 Left out: the reference's ``persistent_cache_override`` and
 ``_cache_info`` (its XLA compile cache's directory and boot state), which
-have no counterpart here, and the chaos point ``jitscope.compile`` (ROADMAP
-item 7's rest).  Everything is guarded: a broken observatory never breaks
-a call, and ``DLROVER_TPU_JITSCOPE=0`` turns every hook into a flag check.
+have no counterpart here.
+
+Chaos: :data:`COMPILE_POINT` fires inside every detected compile
+window, so a seeded DELAY is injected compile seconds — the
+deterministic storm the ``cache_cold`` drill scenario prices.
+
+Everything is guarded: a broken observatory never breaks a call, and
+``DLROVER_TPU_JITSCOPE=0`` turns every hook into a flag check.
 """
 
 import threading
@@ -46,6 +51,12 @@ import torch
 from dlrover_tpu_torch.common import envs
 from dlrover_tpu_torch.common.log import logger
 from dlrover_tpu_torch.common.pytree import flatten_with_path
+
+#: chaos injection point: fires inside every detected compile window
+#: (after the call, while the window is still open), so a seeded
+#: DELAY fault IS injected compile time — the deterministic
+#: recompile-storm the drills price.
+COMPILE_POINT = "jitscope.compile"
 
 #: the trigger taxonomy, classification priority order
 TRIGGERS: Tuple[str, ...] = (
@@ -566,8 +577,17 @@ class WatchedFunction:
         compile_s = c1 - c0
         if compile_s <= 0 and h1 == h0 and m1 == m0:
             return result  # the cached hot path
-        # the chaos point jitscope.compile (injected compile seconds in
-        # this still-open window) is ROADMAP item 7, the rest
+        try:
+            # the chaos point fires INSIDE the still-open window: a
+            # seeded DELAY is injected compile time, priced as exactly
+            # the time the point call took (the sleep), nothing more
+            from dlrover_tpu_torch import chaos
+
+            point_t0 = time.time()
+            if chaos.point(COMPILE_POINT, fn=self.name) is not None:
+                compile_s += time.time() - point_t0
+        except Exception:  # noqa: BLE001 - chaos must not break dispatch
+            pass
         end_ts = time.time()
         wall_s = end_ts - start_ts
         # the libraries of one build run their nvcc side by side, so

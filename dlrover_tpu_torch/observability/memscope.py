@@ -38,8 +38,13 @@ file; an agent folds several ranks' files with :func:`merge_digest`.
 limit.
 
 Everything is guarded: a broken sampler never breaks a training step, and
-``DLROVER_TPU_MEM_SCOPE=0`` turns every hook into a flag check.  The chaos
-point ``mem.pressure`` is ROADMAP item 7's rest.
+``DLROVER_TPU_MEM_SCOPE=0`` turns every hook into a flag check.
+
+Chaos: the :data:`PRESSURE_POINT` injection point fires inside every
+sample; a seeded fault there (the ``hbm_leak`` drill scenario) inflates
+the reported in-use bytes by a cumulative
+``DLROVER_TPU_MEM_CHAOS_INFLATE_B`` per firing — a deterministic
+synthetic leak.
 """
 
 import gc
@@ -55,6 +60,11 @@ from dlrover_tpu_torch.common.log import logger
 from dlrover_tpu_torch.common.metric import card_memory
 from dlrover_tpu_torch.common.pytree import flatten_with_path
 from dlrover_tpu_torch.device import DeviceLike, resolve_device
+
+#: chaos injection point: fires inside every sample; a seeded fault
+#: here is an injected synthetic memory-stats inflation (the leak the
+#: ``hbm_leak`` drill scenario manufactures)
+PRESSURE_POINT = "mem.pressure"
 
 #: digest-key schema (flat floats riding ``comm.HeartBeat.digest``).
 #: Scalars: ``mm_<field>``; per-subsystem bytes: ``mms_<subsystem>``.
@@ -394,6 +404,8 @@ class MemScope:
         # name -> callable returning current bytes (the flash engine's
         # shm segment registers here)
         self._host_providers: Dict[str, Callable[[], float]] = {}
+        # cumulative injected inflation (the chaos synthetic leak)
+        self._inflate_b = 0.0
         self._peak_b = 0.0
         self._last: Optional[Dict[str, Any]] = None
         self.samples_done = 0
@@ -484,15 +496,29 @@ class MemScope:
     def sample(self) -> Dict[str, Any]:
         """One full sample: device stats + host RSS/shm + the rendered
         subsystem account.  Returns (and stores) the account dict."""
+        from dlrover_tpu_torch import chaos
+
         now = time.time()
         stats = self._read_stats()
-        # the chaos point mem.pressure (an injected inflation of the bytes
-        # in use) fires here in the reference: ROADMAP item 7, the rest
+        # an EXCEPTION fault here propagates (the injected behavior);
+        # DROP/DELAY faults return and read as synthetic inflation
+        fault = chaos.point(PRESSURE_POINT)
+        if fault is not None:
+            with self._mu:
+                self._inflate_b += envs.get_float(
+                    "DLROVER_TPU_MEM_CHAOS_INFLATE_B"
+                )
         with self._mu:
+            inflate = self._inflate_b
             plan = self._state_plan
             grad_sync_b = self._grad_sync_b
             compile_b = self._compile_b
             providers = dict(self._host_providers)
+        if inflate > 0:
+            stats = [dict(s) for s in stats]
+            for entry in stats:
+                entry["used_b"] += inflate
+                entry["source"] = "injected"
         used = max((s["used_b"] for s in stats), default=0.0)
         known_limits = [
             s["limit_b"] for s in stats if s["limit_b"] > 0

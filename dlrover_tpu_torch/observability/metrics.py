@@ -9,10 +9,12 @@ counters and gauges here (``mem_samples_total``,
 ``compile_seconds_total``, ...), and the job runtime its RPCs, retries,
 breakers, admission refusals and long-polls (:func:`observe_rpc`,
 :func:`record_retry`, :func:`record_breaker`, :func:`record_overload`,
-:func:`record_longpoll_coalesced`, :func:`observe_longpoll`).  Left out,
-with their callers (ROADMAP item 11, the rest): the catalog's entries of
-the checkpoint phases, chaos faults, the master's series and Brain, their
-helpers and the catalog's markdown generator.
+:func:`record_longpoll_coalesced`, :func:`observe_longpoll`), the
+checkpoint path its phases (:func:`observe_ckpt_phase`), the chaos engine
+its faults (:func:`record_chaos_fault`) and the incident engine its
+counts.  Left out, with their callers (ROADMAP_LAUNCHER_REST): the
+catalog's entries of the master's time series, the sentinels and Brain,
+their helpers and the catalog's markdown generator.
 
 Deliberately dependency-free (no prometheus_client).  Cardinality is
 bounded: at most ``DLROVER_TPU_METRICS_MAX_SERIES`` label combinations
@@ -342,6 +344,14 @@ METRICS: Dict[str, Tuple[str, Tuple[str, ...], str]] = {
         "circuit-breaker state transitions (state=open|half_open|"
         "closed)",
     ),
+    "dlrover_tpu_ckpt_phase_seconds": (
+        "histogram", ("phase",),
+        "flash-checkpoint phase duration (save/stage/persist/restore)",
+    ),
+    "dlrover_tpu_ckpt_phase_errors_total": (
+        "counter", ("phase",),
+        "flash-checkpoint phase failures",
+    ),
     "dlrover_tpu_servicer_overload_total": (
         "counter", ("method", "pool"),
         "requests refused by admission control (answered with a "
@@ -355,10 +365,20 @@ METRICS: Dict[str, Tuple[str, Tuple[str, ...], str]] = {
         "histogram", ("kind", "outcome"),
         "server-side long-poll block duration (outcome=hit|expired)",
     ),
+    "dlrover_tpu_chaos_faults_total": (
+        "counter", ("point", "kind"),
+        "chaos faults fired by injection point and kind",
+    ),
     "dlrover_tpu_metrics_dropped_series_total": (
         "counter", (),
         "label combinations dropped by the per-process series budget "
         "(DLROVER_TPU_METRICS_MAX_SERIES)",
+    ),
+    "dlrover_tpu_incidents_open": (
+        "gauge", (), "incidents opened but not yet finalized",
+    ),
+    "dlrover_tpu_incidents_total": (
+        "counter", ("kind",), "incidents opened by kind",
     ),
     "dlrover_tpu_comm_probes_total": (
         "counter", ("axis",),
@@ -500,4 +520,28 @@ def observe_longpoll(kind: str, dur_s: float, hit: bool) -> None:
         "dlrover_tpu_longpoll_wait_seconds", dur_s,
         help="server-side long-poll block duration (seconds)",
         kind=kind, outcome="hit" if hit else "expired",
+    )
+
+
+def observe_ckpt_phase(phase: str, dur_s: float, ok: bool = True) -> None:
+    """Checkpoint phase duration (save/stage/persist/restore)."""
+    reg = registry()
+    reg.observe(
+        "dlrover_tpu_ckpt_phase_seconds", dur_s,
+        help="flash-checkpoint phase duration (seconds)",
+        phase=phase,
+    )
+    if not ok:
+        reg.counter_inc(
+            "dlrover_tpu_ckpt_phase_errors_total",
+            help="flash-checkpoint phase failures",
+            phase=phase,
+        )
+
+
+def record_chaos_fault(point: str, kind: str) -> None:
+    registry().counter_inc(
+        "dlrover_tpu_chaos_faults_total",
+        help="chaos faults fired by injection point and kind",
+        point=point, kind=kind,
     )

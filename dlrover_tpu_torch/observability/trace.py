@@ -7,9 +7,11 @@ The current span rides a :mod:`contextvars` ContextVar; a span's
 ``traceparent()`` is what crosses a process boundary: the master client
 puts :func:`current_traceparent` into each envelope, and the servicer
 opens a :func:`server_span` parented to it.  Retries and the admission
-control attach events to the live span (:func:`add_event`).  Left out
-(ROADMAP item 11, the rest): the registry of open spans that an incident
-dump reads.
+control attach events to the live span (:func:`add_event`), and so does
+the chaos engine: a fault fired inside a span becomes its ``chaos.fault``
+event.  Every live span, on any thread, is in the registry that
+:func:`open_spans` reads: an incident dump names the operation that never
+finished.
 
 Every finished span feeds the flight recorder's span ring
 (``flight_recorder.on_span``) and the goodput ledger
@@ -246,6 +248,49 @@ _CURRENT: contextvars.ContextVar[Optional[Span]] = contextvars.ContextVar(
     "dlrover_tpu_trace_span", default=None
 )
 
+# every live (not yet ended) span, across ALL threads: the flight
+# recorder's snapshot reads this to name the operation that never
+# finished — in a hang, the stuck span IS the diagnosis, and it is by
+# definition absent from the finished-span ring
+_open_mu = threading.Lock()
+_OPEN: Dict[int, Span] = {}
+
+
+def open_spans() -> List[Dict[str, Any]]:
+    """Records of every currently-open span (any thread), longest-open
+    first, with a live ``open_for_s``."""
+    now = time.time()
+    with _open_mu:
+        spans = list(_OPEN.values())
+    out = []
+    for sp in spans:
+        # per-span fault isolation: these spans are LIVE and owned by
+        # other threads — a dict(sp.attrs) racing a concurrent set can
+        # raise, and one racy span must not void the whole list (the
+        # incident dump's stuck-span evidence)
+        try:
+            attrs = dict(sp.attrs)
+        except RuntimeError:
+            attrs = {}
+        try:
+            out.append(
+                {
+                    "name": sp.name,
+                    "kind": sp.kind,
+                    "trace_id": sp.trace_id,
+                    "span_id": sp.span_id,
+                    "parent_span_id": sp.parent_span_id,
+                    "start_ts": round(sp.start_ts, 6),
+                    "open_for_s": round(max(0.0, now - sp.start_ts), 6),
+                    "attrs": attrs,
+                }
+            )
+        except Exception:  # noqa: BLE001 - skip the racy span, keep the rest
+            continue
+    out.sort(key=lambda r: -r["open_for_s"])
+    return out
+
+
 def enabled() -> bool:
     return envs.get_bool("DLROVER_TPU_TRACE")
 
@@ -265,8 +310,8 @@ def current_traceparent() -> str:
 
 def add_event(name: str, **attrs: Any) -> bool:
     """Attach an event to the live span, if any.  The hook the retry
-    policy, circuit breaker and admission control call: they never hold
-    a span themselves."""
+    policy, circuit breaker, admission control and chaos engine call:
+    they never hold a span themselves."""
     sp = _CURRENT.get()
     if sp is None:
         return False
@@ -315,6 +360,8 @@ def span(name: str, kind: str = INTERNAL,
             sampled=_sampled_root(), attrs=attrs,
         )
     token = _CURRENT.set(sp)
+    with _open_mu:
+        _OPEN[id(sp)] = sp
     try:
         # the same name on torch.profiler's timeline: a profiled step
         # attributes the span's device work to it
@@ -326,6 +373,8 @@ def span(name: str, kind: str = INTERNAL,
     finally:
         _CURRENT.reset(token)
         sp.end()
+        with _open_mu:
+            _OPEN.pop(id(sp), None)
         _export(sp)
 
 

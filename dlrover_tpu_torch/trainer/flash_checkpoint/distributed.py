@@ -46,10 +46,15 @@ sealed commits wherever their leaf paths agree::
     <dir>/manifests/manifest_<step>.json  sealed union manifest (atomic)
     <dir>/COMMITTED                       latest sealed step (atomic)
 
-Not ported: the chaos points, trace spans and metrics (ROADMAP queue 1 item
-7), the master RPC client (item 11: a commit of several processes with no
-world, as a saver in an agent process would make, raises
-``NotImplementedError``) and the object-store ranged reads (item 7).  Leaves read back as torch tensors of the stored dtype (bf16
+The chaos point ``ckpt.phase1_report`` (a DROP is a host dying after its
+shard bytes landed and before its report), the trace spans
+``ckpt.phase1_report``, ``ckpt.dist_save`` and ``ckpt.dist_restore`` and
+the ``ckpt_phase_seconds`` phases are the reference's.  A commit over the
+master's RPC takes ``MasterCommitClient`` injected explicitly.  Not
+ported: the discovery of the master client (``ROADMAP_MASTER_RPC``: a
+commit of several processes with no world and no injected client, as a
+saver in an agent process would make, raises ``NotImplementedError``)
+and the object-store ranged reads (item 7).  Leaves read back as torch tensors of the stored dtype (bf16
 included), where the reference returns numpy arrays.
 """
 
@@ -74,6 +79,7 @@ import numpy as np
 import torch
 import torch.distributed as tdist
 
+from dlrover_tpu_torch import chaos
 from dlrover_tpu_torch.common import envs
 from dlrover_tpu_torch.common.log import logger
 from dlrover_tpu_torch.common.pytree import map_with_path
@@ -478,12 +484,16 @@ class HostShardWriter:
             ),
             "stats": stats,
         }
+        dur = time.monotonic() - t0
+        from dlrover_tpu_torch.observability import metrics as obs_metrics
+
+        obs_metrics.observe_ckpt_phase("dist_persist", dur, ok=True)
         logger.info(
             "dist-ckpt proc %d step %d: wrote %d shards (%.1f MB), reused "
             "%d, replica-skipped %d in %.2fs",
             self.process_id, step, stats["shards_written"],
             stats["bytes_written"] / 1e6, stats["shards_reused"],
-            stats["shards_skipped_replica"], time.monotonic() - t0,
+            stats["shards_skipped_replica"], dur,
         )
         return manifest
 
@@ -533,6 +543,36 @@ class LocalCommitClient:
     def wait_commit(self, ckpt_dir: str, step: int, timeout: float) -> bool:
         return _wait_sealed(lambda: self.commit_status(ckpt_dir, step),
                             step, timeout)
+
+
+class MasterCommitClient:
+    """Commit path over the master RPC client (the production shape:
+    phase-1 manifests and seal polls ride the existing report/get
+    demux to the master's coordinator).  Injected explicitly
+    (``client=`` or ``set_commit_client``)."""
+
+    def __init__(self, master_client):
+        self.client = master_client
+
+    def report_manifest(self, ckpt_dir: str, step: int, process_id: int,
+                        num_processes: int, manifest_json: str) -> bool:
+        return self.client.report_ckpt_manifest(
+            ckpt_dir, step, num_processes, manifest_json,
+            process_id=process_id,
+        )
+
+    def commit_status(self, ckpt_dir: str, step: int) -> Dict:
+        resp = self.client.get_ckpt_commit_status(ckpt_dir, step)
+        return {
+            "sealed": bool(resp.sealed),
+            "committed_step": int(resp.committed_step),
+            "reported": int(resp.reported),
+            "expected": int(resp.expected),
+            "reason": resp.reason,
+        }
+
+    def wait_commit(self, ckpt_dir: str, step: int, timeout: float) -> bool:
+        return self.client.wait_ckpt_commit(ckpt_dir, step, timeout)
 
 
 class StoreCommitClient:
@@ -744,10 +784,37 @@ def fire_phase1_report(
 ) -> bool:
     """The ONE phase-1 report sequence, shared by the trainer-side
     engine and the saver-side persister so both commit paths behave
-    identically."""
-    return client.report_manifest(
-        ckpt_dir, step, process_id, num_processes, json.dumps(manifest),
+    identically under the same chaos schedule.  The ``ckpt.
+    phase1_report`` point models a host dying AFTER its shard bytes
+    landed but BEFORE the coordinator hears about them — the
+    torn-commit window the seal protocol exists to survive."""
+    from dlrover_tpu_torch.observability import metrics as obs_metrics
+    from dlrover_tpu_torch.observability import trace
+
+    fault = chaos.point(
+        "ckpt.phase1_report", step=step, proc=process_id
     )
+    if fault is not None and fault.kind in (chaos.DROP, chaos.FLAP):
+        logger.warning(
+            "dist-ckpt proc %d step %d: phase-1 report dropped "
+            "(injected host death before report)", process_id, step,
+        )
+        return False
+    t0, ok = time.monotonic(), False
+    try:
+        with trace.span(
+            "ckpt.phase1_report",
+            attrs={"step": int(step), "proc": int(process_id)},
+        ):
+            ok = client.report_manifest(
+                ckpt_dir, step, process_id, num_processes,
+                json.dumps(manifest),
+            )
+        return ok
+    finally:
+        obs_metrics.observe_ckpt_phase(
+            "phase1", time.monotonic() - t0, ok=ok
+        )
 
 
 # ---------------------------------------------------------------------------
@@ -895,19 +962,25 @@ class DistributedCheckpointEngine:
                     )
                     yield spec, shard, (lambda _d=data: _host_bytes(_d))
 
-        manifest = writer.persist(step, _iter(), extras=extras)
-        stats = dict(manifest["stats"])
-        stats["reported"] = fire_phase1_report(
-            client, self.checkpoint_dir, step, pid, nprocs,
-            manifest,
-        )
-        stats["sealed"] = False
-        if stats["reported"] and wait_seal:
-            if timeout is None:
-                timeout = envs.get_float("DLROVER_TPU_DIST_COMMIT_TIMEOUT_S")
-            stats["sealed"] = client.wait_commit(
-                self.checkpoint_dir, step, timeout
+        from dlrover_tpu_torch.observability import trace
+
+        with trace.span(
+            "ckpt.dist_save", attrs={"step": int(step), "proc": pid}
+        ):
+            manifest = writer.persist(step, _iter(), extras=extras)
+            stats = dict(manifest["stats"])
+            stats["reported"] = fire_phase1_report(
+                client, self.checkpoint_dir, step, pid, nprocs,
+                manifest,
             )
+            stats["sealed"] = False
+            if stats["reported"] and wait_seal:
+                if timeout is None:
+                    timeout = envs.get_float(
+                        "DLROVER_TPU_DIST_COMMIT_TIMEOUT_S")
+                stats["sealed"] = client.wait_commit(
+                    self.checkpoint_dir, step, timeout
+                )
         self.last_save_stats = stats
         return stats
 
@@ -935,6 +1008,22 @@ class DistributedCheckpointEngine:
                    step: Optional[int] = None) -> Tuple[Optional[Any], int]:
         """``load`` with this process's ``{path: (global shape, box)}``
         already resolved (``engine.target_boxes``)."""
+        from dlrover_tpu_torch.observability import metrics as obs_metrics
+        from dlrover_tpu_torch.observability import trace
+
+        t0, out_step = time.monotonic(), -1
+        try:
+            with trace.span("ckpt.dist_restore") as sp:
+                state, out_step = self._load_boxes(target, boxes, step)
+                sp.set_attr("step", int(out_step))
+            return state, out_step
+        finally:
+            obs_metrics.observe_ckpt_phase(
+                "dist_restore", time.monotonic() - t0, ok=out_step >= 0
+            )
+
+    def _load_boxes(self, target: Any, boxes: Dict,
+                    step: Optional[int]) -> Tuple[Optional[Any], int]:
         self.fill_started = False
         if step is None:
             step = self.committed_step()

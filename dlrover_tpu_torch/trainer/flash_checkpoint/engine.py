@@ -61,9 +61,12 @@ so every rank makes the same collectives.
 Telemetry: the engine registers its snapshot segment with the memory
 scope as the host byte source ``ckpt_shm:<name>`` (its mapped size) and
 marks its phases with ``torch.profiler.record_function`` spans under the
-reference's names (``flash.save``, ``flash.load``,
-``ckpt_device_to_host``, ``ckpt_shm_write``, ``ckpt_stream_stage``).  Its
-trace spans, metrics and timer are ROADMAP item 7, the rest.
+reference's names (``flash.save`` through its trace span, ``flash.load``,
+``ckpt_device_to_host``, ``ckpt_shm_write``, ``ckpt_stream_stage``).  A
+save and a restore run under the reference's trace spans ``flash.save``
+and ``flash.restore`` (the goodput ledger charges them to ``ckpt_stall``)
+with their chaos points and ``ckpt_phase_seconds``.  Its timer is
+ROADMAP item 7, the rest.
 """
 
 import collections
@@ -639,12 +642,32 @@ class CheckpointEngine:
         self._check_layout(layout)
         self._raise_background_error()
         self._check_device(state)
-        with record_function("flash.save"):
-            return self._save_to_memory(step, state, extras, block_on_busy,
-                                        layout)
+        from dlrover_tpu_torch.observability import metrics as obs_metrics
+        from dlrover_tpu_torch.observability import trace
+
+        t0, blocked = time.monotonic(), -1.0
+        try:
+            with trace.span(
+                "flash.save",
+                attrs={"step": int(step), "storage": bool(block_on_busy)},
+            ):
+                blocked = self._save_to_memory(step, state, extras,
+                                               block_on_busy, layout)
+            return blocked
+        finally:
+            # a skipped non-blocking save is normal contention, not an
+            # error; only a durability-requested save that could not
+            # write counts
+            obs_metrics.observe_ckpt_phase(
+                "save_memory", time.monotonic() - t0,
+                ok=blocked >= 0 or not block_on_busy,
+            )
 
     def _save_to_memory(self, step, state, extras, block_on_busy,
                         layout) -> float:
+        from dlrover_tpu_torch import chaos
+
+        chaos.point("flash.save", step=step)  # exception/delay kinds
         t0 = time.time()
         if not block_on_busy:
             # cheap skip probe: an in-process stager mid-stream, or the
@@ -1247,12 +1270,28 @@ class CheckpointEngine:
         self._check_layout(layout)
         self._raise_background_error()
         self._check_device(target)
-        with record_function("flash.load"):
-            return self._load(target, target_boxes(target, layout), layouts)
+        from dlrover_tpu_torch.observability import metrics as obs_metrics
+        from dlrover_tpu_torch.observability import trace
+
+        t0, step_out = time.monotonic(), -1
+        try:
+            with trace.span("flash.restore") as sp, \
+                    record_function("flash.load"):
+                state, step_out = self._load(
+                    target, target_boxes(target, layout), layouts)
+                sp.set_attr("step", int(step_out))
+            return state, step_out
+        finally:
+            obs_metrics.observe_ckpt_phase(
+                "restore", time.monotonic() - t0, ok=step_out >= 0
+            )
 
     def _load(self, target: Any, boxes: Dict,
               layouts: Optional[Sequence[Layout]] = None,
               ) -> Tuple[Optional[Any], int]:
+        from dlrover_tpu_torch import chaos
+
+        chaos.point("flash.restore")  # exception/delay kinds
         # a restore must see the latest snapshot, not race the stager
         self._flush_async()
         self._raise_background_error()

@@ -47,14 +47,15 @@ process 0 finds its donors wherever the store outlives process 0: a
 elastic agent serves it); a ``TCPStore`` served by rank 0 itself dies with
 it, and the replacement then finds no donor and restores from storage.
 
-Left out, each ROADMAP queue 1 item 7: the compile-cache prewarm and the
-``/peer/cache*`` routes (the port has no persistent compile cache;
-``cache_prewarmed`` reads 0), the chaos points ``peer.serve`` and
-``peer.fetch`` (tests inject a fault through ``_http_fetch``), the trace
-spans (marked with ``torch.profiler.record_function`` under the
-reference's names ``peer_restore.ladder`` and ``peer_restore.manifest``)
-and the MTTR sentinel (``budget_s`` and ``over_budget`` stay in the
-report).
+The chaos points ``peer.serve`` (a DROP answers 503, a TORN_WRITE flips
+a byte of the body under its CRC header) and ``peer.fetch`` (a DROP is an
+unreachable donor, a TORN_WRITE a corrupted receive) and the trace spans
+``peer_restore.ladder`` and ``peer_restore.manifest`` (the goodput ledger
+charges them to ``peer_restore``) are the reference's.  Left out: the
+compile-cache prewarm and the ``/peer/cache*`` routes (ROADMAP queue 1
+item 7: the port has no persistent compile cache; ``cache_prewarmed``
+reads 0) and the MTTR sentinel (ROADMAP_LAUNCHER_REST: ``budget_s`` and
+``over_budget`` stay in the report).
 """
 
 import http.client
@@ -69,13 +70,14 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch.distributed as tdist
-from torch.profiler import record_function
 
+from dlrover_tpu_torch import chaos
 from dlrover_tpu_torch.common import envs
 from dlrover_tpu_torch.common.log import logger
 from dlrover_tpu_torch.common.multi_process import SharedMemoryBuffer
 from dlrover_tpu_torch.common.pytree import flatten_with_path
 from dlrover_tpu_torch.master.ckpt_coordinator import PeerRestoreBroker
+from dlrover_tpu_torch.observability import trace
 from dlrover_tpu_torch.trainer.flash_checkpoint import snapshot
 
 #: ladder rungs, strictest first (a report's ``rung`` is the deepest one
@@ -369,11 +371,16 @@ class PeerServeEndpoint:
         route = parsed.path
         params = {k: v[0] for k, v in
                   urllib.parse.parse_qs(parsed.query).items()}
+        fault = chaos.point("peer.serve", route=route)
+        if fault is not None and fault.kind == chaos.DROP:
+            _respond(req, 503, body=b'{"error": "unavailable"}')
+            return
+        torn_body = fault is not None and fault.kind == chaos.TORN_WRITE
         try:
             if route == "/peer/meta":
-                self._serve_meta(req)
+                self._serve_meta(req, torn_body)
             elif route == "/peer/shard":
-                self._serve_shard(req, params)
+                self._serve_shard(req, params, torn_body)
             else:
                 _respond(req, 404, body=b'{"error": "no such route"}')
         except Exception as e:  # noqa: BLE001 - a bad request must not
@@ -384,7 +391,7 @@ class PeerServeEndpoint:
             except Exception:  # noqa: BLE001
                 pass
 
-    def _serve_meta(self, req) -> None:
+    def _serve_meta(self, req, torn_body: bool) -> None:
         shm = self._shm()
         try:
             gen = snapshot.read_generation(shm)
@@ -407,11 +414,12 @@ class PeerServeEndpoint:
                 "X-Peer-Gen": str(gen),
                 "X-Peer-Step": str(step),
                 "X-Peer-Crc32": str(zlib.crc32(meta_bytes)),
-            }, body=meta_bytes)
+            }, body=_maybe_tear(meta_bytes, torn_body))
         finally:
             shm.close()
 
-    def _serve_shard(self, req, params: Dict[str, str]) -> None:
+    def _serve_shard(self, req, params: Dict[str, str],
+                     torn_body: bool) -> None:
         offset = int(params.get("offset", -1))
         nbytes = int(params.get("nbytes", -1))
         want_gen = int(params.get("gen", -1))
@@ -436,7 +444,7 @@ class PeerServeEndpoint:
             _respond(req, 200, headers={
                 "X-Peer-Gen": str(gen),
                 "X-Peer-Crc32": str(zlib.crc32(payload)),
-            }, body=payload)
+            }, body=_maybe_tear(payload, torn_body))
         finally:
             shm.close()
 
@@ -468,10 +476,26 @@ def _respond(req, status: int, headers: Optional[Dict[str, str]] = None,
 # ---------------------------------------------------------------------------
 
 
+def _maybe_tear(payload: bytes, torn: bool) -> bytes:
+    """Apply a torn_write chaos fault: flip a byte so the advertised
+    crc32 no longer matches — exactly what a racing rewrite looks like
+    from the fetcher's side."""
+    if not torn or not payload:
+        return payload
+    corrupted = bytearray(payload)
+    corrupted[len(corrupted) // 2] ^= 0xFF
+    return bytes(corrupted)
+
+
 def _http_fetch(addr: str, route: str, params: Dict[str, Any],
                 timeout_s: float) -> Tuple[int, Dict[str, str], bytes]:
     """One GET against a peer endpoint: ``(status, lower-cased headers,
-    body)``."""
+    body)``, with the ``peer.fetch`` chaos point woven in (drop ->
+    unreachable, torn_write -> corrupted receive, delay handled by the
+    engine)."""
+    fault = chaos.point("peer.fetch", route=route, addr=addr)
+    if fault is not None and fault.kind == chaos.DROP:
+        raise OSError(f"chaos: peer fetch dropped ({addr}{route})")
     host, _, port = addr.rpartition(":")
     conn = http.client.HTTPConnection(host, int(port), timeout=timeout_s)
     try:
@@ -483,6 +507,8 @@ def _http_fetch(addr: str, route: str, params: Dict[str, Any],
         headers = {k.lower(): v for k, v in resp.getheaders()}
     finally:
         conn.close()
+    if fault is not None and fault.kind == chaos.TORN_WRITE:
+        body = _maybe_tear(body, True)
     return resp.status, headers, body
 
 
@@ -682,7 +708,7 @@ def recover(
     bytes_manifest = 0
     storage_reads = 0
     peer_s = 0.0
-    with record_function("peer_restore.ladder"):
+    with trace.span("peer_restore.ladder"):
         template_extras: Dict = {}
         if plan is None and step >= 0:
             # donor_meta demotes wrong-step donors, so the first meta that
@@ -701,7 +727,7 @@ def recover(
             if missing:
                 logger.info("peer restore: %d shard(s) need the manifest "
                             "rung", len(missing))
-                with record_function("peer_restore.manifest"):
+                with trace.span("peer_restore.manifest"):
                     extras2, reads = _fill_from_manifest(
                         checkpoint_dir, step, process_id, num_processes,
                         storage, missing)

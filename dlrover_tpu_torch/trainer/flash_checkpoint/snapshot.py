@@ -66,6 +66,7 @@ from typing import (
 import numpy as np
 import torch
 
+from dlrover_tpu_torch.chaos import point as _chaos_point
 from dlrover_tpu_torch.common import envs
 from dlrover_tpu_torch.common.log import logger
 from dlrover_tpu_torch.common.multi_process import SharedMemoryBuffer
@@ -242,7 +243,6 @@ class StagePacer:
 # copy in this module therefore reports through the observer, and a
 # tier-1 test asserts copies == chunks on the streaming path.
 _copy_observer: Optional[Callable[[str, int], None]] = None
-_stream_fault: Optional[Callable[[int], None]] = None
 
 
 def set_copy_observer(fn: Optional[Callable[[str, int], None]]) -> None:
@@ -252,12 +252,24 @@ def set_copy_observer(fn: Optional[Callable[[str, int], None]]) -> None:
 
 
 def set_stream_fault(fn: Optional[Callable[[int], None]]) -> None:
-    """Torn-snapshot fault hook: ``fn(chunk_idx)`` is called with the
-    0-based index of each chunk ``stream_snapshot`` lands in shm; raising
-    aborts the stream mid-write, leaving the seqlock generation dirty, and
-    blocking holds the stager.  ``None`` clears it."""
-    global _stream_fault
-    _stream_fault = fn
+    """Torn-snapshot fault hook, a ``callback`` fault on the
+    ``snapshot.stream_chunk`` chaos point: ``fn(chunk_idx)`` is called
+    with the 0-based index of each chunk ``stream_snapshot`` lands in shm;
+    raising aborts the stream mid-write, leaving the seqlock generation
+    dirty, and blocking holds the stager.  ``None`` clears it.  New code
+    injects a spec on ``snapshot.stream_chunk`` directly (any kind,
+    nth-call scheduling, seeded traces)."""
+    from dlrover_tpu_torch import chaos
+
+    chaos.clear("snapshot.stream_chunk")
+    if fn is not None:
+        chaos.inject(
+            chaos.FaultSpec(
+                point="snapshot.stream_chunk",
+                kind=chaos.CALLBACK,
+                callback=lambda chunk=0: fn(chunk),
+            )
+        )
 
 
 def _note(event: str, nbytes: int) -> None:
@@ -543,8 +555,7 @@ class _ChunkLander:
         _note("chunk", nbytes)
         _note("host_copy", nbytes)
         self.chunks += 1
-        if _stream_fault is not None:
-            _stream_fault(self.chunks - 1)
+        _chaos_point("snapshot.stream_chunk", chunk=self.chunks - 1)
 
     def host(self, src: torch.Tensor, dst_off: int) -> None:
         """Copy a host chunk into shm (in order after pending chunks)."""
