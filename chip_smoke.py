@@ -142,6 +142,32 @@ use), then runs, in order, failing on the first phase that fails:
    and 20 steps at the reference's default cadence (a digest every 20
    steps), whose hook time must stay under 1% of the step; its numbers
    go to a {"telemetry": {...}} line;
+   [sentinels] (master/timeseries.py, observability/sentinel.py, the
+   kernel build directory as the persistent compile cache): (c) the two
+   rank digest files [telemetry]'s llama2_1b steps wrote, folded as the
+   agent folds them (ElasticAgent._collect_digest) and fed into a store
+   1 s apart: node0.step_p50_s must equal the digest's step p50,
+   job.mem.used_b its memory figure, the goodput share series must
+   exist, export_counters must yield tracks, and the ten sentinels
+   (register_sentinels) must open no incident on these healthy samples;
+   (b) [peer restore]'s full-width peer-rung report through an
+   in-process MasterServicer's RecoveryReport route: the broker and the
+   store must both hold it, an MttrSentinel at the default 60 s budget
+   must stay quiet, and the same report judged against half its mttr_s
+   must open mttr_budget, phase recovery, naming the rung and process 0;
+   (a) the drill's slow_link, hbm_leak, cache_cold and peer_restore on
+   the card, each ok with every check true, a fault fired and its
+   INCIDENT.json classified as INCIDENT_EXPECTATIONS says: cache_cold
+   builds csrc/flash_attention.cu with nvcc into a fresh cache (the cold
+   boot misses, the warm restart hits at ratio 1, the wiped cache misses
+   again and opens cache_cold naming drill.step and
+   persistent-cache-miss; each boot's build seconds printed),
+   peer_restore's survivors serve a copy of [build]'s flash library and
+   its log, which the replacement pulls and resolves with no nvcc run,
+   and hbm_leak's account of a real state on the card sums to
+   torch.cuda's in-use bytes within 5%; build/kernels and the libraries
+   loaded so far must be untouched; its numbers go to a
+   {"sentinels": {...}} line;
    [launcher], in a thread beside the [mesh] phase's legs of ranks (below:
    the worker's ~35 GB and the ranks' ~16 fit the card together, and the
    script keeps within its time limit): the port's standalone launcher
@@ -538,6 +564,9 @@ DIST_CKPT_LAYERS = 11
 # normalized fault traces
 CHAOS_REPLAY_SEED = 13
 CHAOS_REPLAYED = ("torn_shm", "node_flap", "kv_timeout", "heartbeat_loss")
+# [sentinels]: the drill's scenarios of the time-series store and the
+# sentinels ([chaos] runs the other eight)
+SENTINEL_SCENARIOS = ("slow_link", "hbm_leak", "cache_cold", "peer_restore")
 # the forward of the step from the restored state against the first step
 # from the snapshot: the same weights, batch and kernels on one card
 RESTORED_LOSS_RTOL = 1e-6
@@ -1160,6 +1189,7 @@ def telemetry_phase(fa, plain) -> dict:
             _build.remove_listener(listener)
             with open(path + ".rank0") as f:
                 digest = json.load(f)
+            digests = [dict(digest)]
             account = memscope.scope().account()
             sample = memscope.scope().sample()
             node = metric.collect_node_tpu_metrics(device="cuda")
@@ -1249,6 +1279,8 @@ def telemetry_phase(fa, plain) -> dict:
         if share >= TELEMETRY_HOOK_SHARE:
             raise AssertionError(f"[telemetry] hooks take {share:.4f} of a "
                                  "step at the default cadence")
+        with open(path + ".rank0") as f:  # the digest of the last steps
+            digests.append(json.load(f))
     finally:
         _build.remove_listener(listener)
         shutil.rmtree(root, ignore_errors=True)
@@ -1267,7 +1299,7 @@ def telemetry_phase(fa, plain) -> dict:
                 default_step_ms=default_step * 1e3,
                 default_hook_ms=default_hook * 1e3, hook_share=share,
                 js={k: v for k, v in digest.items() if k.startswith("js_")},
-                seconds=seconds)
+                seconds=seconds, digests=digests)
 
 
 def mesh_spec() -> dict:
@@ -2887,8 +2919,11 @@ def chaos_phase(fa, batch, trainer, ckpt_dir, step, want, uninterrupted,
     phase_t0 = time.perf_counter()
     record = {"scenarios": {}, "full_width": {}}
 
-    # (a) the drill's scenarios, their states on the card
+    # (a) the drill's scenarios, their states on the card ([sentinels]
+    # runs the four of the time-series store and the sentinels)
     for name in drill.PORTED:
+        if name in SENTINEL_SCENARIOS:
+            continue
         result = drill.run_scenario(name, 0, device="cuda")
         want_phase, want_point = drill.INCIDENT_EXPECTATIONS[name]
         incident = result.get("incident") or {}
@@ -3069,6 +3104,220 @@ def chaos_phase(fa, batch, trainer, ckpt_dir, step, want, uninterrupted,
     record["seconds"] = time.perf_counter() - phase_t0
     print(f"  the phase took {record['seconds']:.1f} s; flash launches of "
           f"its 3 steps {launches}", flush=True)
+    return record
+
+
+def sentinels_phase(digests, peer_report) -> dict:
+    """[sentinels] (module docstring): (c) the digest channel, (b) the
+    full-width recovery report, (a) the drill's four sentinel scenarios
+    on the card.  ``digests``: [telemetry]'s two rank digest files;
+    ``peer_report``: [peer restore]'s peer-rung report.  Returns its JSON
+    record."""
+    import shutil
+    import tempfile
+    from unittest import mock
+
+    from dlrover_tpu_torch import chaos
+    from dlrover_tpu_torch.agent.elastic_agent import (
+        ElasticAgent,
+        ElasticLaunchConfig,
+    )
+    from dlrover_tpu_torch.agent.master_client import LocalMasterClient
+    from dlrover_tpu_torch.diagnosis import chaos_drill as drill
+    from dlrover_tpu_torch.diagnosis.diagnostician import DiagnosisManager
+    from dlrover_tpu_torch.master.servicer import MasterServicer
+    from dlrover_tpu_torch.master.timeseries import TimeSeriesStore
+    from dlrover_tpu_torch.observability import sentinel
+    from dlrover_tpu_torch.observability.incidents import IncidentManager
+    from dlrover_tpu_torch.ops.cuda import _build
+    from dlrover_tpu_torch.ops.cuda import flash_attention as fa
+
+    phase_t0 = time.perf_counter()
+    record = {"scenarios": {}}
+    # this phase's evidence only: the flight recorder and the ledger of
+    # the phases before it do not vote in its incidents
+    drill.reset_evidence()
+    workdir = tempfile.mkdtemp(prefix="dlrover_tpu_torch_sentinels_")
+    incident_env = dict(
+        DLROVER_TPU_INCIDENT_DIR=os.path.join(workdir, "incidents"),
+        DLROVER_TPU_INCIDENT_COOLDOWN_S="0",
+        DLROVER_TPU_INCIDENT_GRACE_S="0")
+    try:
+        # (c) the digest channel: [telemetry]'s rank files folded as the
+        # agent folds them, into a store twice, 1 s apart
+        t0 = time.perf_counter()
+        base = os.path.join(workdir, "runtime_metrics.json")
+        agent = ElasticAgent(LocalMasterClient(MasterServicer(), 0),
+                             ElasticLaunchConfig())
+        store = TimeSeriesStore()
+        now = time.time()
+        folded = []
+        with mock.patch.dict(os.environ,
+                             DLROVER_TPU_RUNTIME_METRICS_PATH=base):
+            for i, digest in enumerate(digests):
+                with open(base + ".rank0", "w") as f:
+                    json.dump(digest, f)
+                folded.append(agent._collect_digest())
+                store.record_digest(0, folded[-1], ts=now - 1 + i)
+        last = folded[-1]
+        names = store.names()
+        diagnosis = DiagnosisManager()
+        with mock.patch.dict(os.environ, incident_env):
+            incidents = IncidentManager()
+            incidents.set_timeseries(store)
+            diagnosis.set_incident_manager(incidents)
+            sentinel.register_sentinels(diagnosis, store)
+            fired = diagnosis.diagnose_once()
+            opened = incidents.list_incidents()
+        tracks = store.export_counters()
+        shares = sorted(n for n in names if n.startswith("job.share."))
+        checks = {
+            "node0.step_p50_s is the digest's step p50":
+            store.latest("node0.step_p50_s") == last["step_p50_s"] > 0,
+            "job.mem.used_b is the digest's memory figure":
+            store.latest("job.mem.used_b") == last["mm_used_b"] > 0,
+            "the goodput share series exist": bool(shares)
+            and "job.goodput" in names and "node0.share.compute" in names,
+            "export_counters yields tracks": bool(tracks),
+            "no sentinel fires on the healthy samples":
+            not fired and not opened,
+        }
+        print(f"  (c) two digests of [telemetry]'s llama2_1b steps folded "
+              f"({len(last)} keys): node0.step_p50_s "
+              f"{store.latest('node0.step_p50_s')}, job.mem.used_b "
+              f"{store.latest('job.mem.used_b')}, job.goodput "
+              f"{store.latest('job.goodput')}, shares {shares}, "
+              f"{len(tracks)} counter records, fired {fired}, "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        failed = [name for name, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError(f"[sentinels] (c) failed: {failed}")
+        record["digest"] = dict(series=len(names), tracks=len(tracks),
+                                step_p50_s=last["step_p50_s"],
+                                mem_used_b=last["mm_used_b"])
+
+        # (b) [peer restore]'s full-width peer-rung report through the
+        # servicer's RecoveryReport route: quiet at the default budget,
+        # mttr_budget at half its mttr_s
+        t0 = time.perf_counter()
+        servicer = MasterServicer()
+        client = LocalMasterClient(servicer, node_id=0)
+        mttr = float(peer_report["mttr_s"])
+        with mock.patch.dict(os.environ, incident_env):
+            os.environ.pop("DLROVER_TPU_MTTR_BUDGET_S", None)
+            incidents = IncidentManager()
+            incidents.set_timeseries(servicer.timeseries)
+            diagnosis = DiagnosisManager()
+            diagnosis.register(sentinel.MttrSentinel(servicer.timeseries))
+            diagnosis.set_incident_manager(incidents)
+            if not client.report_recovery(dict(peer_report)):
+                raise AssertionError("the RecoveryReport was refused")
+            held = (servicer.peer_broker.recoveries()[-1]["mttr_s"],
+                    servicer.timeseries.recoveries()[-1]["mttr_s"])
+            quiet = not diagnosis.diagnose_once()
+            client.report_recovery(dict(peer_report, budget_s=mttr / 2))
+            diagnosis.diagnose_once()
+            opened = incidents.list_incidents()
+            verdict = (incidents.finalize(opened[0]["incident_id"],
+                                          force=True) or {}) if opened else {}
+        detail = verdict.get("detail", "")
+        print(f"  (b) [peer restore]'s peer rung: mttr_s {mttr:.3f} held by "
+              f"the broker and the store {held}; budget "
+              f"{peer_report.get('budget_s')} s: quiet {quiet}; budget "
+              f"{mttr / 2:.3f} s: {verdict.get('kind')} phase "
+              f"{verdict.get('phase')}: {detail}; "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        if held != (mttr, mttr) or not quiet or \
+                verdict.get("kind") != "mttr_budget" or \
+                verdict.get("phase") != "recovery" or \
+                "'peer_shm' rung" not in detail or "process 0 " not in detail:
+            raise AssertionError(f"[sentinels] (b): held {held}, quiet "
+                                 f"{quiet}, verdict {verdict}")
+        record["recovery"] = dict(mttr_s=mttr, quiet_at_default=quiet,
+                                  half_budget=verdict.get("kind"))
+
+        # (a) the four scenarios on the card; the kernel build directory
+        # and the libraries loaded so far stay as they are
+        def kernel_files():
+            root = _build.build_dir()
+            return {p.name: (p.stat().st_size, p.stat().st_mtime_ns)
+                    for p in root.iterdir()}
+
+        before = (kernel_files(), dict(_build._libs), fa._lib)
+        # peer_restore's survivors serve the flash library [build] made
+        # (and its nvcc report), copied: the replacement must resolve it
+        # from what it pulled with no nvcc run
+        survivor = os.path.join(workdir, "survivor_kernels")
+        os.makedirs(survivor)
+        lib = _build.library_path(drill.DRILL_KERNEL)
+        for path in (lib, lib.with_name(lib.name + ".log")):
+            shutil.copy2(path, survivor)
+        for name in SENTINEL_SCENARIOS:
+            kw = ({"survivor_cache": survivor}
+                  if name == "peer_restore" else {})
+            result = drill.run_scenario(name, 0, device="cuda", **kw)
+            incident = result.get("incident") or {}
+            got = (incident.get("phase"),
+                   (incident.get("chaos") or {}).get("point"))
+            print(f"  (a) {name}: ok {result['ok']}, "
+                  f"{len(result['checks'])} checks, faults_fired "
+                  f"{result['faults_fired']}, incident {got}, "
+                  f"{result['wall_s']} s", flush=True)
+            if not result["ok"] or result["faults_fired"] < 1 or \
+                    got != drill.INCIDENT_EXPECTATIONS[name] or \
+                    chaos.is_active():
+                raise AssertionError(f"sentinel scenario {name}: {result}")
+            entry = dict(seconds=result["wall_s"],
+                         faults_fired=result["faults_fired"],
+                         phase=got[0], point=got[1])
+            if name == "cache_cold":
+                boots = [(b["event"]["cache"], b["build_s"])
+                         for b in result["boots"]]
+                ratio = result["checks"]["warm_restart_cache_hit"]
+                print(f"    boots (cache, build s): cold {boots[0]}, warm "
+                      f"{boots[1]} (hit ratio 1: {ratio}), wiped "
+                      f"{boots[2]}; verdict {result['verdict']['kind']}: "
+                      f"{result['verdict']['last_miss']}", flush=True)
+                if [b[0] for b in boots] != ["miss", "hit", "miss"]:
+                    raise AssertionError(f"cache_cold boots {boots}")
+                entry["boots"] = boots
+            elif name == "peer_restore":
+                print(f"    the replacement pulled {result['cache_prewarmed']}"
+                      f" entries ({lib.name} and its log) and resolved "
+                      f"{drill.DRILL_KERNEL} with no nvcc run: "
+                      f"{result['checks']['cache_prewarmed_zero_cold_compiles']}"
+                      f"; mttr_s peer {result['recovery_mttr_s']}, manifest "
+                      f"{result['manifest_mttr_s']}", flush=True)
+                if result["cache_prewarmed"] != 2:
+                    raise AssertionError(f"peer_restore pulled "
+                                         f"{result['cache_prewarmed']} "
+                                         "entries, not the library and its "
+                                         "log")
+                entry["cache_prewarmed"] = result["cache_prewarmed"]
+            elif name == "hbm_leak":
+                account = result["account"]
+                print(f"    the account of a real state: used_b "
+                      f"{account['used_b']} ({account['source']}), "
+                      f"subsystems {account['subsystems']}; forecast at "
+                      f"round {result['forecast_round']}, OOM at "
+                      f"{result['oom_round']}", flush=True)
+                if account["source"] != "memory_stats":
+                    raise AssertionError(f"hbm_leak sampled {account}")
+            record["scenarios"][name] = entry
+        after = (kernel_files(), dict(_build._libs), fa._lib)
+        untouched = (after[0] == before[0] and after[2] is before[2]
+                     and after[1].keys() == before[1].keys()
+                     and all(after[1][k] is v for k, v in before[1].items()))
+        print(f"  {_build.build_dir()} ({len(after[0])} files) and the "
+              f"loaded libraries {sorted(after[1])} untouched: {untouched}",
+              flush=True)
+        if not untouched:
+            raise AssertionError("[sentinels] touched the kernel build "
+                                 "directory or a loaded library")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    record["seconds"] = time.perf_counter() - phase_t0
+    print(f"  the phase took {record['seconds']:.1f} s", flush=True)
     return record
 
 
@@ -4190,7 +4439,11 @@ def run_phases() -> list:
     torch.cuda.empty_cache()
     print("[telemetry]", flush=True)
     telemetry = telemetry_phase(fa, plain)
+    digests = telemetry.pop("digests")
     print(json.dumps({"telemetry": telemetry}), flush=True)
+    print("[sentinels]", flush=True)
+    print(json.dumps({"sentinels": sentinels_phase(
+        digests, peer_record["peer"])}), flush=True)
     # the mesh's processes need the card's memory: release what the
     # single-device phases left in this process's caching allocator
     gc.collect()

@@ -15,6 +15,7 @@ the retried unit, ``kv_store.set``/``.get``/``.wait`` and
 ``GrpcMasterClient`` as in the reference.
 """
 
+import dataclasses
 import random
 import threading
 import time
@@ -718,9 +719,15 @@ class MasterClient:
             return resp
         return comm.PeerAssignment(step=-1)
 
-    def report_recovery(self, report: comm.RecoveryReport) -> bool:
+    def report_recovery(self, report) -> bool:
         """Deliver one finished recovery's priced report (ladder rung,
-        MTTR, peer bandwidth) to the master."""
+        MTTR, peer bandwidth) to the master: a ``comm.RecoveryReport``,
+        or the dict ``peer_restore.recover`` returns (its message's
+        fields are taken)."""
+        if isinstance(report, dict):
+            fields = {f.name for f in dataclasses.fields(comm.RecoveryReport)}
+            report = comm.RecoveryReport(
+                **{k: v for k, v in report.items() if k in fields})
         if report.process_id < 0:
             report.process_id = self._node_id
         return self._report(report).success

@@ -6,8 +6,9 @@ persist, the node env they are scoped by, the worker bootstrap and the
 mesh, the rank's runtime digest: tracing, metrics, the flight
 recorder, the goodput ledger and the memory, comm and compile scopes,
 the job runtime: the launcher, the local master, its admission
-control, the agent's transport and its retry budget, and fault
-injection and the incident engine): the same names,
+control, the agent's transport and its retry budget, fault injection
+and the incident engine, the master's time-series store, the sentinels
+and the persistent compile cache): the same names,
 defaults and parsing, and the reference's per-call ``default=``
 override for the sites whose default is computed.  A knob is added with
 the port of the code that reads it.  Values are read from
@@ -75,8 +76,15 @@ DEFAULTS = {
     # per-request timeout of a peer fetch, and bytes per ranged request
     "DLROVER_TPU_PEER_FETCH_TIMEOUT_S": 30.0,
     "DLROVER_TPU_PEER_FETCH_CHUNK_BYTES": 64 << 20,
-    # the recovery's MTTR budget, reported as budget_s / over_budget
+    # the recovery's MTTR budget, reported as budget_s / over_budget; the
+    # MTTR sentinel opens an incident past it (0 = the sentinel is off)
     "DLROVER_TPU_MTTR_BUDGET_S": 60.0,
+    # a recovery (and a booting worker under peer restore) first pulls
+    # the kernel build cache's libraries it lacks from a peer
+    "DLROVER_TPU_PEER_CACHE_PREWARM": True,
+    # the persistent compile cache: the kernel build directory ('' = the
+    # build/kernels directory of the checkout, 'off' = recorded as off)
+    "DLROVER_TPU_COMPILE_CACHE": "",
     # -- flash checkpoint: distributed persist (distributed.py) --
     # storage saves write owned shards and commit in two phases
     "DLROVER_TPU_DIST_PERSIST": False,
@@ -163,6 +171,30 @@ DEFAULTS = {
     "DLROVER_TPU_JITSCOPE": True,
     "DLROVER_TPU_JITSCOPE_EVENTS": 256,
     "DLROVER_TPU_JITSCOPE_STALL_MS": 500.0,
+    # -- the master's time-series store (master/timeseries.py) and the
+    # sentinels (observability/sentinel.py) --
+    # points kept per series per resolution ring (1 s, 10 s, 5 min)
+    "DLROVER_TPU_TS_POINTS": 600,
+    # the EWMA+MAD detector: smoothing, breach width in deviations, the
+    # warm-up, and the breaches in a row that fire
+    "DLROVER_TPU_SENTINEL_ALPHA": 0.25,
+    "DLROVER_TPU_SENTINEL_MAD_K": 4.0,
+    "DLROVER_TPU_SENTINEL_MIN_SAMPLES": 8,
+    "DLROVER_TPU_SENTINEL_CONSECUTIVE": 2,
+    # the least probe-latency move (us) a slow-link breach must clear
+    "DLROVER_TPU_COMM_SLOWLINK_MIN_LAT_US": 50.0,
+    # the memory sentinel: headroom floor (fraction of the limit), the
+    # least in-use slope (B/s) that is a leak, its EWMA smoothing
+    "DLROVER_TPU_MEM_HEADROOM_FLOOR": 0.05,
+    "DLROVER_TPU_MEM_LEAK_SLOPE_B_S": 1048576.0,
+    "DLROVER_TPU_MEM_EWMA_ALPHA": 0.5,
+    # the compile sentinel: the least compile seconds per window a storm
+    # must clear, and the hit ratio under which a warm cache is cold
+    "DLROVER_TPU_COMPILE_STORM_MIN_S": 5.0,
+    "DLROVER_TPU_CACHE_COLD_RATIO": 0.5,
+    # the data sentinels' floors: the starved share, the lease p99 (ms)
+    "DLROVER_TPU_DATA_STARVED_SHARE": 0.10,
+    "DLROVER_TPU_DATA_P99_MIN_MS": 50.0,
     # synthetic bytes the chaos point mem.pressure adds to the sampled
     # in-use figure per fired fault (cumulative: an injected leak)
     "DLROVER_TPU_MEM_CHAOS_INFLATE_B": 268435456.0,

@@ -1,9 +1,11 @@
 """End-to-end recovery drill: elastic training under scripted chaos.
 
 Copy of ``dlrover_tpu/diagnosis/chaos_drill.py``'s harness and of the
-eight scenarios that run on modules the port has: ``master_restart``,
+twelve scenarios that run on modules the port has: ``master_restart``,
 ``torn_shm``, ``storage_stall``, ``storage_crc``, ``node_flap``,
-``kv_timeout``, ``heartbeat_loss`` and ``torn_commit``.  The drill asserts
+``kv_timeout``, ``heartbeat_loss``, ``torn_commit``, and the four that
+drive the master's time-series store and the sentinels: ``slow_link``,
+``hbm_leak``, ``cache_cold`` and ``peer_restore``.  The drill asserts
 *that* the documented recovery invariants hold under each scripted
 failure mode, with faults manufactured deterministically by
 ``dlrover_tpu_torch.chaos``:
@@ -27,8 +29,11 @@ fault trace (:func:`normalized_trace`).
 
 The states are torch tensors with the reference's leaves, shapes, dtypes
 and values, on an explicit ``device``: the card by default (raises
-without one), ``"cpu"`` when asked for.  The other seven scenarios wait
-for the modules they drive and raise ``NotImplementedError`` naming
+without one), ``"cpu"`` when asked for.  ``cache_cold`` and
+``peer_restore`` build a kernel source (:data:`DRILL_KERNEL`) into
+directories of their own, so they need nvcc (on the card's machine; a
+test gives ``_build`` a stand-in compiler).  The other three scenarios
+wait for the modules they drive and raise ``NotImplementedError`` naming
 their ROADMAP item (:data:`WAITING`).
 
 Run standalone::
@@ -86,15 +91,9 @@ INCIDENT_EXPECTATIONS: Dict[str, tuple] = {
 }
 
 #: the reference's scenarios whose bodies wait, with the ROADMAP item
-#: that brings what they drive: the time-series store and the sentinels
-#: (slow_link, hbm_leak, cache_cold with the compile cache, peer_restore),
-#: datascope and the sharding client (data_starved), the live reshard
-#: and the hierarchical fabric tuner
+#: that brings what they drive: datascope and the sharding client
+#: (data_starved), the live reshard and the hierarchical fabric tuner
 WAITING: Dict[str, str] = {
-    "slow_link": "ROADMAP queue 1 item 11, the rest",
-    "hbm_leak": "ROADMAP queue 1 item 11, the rest",
-    "cache_cold": "ROADMAP queue 1 item 11, the rest",
-    "peer_restore": "ROADMAP queue 1 item 11, the rest",
     "data_starved": "ROADMAP queue 1 item 11, the rest",
     "live_reshard": "ROADMAP queue 1 item 6c",
     "fabric_reroute": "ROADMAP queue 1 item 6d",
@@ -297,7 +296,7 @@ def reset_evidence() -> None:
 
 def _run_with_plan(
     name: str, seed: int, body: Callable[[Dict], Dict[str, bool]],
-    device: torch.device,
+    device: torch.device, options: Optional[Dict[str, Any]] = None,
 ) -> Dict[str, Any]:
     """Arm the named scenario, run ``body``, capture + classify the
     incident, disarm, package results."""
@@ -309,8 +308,10 @@ def _run_with_plan(
     try:
         reset_evidence()
         chaos.configure(plan)
-        detail = body({"workdir": workdir, "checks": checks,
-                       "device": device}) or {}
+        ctx = {"workdir": workdir, "checks": checks, "device": device,
+               "clock": WallClock}
+        ctx.update(options or {})
+        detail = body(ctx) or {}
         if name in INCIDENT_EXPECTATIONS:
             # while the plan is still armed: finalize() folds the live
             # engine trace into the chaos evidence
@@ -828,6 +829,852 @@ def _scenario_torn_commit(ctx: Dict) -> Dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# The sentinel scenarios: the time-series store, the sentinels, the
+# compile cache and the peer prewarm.
+# ---------------------------------------------------------------------------
+
+#: the kernel source the compile-cache scenarios build (the flash
+#: attention library: the one every training step needs)
+DRILL_KERNEL = "flash_attention"
+
+
+class WallClock:
+    """The drill's clock: the host's seconds and sleep.  A test may pass
+    another (``run_scenario(..., clock=)``) whose ``now`` load cannot
+    stretch; the drill times with nothing else where a check compares
+    times."""
+
+    @staticmethod
+    def now() -> float:
+        return time.perf_counter()
+
+    @staticmethod
+    def sleep(seconds: float) -> None:
+        time.sleep(seconds)
+
+
+def _scenario_slow_link(ctx: Dict) -> Dict:
+    """One mesh axis gains a seeded injected latency — the simulated
+    slow link.  The active mesh probe must price the asymmetry into the
+    FabricModel, the master's comm series must show the spike on exactly
+    that axis, the slow-link sentinel must fire, and the incident must
+    classify ``phase=comm`` naming the axis and culprit rank.
+
+    The probe uses a synthetic fabric runner (a fixed ~1ms op) so the
+    drill is device-independent; the chaos DELAY lands inside the probe's
+    timed window exactly as it does on a real mesh, and the master feed
+    uses synthetic 1s-spaced timestamps so every probe round is its own
+    completed time-series bucket without sleeping."""
+    from dlrover_tpu_torch.diagnosis.diagnostician import DiagnosisManager
+    from dlrover_tpu_torch.master.timeseries import TimeSeriesStore
+    from dlrover_tpu_torch.observability import commscope
+    from dlrover_tpu_torch.observability.incidents import IncidentManager
+    from dlrover_tpu_torch.observability.sentinel import (
+        SlowLinkDiagnostician,
+    )
+
+    checks, clock = ctx["checks"], ctx["clock"]
+    with _env(
+        DLROVER_TPU_SENTINEL_MIN_SAMPLES="3",
+        DLROVER_TPU_SENTINEL_CONSECUTIVE="1",
+        DLROVER_TPU_INCIDENT_DIR=os.path.join(ctx["workdir"], "incidents"),
+        DLROVER_TPU_INCIDENT_COOLDOWN_S="0",
+        DLROVER_TPU_INCIDENT_GRACE_S="0",
+    ):
+        model = commscope.FabricModel(alpha=1.0)
+        probe = commscope.MeshProbe(
+            {"dp": 2, "fsdp": 2},
+            runner=lambda axis, kind: clock.sleep(0.001),
+            reps=2, clock=clock.now,
+        )
+        store = TimeSeriesStore()
+        manager = IncidentManager()
+        diagnosis = DiagnosisManager()
+        diagnosis.register(SlowLinkDiagnostician(store, res_s=1.0))
+        diagnosis.set_incident_manager(manager)
+        rounds = 12
+        base = time.time() - rounds - 2
+        for i in range(rounds):
+            probe.probe_once(model)
+            store.record_digest(0, model.digest(), ts=base + i)
+        snapshot = model.snapshot()
+        _check(
+            checks, "probe_detected_asymmetry",
+            snapshot["dp"]["lat_us"] > 10 * snapshot["fsdp"]["lat_us"],
+            f"fabric {snapshot}",
+        )
+        delays = [r for r in chaos.trace() if r["kind"] == chaos.DELAY]
+        _check(checks, "axis_delay_injected", len(delays) >= 4,
+               f"trace {chaos.trace()}")
+        _check(
+            checks, "delay_priced_one_axis_only",
+            bool(delays) and all(
+                r["point"] == "comm.axis_delay.dp" for r in delays),
+            f"delays {delays}",
+        )
+        series = store.series("job.comm.dp.lat_us", res=1.0)
+        _check(
+            checks, "master_series_shows_spike",
+            bool(series) and max(p["max"] for p in series) > 10_000.0,
+            f"series {series}",
+        )
+        healthy = store.series("job.comm.fsdp.lat_us", res=1.0)
+        _check(
+            checks, "healthy_axis_stays_quiet",
+            bool(healthy) and max(p["max"] for p in healthy) < 10_000.0,
+            f"series {healthy}",
+        )
+        actions = diagnosis.diagnose_once()
+        _check(checks, "sentinel_fired",
+               any(a.action_type == "event" for a in actions),
+               f"actions {[a.action_type for a in actions]}")
+        incidents = manager.list_incidents()
+        _check(
+            checks, "slow_link_incident_opened",
+            bool(incidents) and incidents[0]["kind"] == "slow_link",
+            json.dumps(incidents),
+        )
+        final: Dict[str, Any] = {}
+        if incidents:
+            final = manager.finalize(
+                incidents[0]["incident_id"], force=True) or {}
+        _check(checks, "incident_phase_comm",
+               final.get("phase") == "comm",
+               f"phase {final.get('phase')!r}")
+        _check(checks, "incident_names_axis",
+               "'dp'" in final.get("detail", ""),
+               f"detail {final.get('detail')!r}")
+        _check(checks, "incident_culprit_rank",
+               final.get("culprit_node") == 0, f"incident {final}")
+        fault = final.get("chaos") or {}
+        _check(
+            checks, "incident_names_injected_fault",
+            fault.get("point") == "comm.axis_delay.dp"
+            and fault.get("kind") == "delay",
+            json.dumps(fault),
+        )
+        return {
+            "fabric": snapshot,
+            "delays_fired": len(delays),
+            "sentinel_incident": {
+                "kind": final.get("kind"),
+                "phase": final.get("phase"),
+                "detail": final.get("detail"),
+            },
+        }
+
+
+def _dp_stacked_plan(gib: float):
+    """The fit leg's state plan, priced from the port's own dp-stacked
+    leaves (``memscope.plan_from_state`` with the axes a ZeRO-1 trainer's
+    ``state_axes`` names): replicated params (2 GiB), AdamW moments split
+    over dp, and the error-feedback residual stacked ``(dp, *leaf)`` and
+    split over dp — at dp=4 the reference's 2 / 16 / 4 GiB global plan.
+    The leaves are meta tensors: sized, never allocated."""
+    from dlrover_tpu_torch.common.pytree import flatten_with_path
+    from dlrover_tpu_torch.observability import memscope
+
+    elems = int(gib) // 4  # fp32 elements of one GiB
+    dp = 4
+    meta = dict(dtype=torch.float32, device="meta")
+    state = type("S", (), {})()
+    state.params = {"w": torch.empty(2 * elems, **meta)}
+    state.opt_state = {"m": torch.empty(2 * elems, **meta),
+                       "v": torch.empty(2 * elems, **meta)}
+    state.ef_residual = {"w": torch.empty(1, elems, **meta)}
+    leaf_axes = {
+        path: ["dp"]
+        for field in ("opt_state", "ef_residual")
+        for path, _ in flatten_with_path(getattr(state, field), field)
+    }
+    return memscope.plan_from_state(state, {"dp": dp}, leaf_axes)
+
+
+def _scenario_hbm_leak(ctx: Dict) -> Dict:
+    """The memory observatory's forecast -> dump -> incident loop under
+    a synthetic leak, end to end:
+
+    1. the real account contract first — a genuine torch state on the
+       drill's device registered with the scope must yield a subsystem
+       account that sums to the sampled in-use bytes within 5% (the
+       card's allocator figure, or the live CPU tensors' bytes);
+    2. then the leak: a chaos DROP on ``mem.pressure`` inflates the
+       synthetic per-chip stats cumulatively per sample after a healthy
+       window.  The ``MemPressureSentinel`` must open the ``hbm_leak``
+       incident STRICTLY BEFORE the inflated figure crosses the chip
+       limit (the injected OOM threshold), with a bounded gap;
+    3. the post-mortem: an hbm_oom failure report then opens the crash
+       incident, whose INCIDENT.json must embed the culprit's recent
+       ``mem.*`` series and record that the forecast had already
+       breached (predicted-vs-unpredicted OOMs distinguishable);
+    4. ``fit_report`` prices a dp4->dp2 reshard of the port's dp-stacked
+       leaves against the measured limit: dp4 must fit, dp2 must be
+       rejected (the split optimizer/EF leaves double per chip), and a
+       roomier fleet must accept dp2.
+
+    Synthetic stats + 1s-spaced store timestamps keep it fast,
+    device-count independent, and replay-deterministic."""
+    from dlrover_tpu_torch.diagnosis.diagnostician import DiagnosisManager
+    from dlrover_tpu_torch.master.timeseries import TimeSeriesStore
+    from dlrover_tpu_torch.observability import memscope
+    from dlrover_tpu_torch.observability.incidents import IncidentManager
+    from dlrover_tpu_torch.observability.sentinel import MemPressureSentinel
+
+    checks, device = ctx["checks"], ctx["device"]
+    gib = float(2 ** 30)
+    limit_b = 8.0 * gib  # the injected OOM threshold
+    base_b = 5.0 * gib
+    inflate_b = 0.5 * gib  # leak slope: one inflation per sample
+    with _env(
+        DLROVER_TPU_SENTINEL_CONSECUTIVE="2",
+        DLROVER_TPU_MEM_CHAOS_INFLATE_B=str(inflate_b),
+        DLROVER_TPU_MEM_EWMA_ALPHA="1.0",
+        DLROVER_TPU_MEM_FORECAST_S="600",
+        DLROVER_TPU_MEM_LEAK_SLOPE_B_S=str(64 * 2 ** 20),
+        DLROVER_TPU_INCIDENT_DIR=os.path.join(ctx["workdir"], "incidents"),
+        DLROVER_TPU_INCIDENT_COOLDOWN_S="0",
+        DLROVER_TPU_INCIDENT_GRACE_S="0",
+    ):
+        # -- 1. the real account contract (genuine tensors) -------------
+        real = memscope.MemScope()
+        real.bind_device(device)
+        w = torch.arange(1 << 18, dtype=torch.float32, device=device) * 0.5
+        m = w * 2.0
+        v = w * 3.0
+        state = type("S", (), {})()
+        state.params = {"w": w}
+        state.opt_state = {"m": m, "v": v}
+        state.ef_residual = None
+        real.register_state(state)
+        # this sample's mem.pressure firing is call index 0 — inside the
+        # scenario's healthy window (after=4), so the real account is
+        # never inflated
+        account = real.sample()
+        used = account["used_b"]
+        total = account["account_sum_b"]
+        _check(
+            checks, "account_sums_to_bytes_in_use",
+            account["account_ok"] and used > 0
+            and abs(total - used) <= 0.05 * used,
+            f"sum {total} vs used {used} ({account['subsystems']})",
+        )
+        nbytes = [float(t.numel() * t.element_size()) for t in (w, m, v)]
+        state_b = sum(nbytes)
+        subs = account["subsystems"]
+        _check(
+            checks, "state_subsystems_priced",
+            abs(subs["params"] - nbytes[0]) < 1.0
+            and abs(subs["optimizer"] - (nbytes[1] + nbytes[2])) < 1.0
+            and used >= state_b,
+            f"subs {subs} vs state {state_b}",
+        )
+
+        # -- 2. the synthetic leak + forecast sentinel ------------------
+        def reader():
+            return [
+                {"device": i, "used_b": base_b, "limit_b": limit_b,
+                 "peak_b": 0.0, "source": "synthetic"}
+                for i in range(4)
+            ]
+
+        sc = memscope.reset_scope(stats_reader=reader)
+        store = TimeSeriesStore()
+        manager = IncidentManager()
+        manager.set_timeseries(store)
+        diagnosis = DiagnosisManager()
+        diagnosis.register(MemPressureSentinel(store))
+        diagnosis.set_incident_manager(manager)
+        rounds = 14
+        base_ts = time.time() - rounds - 2
+        opened_round = None
+        oom_round = None
+        for i in range(rounds):
+            sample = sc.sample()
+            store.record_digest(0, sc.digest(), ts=base_ts + i)
+            diagnosis.diagnose_once()
+            if oom_round is None and sample["used_b"] >= limit_b:
+                oom_round = i
+            if opened_round is None and any(
+                inc["kind"] == "hbm_leak"
+                for inc in manager.list_incidents()
+            ):
+                opened_round = i
+        _check(checks, "injected_oom_threshold_crossed",
+               oom_round is not None, f"rounds {rounds}")
+        _check(
+            checks, "forecast_fired_strictly_before_oom",
+            opened_round is not None and oom_round is not None
+            and opened_round < oom_round,
+            f"forecast at round {opened_round}, OOM at {oom_round}",
+        )
+        _check(
+            checks, "forecast_margin_bounded",
+            opened_round is not None and oom_round is not None
+            and 2 <= (oom_round - opened_round) <= rounds,
+            f"margin {oom_round} - {opened_round}",
+        )
+        series = store.series("node0.mem.used_b", res=1.0)
+        _check(
+            checks, "mem_series_shows_leak",
+            bool(series)
+            and max(p["max"] for p in series)
+            >= min(p["min"] for p in series) + 2 * inflate_b,
+            f"series {[(p['min'], p['max']) for p in series]}",
+        )
+        leak_incident: Dict[str, Any] = {}
+        for inc in manager.list_incidents():
+            if inc["kind"] == "hbm_leak":
+                leak_incident = manager.finalize(
+                    inc["incident_id"], force=True) or {}
+                break
+        _check(checks, "leak_incident_phase_mem",
+               leak_incident.get("phase") == "mem",
+               f"incident {leak_incident}")
+        _check(checks, "leak_incident_names_culprit",
+               leak_incident.get("culprit_node") == 0,
+               f"incident {leak_incident}")
+
+        # -- 3. the post-mortem hbm_oom embeds the forecast verdict -----
+        failure = type("F", (), {})()
+        failure.node_id = 0
+        failure.error_data = (
+            "CUDA out of memory. Tried to allocate 2.00 GiB; "
+            "signature=hbm_oom"
+        )
+        diagnosis.report_failure(failure)
+        oom_incident: Dict[str, Any] = {}
+        for inc in manager.list_incidents():
+            if inc["kind"] == "hbm_oom":
+                oom_incident = manager.finalize(
+                    inc["incident_id"], force=True) or {}
+                break
+        _check(checks, "postmortem_incident_opened",
+               oom_incident.get("kind") == "hbm_oom"
+               and oom_incident.get("phase") == "mem",
+               f"incident {oom_incident}")
+        mem_evidence = oom_incident.get("mem") or {}
+        _check(
+            checks, "postmortem_embeds_mem_series",
+            any(name.startswith("node0.mem.")
+                for name in (mem_evidence.get("series") or {})),
+            f"mem evidence {sorted(mem_evidence.get('series') or {})}",
+        )
+        _check(checks, "postmortem_records_forecast_breach",
+               mem_evidence.get("forecast_breached") is True,
+               f"mem evidence {mem_evidence}")
+
+        # -- 4. fit_report: dp4 fits, dp2 rejected, roomier fleet ok ----
+        plan = _dp_stacked_plan(gib)
+        fit_dp4 = memscope.fit_report(
+            {"mesh_axes": {"dp": 4}}, state_plan=plan,
+            limit_b=limit_b, overhead_b=0.0)
+        fit_dp2 = memscope.fit_report(
+            {"mesh_axes": {"dp": 2}}, state_plan=plan,
+            limit_b=limit_b, overhead_b=0.0)
+        fit_dp2_roomy = memscope.fit_report(
+            {"mesh_axes": {"dp": 2}}, state_plan=plan,
+            limit_b=2.0 * limit_b, overhead_b=0.0)
+        _check(checks, "fit_accepts_dp4", fit_dp4["fits"],
+               json.dumps(fit_dp4))
+        _check(
+            checks, "fit_rejects_dp2_on_measured_limit",
+            not fit_dp2["fits"] and "exceeds budget" in fit_dp2["reason"],
+            json.dumps(fit_dp2),
+        )
+        _check(checks, "fit_accepts_dp2_with_headroom",
+               fit_dp2_roomy["fits"], json.dumps(fit_dp2_roomy))
+        return {
+            "forecast_round": opened_round,
+            "oom_round": oom_round,
+            "account": {
+                "used_b": used,
+                "subsystems": account["subsystems"],
+                "source": account["chips"][0]["source"]
+                if account["chips"] else "",
+            },
+            "fit": {
+                "dp4": fit_dp4["fits"],
+                "dp2": fit_dp2["fits"],
+                "dp2_roomy": fit_dp2_roomy["fits"],
+            },
+        }
+
+
+def _scenario_cache_cold(ctx: Dict) -> Dict:
+    """The compile observatory's two-boot contract under a wiped
+    persistent cache, end to end.  The port's compile is the kernel
+    build (``ops/cuda/_build.py``) and its persistent cache the build
+    directory, here a fresh one under ``persistent_cache_override``; a
+    "boot" is a fresh compile scope whose watched call site,
+    ``drill.step``, builds :data:`DRILL_KERNEL` (nvcc on the card):
+
+    1. **cold boot** — the build runs nvcc (classified ``first-trace``,
+       nonzero compile seconds, cache miss) and no incident opens: a
+       cold first boot paying its compile is EXPECTED;
+    2. **warm restart** — a fresh scope that EXPECTS warmth: the same
+       source must come back as a persistent-cache HIT with hit ratio 1
+       and fewer compile seconds, and the cache-cold sentinel must stay
+       quiet;
+    3. **wiped cache** — the cache dir is destroyed between boots: the
+       rebuild classifies ``persistent-cache-miss``, pays the injected
+       chaos DELAY (deterministic extra compile seconds), and the
+       ``CompileSentinel`` opens a ``cache_cold`` incident whose
+       finalized verdict embeds the compile events — naming the exact
+       FUNCTION and TRIGGER from the flight-dump evidence;
+    4. **recompile storm** — a synthetic ``job.compile.s`` trajectory
+       (healthy baseline, then sustained 30s/window) breaches the
+       EWMA+MAD storm detector and opens ``recompile_storm``.
+
+    The reference's in-process executable caches (``jax.clear_caches``)
+    have no counterpart: a build looks at the directory every time.  A
+    library this process loaded earlier stays loaded and untouched.  Each
+    boot's build seconds are in the result (``boots``)."""
+    from dlrover_tpu_torch.diagnosis.diagnostician import DiagnosisManager
+    from dlrover_tpu_torch.master.timeseries import TimeSeriesStore
+    from dlrover_tpu_torch.observability import jitscope
+    from dlrover_tpu_torch.observability.incidents import IncidentManager
+    from dlrover_tpu_torch.observability.sentinel import CompileSentinel
+    from dlrover_tpu_torch.ops.cuda import _build
+
+    checks = ctx["checks"]
+    cache_dir = os.path.join(ctx["workdir"], "kernel_cache")
+    os.makedirs(cache_dir, exist_ok=True)
+    boots: List[Dict[str, Any]] = []
+    with _env(
+        DLROVER_TPU_INCIDENT_DIR=os.path.join(ctx["workdir"], "incidents"),
+        DLROVER_TPU_INCIDENT_COOLDOWN_S="0",
+        DLROVER_TPU_INCIDENT_GRACE_S="0",
+        DLROVER_TPU_JITSCOPE="1",
+        DLROVER_TPU_CACHE_COLD_RATIO="0.5",
+        DLROVER_TPU_SENTINEL_CONSECUTIVE="2",
+    ), jitscope.persistent_cache_override(cache_dir):
+        jitscope.install()
+        store = TimeSeriesStore()
+        manager = IncidentManager()
+        manager.set_timeseries(store)
+        diagnosis = DiagnosisManager()
+        diagnosis.register(CompileSentinel(store))
+        diagnosis.set_incident_manager(manager)
+
+        def boot(warm: bool):
+            # a "boot": a fresh scope; the SAME source (identical hash ->
+            # identical library name) resolved once
+            sc = jitscope.reset_scope(warm_expected=warm, cache_enabled=True)
+            watched = jitscope.watch(
+                lambda: _build.build([DRILL_KERNEL]), "drill.step")
+            t0 = time.perf_counter()
+            watched()
+            boots.append({"warm_expected": warm,
+                          "build_s": round(time.perf_counter() - t0, 3),
+                          "event": watched.last_event})
+            store.record_digest(0, sc.digest())
+            diagnosis.diagnose_once()
+            return sc, watched.last_event
+
+        try:
+            # -- 1. cold boot: first trace, real build, no alarm --------
+            sc1, ev1 = boot(warm=False)
+            _check(
+                checks, "cold_boot_first_trace",
+                ev1 is not None and ev1["trigger"] == "first-trace"
+                and ev1["compile_s"] > 0 and ev1["cache"] == "miss",
+                f"event {ev1}",
+            )
+            _check(checks, "cold_boot_no_incident",
+                   not manager.list_incidents(),
+                   f"{manager.list_incidents()}")
+
+            # -- 2. warm restart: the cache absorbs the rebuild ---------
+            sc2, ev2 = boot(warm=True)
+            summary2 = sc2.summary()
+            _check(
+                checks, "warm_restart_cache_hit",
+                ev2 is not None and ev2["cache"] == "hit"
+                and summary2["cache_hit_ratio"] == 1.0,
+                f"event {ev2} summary {summary2}",
+            )
+            _check(
+                checks, "warm_restart_cheaper_than_cold",
+                ev2 is not None and ev1 is not None
+                and ev2["compile_s"] < ev1["compile_s"],
+                f"warm {ev2 and ev2['compile_s']} vs cold "
+                f"{ev1 and ev1['compile_s']}",
+            )
+            _check(checks, "warm_restart_no_incident",
+                   not manager.list_incidents(),
+                   f"{manager.list_incidents()}")
+
+            # -- 3. wiped cache: classified miss + cache_cold incident --
+            shutil.rmtree(cache_dir)
+            os.makedirs(cache_dir, exist_ok=True)
+            sc3, ev3 = boot(warm=True)
+            _check(
+                checks, "wiped_cache_classified_miss",
+                ev3 is not None
+                and ev3["trigger"] == "persistent-cache-miss"
+                and ev3["cache"] == "miss",
+                f"event {ev3}",
+            )
+            _check(
+                checks, "chaos_delay_priced_into_compile",
+                ev3 is not None and ev3["compile_s"] >= 0.045,
+                f"event {ev3}",
+            )
+            cold = [inc for inc in manager.list_incidents()
+                    if inc["kind"] == "cache_cold"]
+            _check(checks, "cache_cold_incident_opened", bool(cold),
+                   f"{manager.list_incidents()}")
+            verdict: Dict[str, Any] = {}
+            if cold:
+                verdict = manager.finalize(
+                    cold[0]["incident_id"], force=True) or {}
+            _check(checks, "cache_cold_phase_compile",
+                   verdict.get("phase") == "compile", f"{verdict}")
+            _check(checks, "cache_cold_names_culprit",
+                   verdict.get("culprit_node") == 0, f"{verdict}")
+            last_miss = (verdict.get("compile") or {}).get(
+                "last_miss") or {}
+            _check(
+                checks, "cache_cold_names_function_and_trigger",
+                last_miss.get("fn") == "drill.step"
+                and last_miss.get("trigger") == "persistent-cache-miss",
+                f"compile evidence {verdict.get('compile')}",
+            )
+
+            # -- 4. synthetic recompile storm breaches the detector -----
+            storm_store = TimeSeriesStore()
+            storm_diag = DiagnosisManager()
+            storm_diag.register(CompileSentinel(storm_store))
+            storm_diag.set_incident_manager(manager)
+            base_ts = time.time() - 400
+            for i in range(14):
+                value = 0.2 if i < 10 else 30.0
+                storm_store.add("job.compile.s", value, base_ts + i * 10)
+            storm_diag.diagnose_once()
+            storm = [inc for inc in manager.list_incidents()
+                     if inc["kind"] == "recompile_storm"]
+            _check(checks, "recompile_storm_incident_opened",
+                   bool(storm), f"{manager.list_incidents()}")
+            return {
+                "cold_compile_s": ev1 and ev1["compile_s"],
+                "warm_compile_s": ev2 and ev2["compile_s"],
+                "wiped_compile_s": ev3 and ev3["compile_s"],
+                "boots": boots,
+                "verdict": {
+                    "kind": verdict.get("kind"),
+                    "phase": verdict.get("phase"),
+                    "detail": verdict.get("detail"),
+                    "last_miss": last_miss,
+                },
+            }
+        finally:
+            jitscope.reset_scope()
+
+
+class _LaggedStorage:
+    """A storage model pricing each round trip at an object-store RTT
+    (the round trips the peer rung never makes), slept on the drill's
+    clock."""
+
+    RTT_S = 0.04
+
+    def __init__(self, inner, clock):
+        self._inner = inner
+        self._clock = clock
+
+    def __getattr__(self, name):
+        attr = getattr(self._inner, name)
+        if name in ("read", "read_binary", "read_range", "exists"):
+            def lagged(*a, **kw):
+                self._clock.sleep(self.RTT_S)
+                return attr(*a, **kw)
+            return lagged
+        return attr
+
+
+def _builds_without_nvcc(cache_dir: str, sources) -> bool:
+    """Every source resolves from ``cache_dir`` as a hit: no nvcc run."""
+    from dlrover_tpu_torch.observability import jitscope
+    from dlrover_tpu_torch.ops.cuda import _build
+
+    resolved: List[bool] = []
+
+    def listener(name, cached, seconds):
+        resolved.append(cached)
+
+    _build.add_listener(listener)
+    try:
+        with jitscope.persistent_cache_override(cache_dir):
+            _build.build(list(sources))
+    finally:
+        _build.remove_listener(listener)
+    return len(resolved) == len(sources) and all(resolved)
+
+
+def _scenario_peer_restore(ctx: Dict) -> Dict:
+    """Checkpoint-free fast recovery: node kill at dp>=4, the
+    replacement pulls the lost shards straight from surviving peers.
+
+    1. **peer rung under chaos** — three survivors hold the committed
+       step in shm and serve it, and their compile cache: the kernel
+       library of :data:`DRILL_KERNEL` they built (``survivor_cache``,
+       else one this drill builds).  The replacement's recovery pulls
+       every shard over the peer endpoints while the armed plan tears one
+       payload (the restorer must retry that read once against the same
+       donor — and succeed, with no demotion) and delays serves.
+       Asserts: bit-exact segment vs a donor, ZERO storage reads, the
+       compile cache prewarmed (every survivor entry pulled byte-equal,
+       and the kernel then resolves from it with no nvcc run), the
+       ``peer_restore`` ledger phase priced, and the recovery report
+       landing in the master broker and time-series store.
+    2. **manifest rung, measured** — the same recovery with every peer
+       gone falls to sealed-manifest ranged reads against a storage
+       model that prices each round trip at an object-store RTT: still
+       bit-exact, and the peer path must beat it on MTTR.
+    3. **MTTR budget sentinel** — under the generous drill budget the
+       sentinel stays quiet; a recovery against a tiny budget blows it
+       and the sentinel opens a classified ``mttr_budget`` incident
+       naming the recovery phase.
+
+    MTTRs are timed on the drill's clock (``clock``)."""
+    from dlrover_tpu_torch.common.multi_process import SharedMemoryBuffer
+    from dlrover_tpu_torch.common.storage import get_checkpoint_storage
+    from dlrover_tpu_torch.diagnosis.diagnostician import DiagnosisManager
+    from dlrover_tpu_torch.observability import goodput, jitscope
+    from dlrover_tpu_torch.observability.incidents import IncidentManager
+    from dlrover_tpu_torch.observability.sentinel import MttrSentinel
+    from dlrover_tpu_torch.ops.cuda import _build
+    from dlrover_tpu_torch.trainer.flash_checkpoint import (
+        distributed,
+        peer_restore,
+        snapshot,
+    )
+    from dlrover_tpu_torch.trainer.flash_checkpoint.engine import shm_name
+
+    checks, device, clock = ctx["checks"], ctx["device"], ctx["clock"]
+    workdir = ctx["workdir"]
+    scope = _scope()
+    step, nprocs, dead = 9, 4, 1
+    survivors = [0, 2, 3]
+    extras = {"drill": "peer_restore"}
+
+    handle = _MasterHandle()
+    client = _RestartableLocalClient(handle, node_id=dead)
+    state = _make_state(step, device)
+    leaves = snapshot.plan_shards({k: v.cpu() for k, v in state.items()})
+
+    # the sealed manifest the ladder's second rung reads (same extras as
+    # the shm snapshots so every rung recommits an identical segment)
+    ckpt_dir = os.path.join(workdir, "ckpt")
+    dist_engine = distributed.DistributedCheckpointEngine(
+        ckpt_dir, process_id=0, num_processes=1,
+        client=distributed.LocalCommitClient(),
+    )
+    save_stats = dist_engine.save(
+        step, state, extras=extras, wait_seal=True, timeout=30)
+    _check(checks, "manifest_sealed", bool(save_stats.get("sealed")),
+           str(save_stats))
+
+    # survivors: committed shm snapshots + serve endpoints + the kernel
+    # libraries the job already built
+    cache_src = ctx.get("survivor_cache") or ""
+    if not cache_src:
+        cache_src = os.path.join(workdir, "cache_survivor")
+        with jitscope.persistent_cache_override(cache_src):
+            _build.build([DRILL_KERNEL])
+    cache_blobs: Dict[str, bytes] = {}
+    for name in sorted(os.listdir(cache_src)):
+        full = os.path.join(cache_src, name)
+        if os.path.isfile(full) and not name.endswith(".tmp"):
+            with open(full, "rb") as f:
+                cache_blobs[name] = f.read()
+    shms: Dict[int, Any] = {}
+    endpoints: Dict[int, Any] = {}
+    try:
+        announced = True
+        for pid in survivors:
+            shm = SharedMemoryBuffer(shm_name(pid, scope))
+            snapshot.write_snapshot(shm, step, leaves, extras)
+            shms[pid] = shm
+            endpoint = peer_restore.PeerServeEndpoint(
+                pid, scope=scope, cache_dir=cache_src).start()
+            endpoints[pid] = endpoint
+            announced = announced and client.report_peer_announce(
+                scope, step, endpoint.addr,
+                num_processes=nprocs, process_id=pid,
+            )
+        _check(checks, "survivors_announced", announced)
+        donor_meta_bytes = snapshot.read_meta_bytes(shms[0])
+        donor_meta = snapshot.read_snapshot_meta(shms[0])
+        payload_nbytes = int(donor_meta["payload_bytes"])
+
+        with _env(
+            DLROVER_TPU_GOODPUT_RES_S="0.005",
+            DLROVER_TPU_PEER_CACHE_PREWARM="1",
+            DLROVER_TPU_MTTR_BUDGET_S="30",
+            DLROVER_TPU_INCIDENT_DIR=os.path.join(workdir, "incidents"),
+            DLROVER_TPU_INCIDENT_COOLDOWN_S="0",
+            DLROVER_TPU_INCIDENT_GRACE_S="0",
+        ):
+            goodput.reset_ledger()
+
+            # -- 1. the node kill: the broker names the replica-group
+            #    donors and the replacement pulls the step from them ---
+            assignment = client.get_peer_assignment(
+                scope, step=-1, group=survivors, process_id=dead)
+            _check(
+                checks, "broker_names_replica_donors",
+                assignment.step == step
+                and len(assignment.donors or {}) == len(survivors),
+                f"step={assignment.step} donors={assignment.donors}",
+            )
+            shm_new = SharedMemoryBuffer(shm_name(dead, scope))
+            shms[dead] = shm_new
+            cache_dst = os.path.join(workdir, "cache_replacement")
+            os.makedirs(cache_dst, exist_ok=True)
+            report = peer_restore.recover(
+                scope=scope, process_id=dead, num_processes=nprocs,
+                shm=shm_new, checkpoint_dir=ckpt_dir,
+                assignment={"step": int(assignment.step),
+                            "donors": dict(assignment.donors)},
+                cache_dir=cache_dst, client=client, clock=clock.now,
+            )
+            _check(
+                checks, "peer_rung_zero_storage_reads",
+                report["filled"] and report["rung"] == "peer_shm"
+                and report["storage_reads"] == 0
+                and report["bytes_manifest"] == 0,
+                str(report),
+            )
+            _check(
+                checks, "torn_payload_retried_not_demoted",
+                report["torn_retries"] >= 1
+                and not report["demoted_peers"],
+                str(report),
+            )
+            _check(
+                checks, "peer_rung_bit_exact",
+                snapshot.read_meta_bytes(shm_new) == donor_meta_bytes
+                and snapshot.read_payload_range(shm_new, 0, payload_nbytes)
+                == snapshot.read_payload_range(shms[0], 0, payload_nbytes),
+            )
+            meta_new = snapshot.read_snapshot_meta(shm_new)
+            restored = {
+                leaf["path"]: snapshot.read_shard_bytes(
+                    shm_new, meta_new, leaf["shards"][0], leaf["dtype"]
+                ).reshape(leaf["gshape"])
+                for leaf in meta_new["leaves"]
+            }
+            _check(checks, "peer_rung_state_equal",
+                   _state_equal(restored, state))
+            prewarmed_ok = report["cache_prewarmed"] == len(cache_blobs)
+            for name, blob in cache_blobs.items():
+                path = os.path.join(cache_dst, name)
+                prewarmed_ok = prewarmed_ok and os.path.exists(path)
+                if prewarmed_ok:
+                    with open(path, "rb") as f:
+                        prewarmed_ok = f.read() == blob
+            no_nvcc = prewarmed_ok and _builds_without_nvcc(
+                cache_dst, [DRILL_KERNEL])
+            _check(checks, "cache_prewarmed_zero_cold_compiles",
+                   prewarmed_ok and no_nvcc, str(report))
+            recorded = handle.servicer.peer_broker.recoveries()
+            _check(
+                checks, "recovery_report_brokered",
+                bool(recorded) and recorded[-1]["rung"] == "peer_shm"
+                and recorded[-1]["process_id"] == dead,
+                str(recorded[-1:]),
+            )
+            phases = goodput.ledger().summary()["phases"]
+            _check(checks, "recovery_priced_in_ledger",
+                   phases.get("peer_restore", 0.0) > 0.0, str(phases))
+
+            # -- 2. every peer gone: the ladder falls to the manifest
+            #    rung.  Each storage round trip pays a modeled object-
+            #    store RTT — the trips the peer rung never makes. ------
+            plan = [
+                dict(leaf, shards=[dict(s) for s in leaf["shards"]])
+                for leaf in donor_meta["leaves"]
+            ]
+            shm_manifest = SharedMemoryBuffer(shm_name(7, scope))
+            shms[7] = shm_manifest
+            report_manifest = peer_restore.recover(
+                scope=scope, process_id=7, num_processes=nprocs,
+                shm=shm_manifest, checkpoint_dir=ckpt_dir,
+                assignment={"step": step, "donors": {}}, plan=plan,
+                storage=_LaggedStorage(
+                    get_checkpoint_storage(path=ckpt_dir), clock),
+                client=client, clock=clock.now,
+            )
+            _check(
+                checks, "manifest_rung_bit_exact",
+                report_manifest["filled"]
+                and report_manifest["rung"] == "manifest"
+                and report_manifest["storage_reads"] > 0
+                and snapshot.read_payload_range(
+                    shm_manifest, 0, payload_nbytes)
+                == snapshot.read_payload_range(shms[0], 0, payload_nbytes),
+                str(report_manifest),
+            )
+            _check(
+                checks, "peer_beats_manifest_restore",
+                report["mttr_s"] < report_manifest["mttr_s"],
+                f"peer={report['mttr_s']:.3f}s "
+                f"manifest={report_manifest['mttr_s']:.3f}s",
+            )
+
+            # -- 3. the MTTR budget sentinel: quiet under the drill
+            #    budget, an incident once a recovery blows a tiny one --
+            store = handle.servicer.timeseries
+            manager = IncidentManager()
+            manager.set_timeseries(store)
+            diagnosis = DiagnosisManager()
+            diagnosis.register(MttrSentinel(store))
+            diagnosis.set_incident_manager(manager)
+            diagnosis.diagnose_once()
+            _check(checks, "mttr_sentinel_quiet_under_budget",
+                   not manager.list_incidents(),
+                   str(manager.list_incidents()))
+            shm_slow = SharedMemoryBuffer(shm_name(8, scope))
+            shms[8] = shm_slow
+            report_slow = peer_restore.recover(
+                scope=scope, process_id=8, num_processes=nprocs,
+                shm=shm_slow, checkpoint_dir=ckpt_dir,
+                assignment={"step": int(assignment.step),
+                            "donors": dict(assignment.donors)},
+                client=client, budget_s=0.005, clock=clock.now,
+            )
+            _check(checks, "chaos_delay_blows_tiny_budget",
+                   report_slow["over_budget"], str(report_slow))
+            diagnosis.diagnose_once()
+            fired = [inc for inc in manager.list_incidents()
+                     if inc["kind"] == "mttr_budget"]
+            _check(checks, "mttr_sentinel_fires_over_budget",
+                   bool(fired), str(manager.list_incidents()))
+            verdict: Dict[str, Any] = {}
+            if fired:
+                verdict = manager.finalize(
+                    fired[0]["incident_id"], force=True) or {}
+            _check(checks, "mttr_incident_phase_recovery",
+                   verdict.get("phase") == "recovery", str(verdict))
+        return {
+            "recovery_mttr_s": report["mttr_s"],
+            "peer_read_gbps": report["peer_read_gbps"],
+            "manifest_mttr_s": report_manifest["mttr_s"],
+            "bytes_peer": report["bytes_peer"],
+            "torn_retries": report["torn_retries"],
+            "cache_prewarmed": report["cache_prewarmed"],
+            "phases": phases,
+        }
+    finally:
+        for endpoint in endpoints.values():
+            endpoint.stop()
+        for shm in shms.values():
+            with contextlib.suppress(Exception):
+                shm.unlink()  # closes this process's mapping first
+
+
 _SCENARIO_BODIES: Dict[str, Callable[[Dict], Dict]] = {
     "master_restart": _scenario_master_restart,
     "torn_shm": _scenario_torn_shm,
@@ -837,6 +1684,10 @@ _SCENARIO_BODIES: Dict[str, Callable[[Dict], Dict]] = {
     "kv_timeout": _scenario_kv_timeout,
     "heartbeat_loss": _scenario_heartbeat_loss,
     "torn_commit": _scenario_torn_commit,
+    "slow_link": _scenario_slow_link,
+    "hbm_leak": _scenario_hbm_leak,
+    "cache_cold": _scenario_cache_cold,
+    "peer_restore": _scenario_peer_restore,
 }
 
 #: the scenarios this drill runs (``run_drill``'s default)
@@ -862,12 +1713,17 @@ def normalized_trace(
     ]
 
 
-def run_scenario(name: str, seed: int = 0,
-                 device: DeviceLike = None) -> Dict[str, Any]:
+def run_scenario(name: str, seed: int = 0, device: DeviceLike = None,
+                 clock: Any = None,
+                 survivor_cache: str = "") -> Dict[str, Any]:
     """Run one scenario; returns the result dict (``ok``, ``checks``,
     ``trace``, timing).  ``device``: where the states live (the card by
-    default).  A scenario of :data:`WAITING` raises
-    ``NotImplementedError``; an unknown name ``KeyError``."""
+    default).  ``clock`` (``now()`` seconds, ``sleep(s)``; default
+    :class:`WallClock`) times ``slow_link``'s probe and
+    ``peer_restore``'s MTTRs.  ``survivor_cache``: a kernel build
+    directory ``peer_restore``'s survivors serve (default: one it builds).
+    A scenario of :data:`WAITING` raises ``NotImplementedError``; an
+    unknown name ``KeyError``."""
     if name in WAITING:
         raise NotImplementedError(
             f"chaos scenario {name!r} drives modules the port does not "
@@ -879,7 +1735,12 @@ def run_scenario(name: str, seed: int = 0,
             f"unknown chaos scenario {name!r}; have "
             f"{list(PORTED)}"
         ) from None
-    return _run_with_plan(name, seed, body, resolve_device(device))
+    options: Dict[str, Any] = {}
+    if clock is not None:
+        options["clock"] = clock
+    if survivor_cache:
+        options["survivor_cache"] = survivor_cache
+    return _run_with_plan(name, seed, body, resolve_device(device), options)
 
 
 def run_drill(

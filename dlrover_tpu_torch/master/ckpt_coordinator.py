@@ -36,9 +36,11 @@ the master; the port reaches it in-process (``peer_restore.LocalPeerClient``)
 or over the world's c10d store (``peer_restore.StorePeerClient``).
 
 Phase 2 runs under the reference's ``ckpt.phase2_commit`` trace span and
-chaos point, and records ``ckpt_phase_seconds{phase="phase2_seal"}``.  Not
-ported: the broker's ``/recovery`` dashboard feed and MTTR sentinel
-(ROADMAP_LAUNCHER_REST: they need the master's time-series store).
+chaos point, and records ``ckpt_phase_seconds{phase="phase2_seal"}``.  The
+servicer files each recovery report both here and in its time-series store,
+whose recent reports the MTTR sentinel judges
+(``observability/sentinel.py``).  Not ported: the dashboard's
+``/recovery`` view (ROADMAP item 11, the rest: the dashboard).
 """
 
 import json

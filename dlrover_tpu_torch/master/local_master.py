@@ -11,10 +11,10 @@ The incident engine (``observability/incidents.py``) is built and attached
 to the diagnosis manager and the servicer: a hang the diagnostician fires
 opens a ``hang`` incident whose ``flight_dump`` broadcast is queued ahead
 of the restart, the agents' dumps land in it, and its finalize writes a
-classified ``INCIDENT.json``.  What differs from the copy
-(``ROADMAP_LAUNCHER_REST``): the perf-regression sentinels are not
-registered and the incident engine has no time-series store, since the
-master's time-series store is not ported.
+classified ``INCIDENT.json``.  The ten perf-regression sentinels
+(``observability/sentinel.py``) watch the servicer's time-series store
+beside the hang diagnostician, and the incident engine reads the same
+store for its memory series and counter tracks.
 """
 
 import threading
@@ -150,10 +150,16 @@ class LocalJobMaster:
         # incident engine: a hang fired by the diagnostician above also
         # captures coordinated evidence (broadcast flight dumps ->
         # merged timeline + classified INCIDENT.json) — the standalone
-        # master keeps the same detection -> evidence -> verdict loop.
-        # The reference's perf-regression sentinels over the
-        # heartbeat-digest time series register here too; they and the
-        # store wait (ROADMAP_LAUNCHER_REST)
+        # master keeps the same detection -> evidence -> verdict loop
+        # perf-regression sentinel over the heartbeat-digest time series
+        from dlrover_tpu_torch.observability.sentinel import (
+            register_sentinels,
+        )
+
+        register_sentinels(
+            self.diagnosis_manager, self.servicer.timeseries,
+            job_context=self._job_context,
+        )
         from dlrover_tpu_torch.observability.incidents import (
             IncidentManager,
         )
@@ -161,6 +167,7 @@ class LocalJobMaster:
         self.incident_manager = IncidentManager(
             job_context=self._job_context
         )
+        self.incident_manager.set_timeseries(self.servicer.timeseries)
         self.diagnosis_manager.set_incident_manager(self.incident_manager)
         self.servicer.set_incident_manager(self.incident_manager)
         self._server = create_master_service(

@@ -8,12 +8,13 @@ on the dataclass type inside the envelope.  New features add a dataclass +
 handler, never a service method.
 
 An agent's flight dump (``IncidentDumpReport``) lands in its incident
-through the attached incident engine (the local master attaches one).
-What differs from the copy (``ROADMAP_LAUNCHER_REST``): the servicer keeps
-no time-series store and no ``datascope`` shard telemetry, so a heartbeat
-digest and a recovery report feed the metric context and the peer broker
-only; the brain ack answers as the reference's servicer does with no
-brain attached.
+through the attached incident engine (the local master attaches one).  A
+heartbeat digest feeds the metric context and the time-series store
+(``self.timeseries``, ``master/timeseries.py``); a ``RecoveryReport``
+feeds the peer broker and the store.  What differs from the copy
+(ROADMAP item 11, the rest): the servicer keeps no ``datascope`` shard
+telemetry, and the brain ack answers as the reference's servicer does with
+no brain attached.
 """
 
 import time
@@ -69,11 +70,14 @@ class MasterServicer:
         self._elastic_run_config = elastic_run_config or {}
         self._job_context = get_job_context()
         from dlrover_tpu_torch.master.metric_context import JobMetricContext
+        from dlrover_tpu_torch.master.timeseries import TimeSeriesStore
 
         self.metric_context = JobMetricContext()
-        # the time-series store (the goodput/step-time history of the
-        # dashboard and the regression sentinel) and datascope's shard
-        # telemetry are not ported (ROADMAP item 11, the rest)
+        # the goodput/step-time history the /metrics pull gauges and the
+        # regression sentinels read (datascope's shard telemetry waits:
+        # ROADMAP item 11, the rest)
+        self.timeseries = TimeSeriesStore()
+        self.timeseries.register_pull_gauges()
         self._start_training_time = 0.0
         self._pre_check_status = PreCheckStatus.PASS
         self._admission = AdmissionController()
@@ -520,8 +524,13 @@ class MasterServicer:
             # laggard screens and the straggler/ckpt-stall diagnosticians
             self.metric_context.record_step_digest(node_id, request.digest)
             # the same digest carries the cumulative goodput-ledger
-            # account (gp_* keys) that the reference differentiates into
-            # its time-series store (ROADMAP item 11, the rest)
+            # account (gp_* keys): differentiate into the time series
+            # the sentinels read
+            try:
+                self.timeseries.record_digest(node_id, request.digest)
+            except Exception as e:  # noqa: BLE001 - history is best-
+                logger.warning("timeseries digest feed failed: %s", e)
+                # effort; the heartbeat must still be answered
         actions = self._job_context.next_actions(node_id)
         return comm.HeartbeatResponse(diagnosis_actions=actions)
 
@@ -722,10 +731,13 @@ class MasterServicer:
                 request.addr,
             )
         if isinstance(request, comm.RecoveryReport):
-            # the reference also feeds the report to its time-series
-            # store (ROADMAP item 11, the rest)
-            return self._peer_broker.record_recovery(
-                comm.message_to_dict(request))
+            report = comm.message_to_dict(request)
+            ok = self._peer_broker.record_recovery(report)
+            try:
+                self.timeseries.record_recovery(report)
+            except Exception as e:  # noqa: BLE001 - telemetry only
+                logger.warning("timeseries recovery feed failed: %s", e)
+            return ok
         if isinstance(request, comm.HangDetectionReport):
             self.metric_context.record_hang(
                 request.node_id, request.hung, request.detail

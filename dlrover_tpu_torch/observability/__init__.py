@@ -14,4 +14,9 @@ Port of ``dlrover_tpu/observability``'s worker-side modules:
 (``ConfigPath.RUNTIME_METRICS``.rank<id>), and the merge rules an agent
 folds those files with are ``memscope.merge_digest``,
 ``jitscope.merge_digest`` and ``commscope.merge_digest``.
+
+The master's side: ``sentinel`` (EWMA+MAD detectors over the time series
+the master's store, ``master/timeseries.py``, keeps of those digests),
+``incidents`` and ``timeline`` (the incident engine and its merged
+timeline).
 """

@@ -179,7 +179,9 @@ class MeshProbe:
     probe one ``DpGroup.all_reduce`` of ``bw_bytes`` of fp32, both on the
     group's device and each waited for.  With an injected
     ``runner(axis, kind)`` (tests) no group is touched: timing, spans and
-    model updates are identical either way.
+    model updates are identical either way.  ``clock`` (seconds, default
+    ``time.perf_counter``) times the windows; a test may inject one that
+    load cannot stretch.
     """
 
     def __init__(self, axes: Dict[str, int],
@@ -187,12 +189,14 @@ class MeshProbe:
                  runner: Optional[Callable[[str, str], Any]] = None,
                  lat_bytes: Optional[int] = None,
                  bw_bytes: Optional[int] = None,
-                 reps: Optional[int] = None):
+                 reps: Optional[int] = None,
+                 clock: Optional[Callable[[], float]] = None):
         self.axes = {
             a: int(w) for a, w in (axes or {}).items() if int(w) > 1
         }
         self._groups = dict(groups or {})
         self._runner = runner
+        self._clock = clock or time.perf_counter
         self._lat_bytes = int(
             lat_bytes if lat_bytes is not None
             else envs.get_int("DLROVER_TPU_COMM_PROBE_LAT_BYTES")
@@ -284,8 +288,6 @@ class MeshProbe:
     # -- probing -------------------------------------------------------------
 
     def _probe_axis(self, axis: str, model: FabricModel) -> Dict[str, float]:
-        import time as _time
-
         from dlrover_tpu_torch.observability import metrics as obs_metrics
         from dlrover_tpu_torch.observability import trace
 
@@ -295,18 +297,18 @@ class MeshProbe:
             # warm-up outside the window: the first call sets up the
             # group's buffers and connections
             self._run(axis, "lat")
-            t0 = _time.perf_counter()
+            t0 = self._clock()
             # the injected per-axis link latency lands INSIDE the timed
             # window — chaos prices the axis exactly like a slow link
             _fire_axis_delay(axis)
             for _ in range(self.reps):
                 self._run(axis, "lat")
-            lat_s = (_time.perf_counter() - t0) / self.reps
+            lat_s = (self._clock() - t0) / self.reps
             self._run(axis, "bw")  # warm-up
-            t0 = _time.perf_counter()
+            t0 = self._clock()
             for _ in range(self.reps):
                 self._run(axis, "bw")
-            bw_elapsed = (_time.perf_counter() - t0) / self.reps
+            bw_elapsed = (self._clock() - t0) / self.reps
             # ring all-reduce accounting: bytes leaving each replica
             off = 2.0 * (world - 1) / world
             moved = off * float(self._bw_bytes)

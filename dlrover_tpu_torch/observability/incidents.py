@@ -4,9 +4,10 @@ Copy of ``dlrover_tpu/observability/incidents.py``: the same verdict
 (:func:`classify`), the same ``INCIDENT.json`` keys and the same
 lifecycle (open, add_dump, finalize, cooldown, grace, eviction, the
 open-incidents gauge).  The local master builds one and attaches it to
-its diagnosis manager and its servicer.  ``set_timeseries`` is kept; the
-port's master has no time-series store yet (ROADMAP_LAUNCHER_REST), so
-the memory evidence carries no series and the timeline no counter tracks.
+its diagnosis manager and its servicer, and attaches the servicer's
+time-series store (``set_timeseries``): a memory incident embeds the
+culprit's ``mem.*`` series and the timeline carries the job's counter
+tracks.
 
 The diagnosticians (``diagnosis/``) *detect* — a hang, a
 straggler, a checkpoint stall, an overload storm.  This module closes
@@ -260,7 +261,7 @@ class IncidentManager:
 
     def set_timeseries(self, timeseries: Any) -> None:
         """Attach the master time-series store
-        (the reference's ``master.timeseries.TimeSeriesStore``): the
+        (:class:`dlrover_tpu_torch.master.timeseries.TimeSeriesStore`): the
         incident timeline then carries the job goodput/step-time
         counter tracks, so the stuck spans land ON the perf curves
         they wounded."""

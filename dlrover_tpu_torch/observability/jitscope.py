@@ -30,9 +30,15 @@ counting per thread and per process.
     :func:`merge_digest`, :data:`DIGEST_MERGE`) ride the rank's digest
     file.
 
-Left out: the reference's ``persistent_cache_override`` and
-``_cache_info`` (its XLA compile cache's directory and boot state), which
-have no counterpart here.
+**The persistent cache**
+    The kernel build directory is the port's persistent compile cache
+    (the reference's is XLA's cache dir).  A scope made without explicit
+    flags seeds ``warm_expected`` and ``cache_enabled`` from the worker
+    bootstrap's boot state (:func:`_cache_info`,
+    ``trainer/bootstrap.compile_cache_info``): a warm start is expected
+    when the directory held libraries at boot or the process is a
+    restart.  :func:`persistent_cache_override` points the build at
+    another directory for its duration (drills, tests).
 
 Chaos: :data:`COMPILE_POINT` fires inside every detected compile
 window, so a seeded DELAY is injected compile seconds — the
@@ -42,6 +48,7 @@ Everything is guarded: a broken observatory never breaks a call, and
 ``DLROVER_TPU_JITSCOPE=0`` turns every hook into a flag check.
 """
 
+import contextlib
 import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -257,8 +264,8 @@ class JitScope:
     last-seen signatures, stall bookkeeping, the digest.  One instance
     per process (see :func:`scope`); tests may build private ones."""
 
-    def __init__(self, warm_expected: bool = False,
-                 cache_enabled: bool = True):
+    def __init__(self, warm_expected: Optional[bool] = None,
+                 cache_enabled: Optional[bool] = None):
         self._mu = threading.Lock()
         # boot marker: lets the master distinguish "this process
         # restarted" from "more events landed" even when the new
@@ -276,10 +283,14 @@ class JitScope:
         self._seq = 0
         self._last_ts = 0.0
         self._last_event: Optional[Dict[str, Any]] = None
-        # the kernel build's cache (a library per source hash under
-        # build/kernels) is always on; a warm start is expected only when
-        # the caller says so (the reference reads both from its XLA
-        # cache's boot state, which the port has no counterpart of)
+        if warm_expected is None or cache_enabled is None:
+            info = _cache_info()
+            if warm_expected is None:
+                warm_expected = bool(
+                    info.get("entries_at_boot", 0)
+                ) or bool(info.get("restart", False))
+            if cache_enabled is None:
+                cache_enabled = bool(info.get("enabled", False))
         self.warm_expected = bool(warm_expected)
         self.cache_enabled = bool(cache_enabled)
 
@@ -655,6 +666,36 @@ def _emit_span(name: str, start_ts: float, end_ts: float,
         logger.debug("jitscope span emit failed: %s", e)
 
 
+@contextlib.contextmanager
+def persistent_cache_override(cache_dir: str):
+    """Point the kernel build at ``cache_dir`` for the duration (drills,
+    smokes, tests), with ``_build``'s library memo cleared, as the
+    reference resets jax's "is the cache used" marker.  A library loaded
+    before stays mapped and is neither unloaded nor rebuilt; on exit the
+    build directory and the memo are the ones from before, even on an
+    exception.  The reference's minimum compile time worth caching
+    (``DLROVER_TPU_COMPILE_CACHE_MIN_S``) has no counterpart: every
+    build is cached."""
+    from dlrover_tpu_torch.ops.cuda import _build
+
+    with _build.directory_override(cache_dir):
+        yield
+
+
+# ---------------------------------------------------------------------------
+# Persistent-cache boot state (fed by trainer/bootstrap.py).
+# ---------------------------------------------------------------------------
+
+
+def _cache_info() -> Dict[str, Any]:
+    try:
+        from dlrover_tpu_torch.trainer import bootstrap
+
+        return bootstrap.compile_cache_info()
+    except Exception:  # noqa: BLE001 - bootstrap not importable
+        return {}
+
+
 _SCOPE: Optional[JitScope] = None
 _SCOPE_MU = threading.Lock()
 
@@ -669,8 +710,8 @@ def scope() -> JitScope:
     return _SCOPE
 
 
-def reset_scope(warm_expected: bool = False,
-                cache_enabled: bool = True) -> JitScope:
+def reset_scope(warm_expected: Optional[bool] = None,
+                cache_enabled: Optional[bool] = None) -> JitScope:
     """Replace the singleton (tests, per-boot drill isolation)."""
     global _SCOPE
     with _SCOPE_MU:

@@ -12,9 +12,12 @@ breakers, admission refusals and long-polls (:func:`observe_rpc`,
 :func:`record_longpoll_coalesced`, :func:`observe_longpoll`), the
 checkpoint path its phases (:func:`observe_ckpt_phase`), the chaos engine
 its faults (:func:`record_chaos_fault`) and the incident engine its
-counts.  Left out, with their callers (ROADMAP_LAUNCHER_REST): the
-catalog's entries of the master's time series, the sentinels and Brain,
-their helpers and the catalog's markdown generator.
+counts, the master's time-series store its pull gauges
+(``goodput_ledger``, ``step_p50_seconds``, ``mem_used_bytes``, ...), the
+sentinels their fires (:func:`record_sentinel_breach`) and the worker
+bootstrap a compile cache it could not enable.  Left out, with their
+callers (ROADMAP item 11, the rest): the catalog's entries of
+``datascope`` and the brain, and the catalog's markdown generator.
 
 Deliberately dependency-free (no prometheus_client).  Cardinality is
 bounded: at most ``DLROVER_TPU_METRICS_MAX_SERIES`` label combinations
@@ -434,6 +437,60 @@ METRICS: Dict[str, Tuple[str, Tuple[str, ...], str]] = {
         "DLROVER_TPU_JITSCOPE_STALL_MS while compile work landed in "
         "their window (each also emits a jitscope.dispatch_stall span)",
     ),
+    # the master's time-series store, its pull gauges and the sentinels
+    "dlrover_tpu_goodput_ledger": (
+        "gauge", (),
+        "ledger-derived job goodput: fresh-node mean of the recent "
+        "compute share (master time-series store)",
+    ),
+    "dlrover_tpu_goodput_phase_share": (
+        "gauge", ("phase",),
+        "recent wall-clock share per goodput-ledger phase (fresh-node "
+        "mean; phases: compute/exposed_comm/ckpt_stall/"
+        "rendezvous_restart/overload_rideout/compile/idle_unknown)",
+    ),
+    "dlrover_tpu_step_p50_seconds": (
+        "gauge", (),
+        "job p50 step time from heartbeat digests (slowest fresh host)",
+    ),
+    "dlrover_tpu_sentinel_breaches_total": (
+        "counter", ("series", "detector"),
+        "perf-regression sentinel fires by watched series and detector",
+    ),
+    "dlrover_tpu_mem_used_bytes": (
+        "gauge", (),
+        "worst-chip device bytes in use across fresh nodes (job "
+        "rollup of the heartbeat mem digests)",
+    ),
+    "dlrover_tpu_mem_headroom": (
+        "gauge", (),
+        "worst-case per-chip headroom fraction (limit-used)/limit "
+        "across fresh nodes — the mem-pressure sentinel's floor input",
+    ),
+    "dlrover_tpu_mem_subsystem_bytes": (
+        "gauge", ("subsystem",),
+        "worst-chip device bytes attributed per owning subsystem "
+        "(params/optimizer/ef_residual/grad_sync/compile_workspace/"
+        "other) across fresh nodes",
+    ),
+    "dlrover_tpu_compile_cache_disabled_total": (
+        "counter", ("reason",),
+        "persistent compile cache could not be enabled at bootstrap "
+        "(a fleet-wide cold cache is an incident precursor, not a log "
+        "line)",
+    ),
+    "dlrover_tpu_compile_recent_seconds": (
+        "gauge", (),
+        "compile seconds of the most recent differentiated per-node "
+        "window (job.compile.s; each node's window joins the series "
+        "once — the recompile-storm sentinel's input)",
+    ),
+    "dlrover_tpu_compile_cache_hit_ratio": (
+        "gauge", (),
+        "persistent-cache hit ratio of the most recent differentiated "
+        "per-node window (job.compile.hit_ratio; the cache-cold "
+        "sentinel reads the per-node view)",
+    ),
 }
 
 
@@ -544,4 +601,14 @@ def record_chaos_fault(point: str, kind: str) -> None:
         "dlrover_tpu_chaos_faults_total",
         help="chaos faults fired by injection point and kind",
         point=point, kind=kind,
+    )
+
+
+def record_sentinel_breach(series: str, detector: str) -> None:
+    """One perf-regression sentinel fire (goodput/step-time/phase-share
+    EWMA+MAD breach)."""
+    registry().counter_inc(
+        "dlrover_tpu_sentinel_breaches_total",
+        help=_help("dlrover_tpu_sentinel_breaches_total"),
+        series=series, detector=detector,
     )

@@ -1,10 +1,18 @@
 """Build the port's CUDA kernels with nvcc at first use; load them with ctypes.
 
 Each source ``dlrover_tpu_torch/csrc/<name>.cu`` becomes one shared library
-with a plain C interface, ``build/kernels/lib<name>_<hash>.so`` at the root
-of the checkout, keyed by a hash of the source, every shared header
+with a plain C interface, ``lib<name>_<hash>.so`` in the kernel build
+directory, keyed by a hash of the source, every shared header
 (``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt
-and an unchanged one is reused.  ``nvcc`` only exists on
+and an unchanged one is reused.
+
+That directory is the port's persistent compile cache (``build_dir``,
+resolved at each build): an override's directory while
+``directory_override`` (``jitscope.persistent_cache_override``) is active,
+else ``DLROVER_TPU_COMPILE_CACHE``, else ``build/kernels`` at the root of
+the checkout (``BUILD_DIR``).  ``DLROVER_TPU_COMPILE_CACHE=off`` builds
+into a directory of this process's own, so nothing is reused across
+processes.  ``nvcc`` only exists on
 the machine with the card: a build there takes seconds, and a missing
 compiler or a failed build raises.  ``nvcc``'s report (``-Xptxas -v``:
 registers, shared memory and spills per kernel) is kept beside the library
@@ -17,15 +25,19 @@ compile observatory (``observability/jitscope.py``) counts those as
 persistent-cache hits and misses.
 """
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 from pathlib import Path
-from typing import Callable, Dict, Iterable, List
+from typing import Callable, Dict, Iterable, List, Optional, Union
+
+from dlrover_tpu_torch.common import envs
 
 CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -38,6 +50,42 @@ NVCC_FLAGS = (
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _listeners: List[Callable[[str, bool, float], None]] = []
+_overrides: List[Path] = []  # directory_override's stack, innermost last
+_private_dir: Optional[Path] = None  # DLROVER_TPU_COMPILE_CACHE=off
+
+
+def build_dir() -> Path:
+    """The kernel build directory a build resolves now (see the module
+    docstring)."""
+    global _private_dir
+    if _overrides:
+        return _overrides[-1]
+    configured = envs.get_str("DLROVER_TPU_COMPILE_CACHE")
+    if configured.lower() == "off":
+        if _private_dir is None:
+            _private_dir = Path(tempfile.mkdtemp(prefix="dlrover_kernels_"))
+        return _private_dir
+    return Path(configured) if configured else BUILD_DIR
+
+
+@contextlib.contextmanager
+def directory_override(path: Union[str, Path]):
+    """Build into ``path`` for the duration, with an empty library memo,
+    so ``load`` resolves its libraries there.  A library loaded before
+    stays mapped and is not rebuilt (ctypes never unloads one): on exit
+    the memo is the one from before, and what was loaded inside is
+    dropped from it."""
+    with _lock:
+        saved = dict(_libs)
+        _libs.clear()
+        _overrides.append(Path(path))
+    try:
+        yield Path(path)
+    finally:
+        with _lock:
+            _overrides.pop()
+            _libs.clear()
+            _libs.update(saved)
 
 
 def add_listener(fn: Callable[[str, bool, float], None]) -> None:
@@ -78,13 +126,13 @@ def library_path(name: str) -> Path:
     for header in sorted(CSRC_DIR.glob("*.cuh")):
         h.update(header.name.encode() + header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+    return build_dir() / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
     """Compile every missing library, one nvcc per source, all started
     together; returns ``{name: library path}``.  Raises on any failure."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir().mkdir(parents=True, exist_ok=True)
     paths = {name: library_path(name) for name in names}
     compiler = None
     running = []

@@ -8,8 +8,9 @@ storage tier (the reference: "the difference between a sub-minute MTTR
 and a multi-minute full restore").
 
 * ``PeerServeEndpoint``: a threaded HTTP server next to a process's
-  segment, serving the committed meta (``/peer/meta``) and payload ranges
-  (``/peer/shard?offset=&nbytes=&gen=``).  Every 200 carries the seqlock
+  segment, serving the committed meta (``/peer/meta``), payload ranges
+  (``/peer/shard?offset=&nbytes=&gen=``) and the entries of its compile
+  cache (``/peer/cache_list``, ``/peer/cache?name=``).  Every 200 carries the seqlock
   generation (``X-Peer-Gen``) and a CRC32 (``X-Peer-Crc32``), the meta
   also the step (``X-Peer-Step``); a torn or moved generation is 409, no
   snapshot 404, a bad query 400, a failure 500.  The routes, queries,
@@ -31,6 +32,15 @@ and a multi-minute full restore").
 * ``try_engine_recover``: the engine's hook when the memory agreement
   failed (``engine.py`` ``_load``).  A survivor whose shm holds the
   brokered step fetches nothing.
+* ``prewarm_compile_cache``: a replacement pulls the compile-cache entries
+  it lacks from the first healthy donor, each written to a temporary name
+  and renamed.  The port's compile cache is the kernel build directory
+  (``ops/cuda/_build.py``) and its entries are the ``lib<name>_<hash>.so``
+  libraries: with them pulled, every build resolves as a hit and no nvcc
+  runs.  ``recover`` prewarms its ``cache_dir`` under
+  ``DLROVER_TPU_PEER_CACHE_PREWARM`` (``cache_prewarmed`` counts the
+  entries pulled), and the worker bootstrap calls
+  ``prewarm_from_context`` before it counts its cache.
 
 The broker (``master/ckpt_coordinator.py`` ``PeerRestoreBroker``) lives in
 the reference's master, which outlives every worker.  The port has no
@@ -50,23 +60,24 @@ it, and the replacement then finds no donor and restores from storage.
 The chaos points ``peer.serve`` (a DROP answers 503, a TORN_WRITE flips
 a byte of the body under its CRC header) and ``peer.fetch`` (a DROP is an
 unreachable donor, a TORN_WRITE a corrupted receive) and the trace spans
-``peer_restore.ladder`` and ``peer_restore.manifest`` (the goodput ledger
-charges them to ``peer_restore``) are the reference's.  Left out: the
-compile-cache prewarm and the ``/peer/cache*`` routes (ROADMAP queue 1
-item 7: the port has no persistent compile cache; ``cache_prewarmed``
-reads 0) and the MTTR sentinel (ROADMAP_LAUNCHER_REST: ``budget_s`` and
-``over_budget`` stay in the report).
+``peer_restore.ladder``, ``peer_restore.manifest`` and
+``peer_restore.prewarm`` (the goodput ledger charges them to
+``peer_restore``) are the reference's.  A report filed through the
+master's ``RecoveryReport`` route lands in its time-series store, whose
+MTTR sentinel judges ``mttr_s`` against ``budget_s``
+(``observability/sentinel.py``).
 """
 
 import http.client
 import json
+import os
 import threading
 import time
 import urllib.parse
 import zlib
 from dataclasses import dataclass, field
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch.distributed as tdist
@@ -103,6 +114,7 @@ RECOVERY_REPORT_KEYS = (
 _CTX: Dict[str, Any] = {
     "client": None,      # get_peer_assignment / report_* (a peer client)
     "serve": None,       # this process's PeerServeEndpoint (for announce)
+    "cache_dir": "",     # the compile cache (kernel build dir) to prewarm
     "scope": "",
     "process_id": -1,
     "num_processes": 1,
@@ -112,7 +124,8 @@ _CTX_MU = threading.Lock()
 
 def register_context(**kwargs: Any) -> None:
     """Install the pieces the recovery path needs (peer client, serve
-    endpoint, scope, identity).  Only the given keys are updated."""
+    endpoint, cache dir, scope, identity).  Only the given keys are
+    updated."""
     with _CTX_MU:
         for key, value in kwargs.items():
             if key not in _CTX:
@@ -127,8 +140,8 @@ def get_context() -> Dict[str, Any]:
 
 def clear_context() -> None:
     with _CTX_MU:
-        _CTX.update(client=None, serve=None, scope="", process_id=-1,
-                    num_processes=1)
+        _CTX.update(client=None, serve=None, cache_dir="", scope="",
+                    process_id=-1, num_processes=1)
 
 
 def maybe_announce(step: int, scope: Optional[str] = None,
@@ -308,16 +321,18 @@ def default_client(num_processes: int = 1):
 
 
 class PeerServeEndpoint:
-    """Serves this process's committed shm snapshot over HTTP.  Requests
+    """Serves this process's committed shm snapshot and its compile cache
+    (``cache_dir``, the kernel build directory) over HTTP.  Requests
     attach the segment by its well-known name, so the endpoint needs no
     handle on the engine."""
 
     def __init__(self, process_id: int, scope: str = "",
-                 port: Optional[int] = None,
+                 cache_dir: str = "", port: Optional[int] = None,
                  advertise_host: str = "127.0.0.1",
                  bind_host: Optional[str] = None):
         self.process_id = int(process_id)
         self.scope = scope
+        self.cache_dir = str(cache_dir)
         if port is None:
             port = envs.get_int("DLROVER_TPU_PEER_SERVE_PORT")
         # the endpoint serves the whole training state with no auth: it
@@ -381,6 +396,10 @@ class PeerServeEndpoint:
                 self._serve_meta(req, torn_body)
             elif route == "/peer/shard":
                 self._serve_shard(req, params, torn_body)
+            elif route == "/peer/cache_list":
+                self._serve_cache_list(req)
+            elif route == "/peer/cache":
+                self._serve_cache(req, params, torn_body)
             else:
                 _respond(req, 404, body=b'{"error": "no such route"}')
         except Exception as e:  # noqa: BLE001 - a bad request must not
@@ -447,6 +466,39 @@ class PeerServeEndpoint:
             }, body=_maybe_tear(payload, torn_body))
         finally:
             shm.close()
+
+
+    def _serve_cache_list(self, req) -> None:
+        entries = []
+        if self.cache_dir and os.path.isdir(self.cache_dir):
+            for root, _dirs, files in os.walk(self.cache_dir):
+                for name in files:
+                    full = os.path.join(root, name)
+                    rel = os.path.relpath(full, self.cache_dir)
+                    try:
+                        entries.append({"name": rel,
+                                        "nbytes": os.path.getsize(full)})
+                    except OSError:
+                        continue
+        body = json.dumps({"entries": entries}).encode("utf-8")
+        _respond(req, 200, headers={"X-Peer-Crc32": str(zlib.crc32(body))},
+                 body=body)
+
+    def _serve_cache(self, req, params: Dict[str, str],
+                     torn_body: bool) -> None:
+        name = params.get("name", "")
+        rel = os.path.normpath(name)
+        if not name or rel.startswith("..") or os.path.isabs(rel):
+            _respond(req, 400, body=b'{"error": "bad cache entry name"}')
+            return
+        full = os.path.join(self.cache_dir, rel)
+        if not self.cache_dir or not os.path.isfile(full):
+            _respond(req, 404, body=b'{"error": "no such entry"}')
+            return
+        with open(full, "rb") as f:
+            payload = f.read()
+        _respond(req, 200, headers={"X-Peer-Crc32": str(zlib.crc32(payload))},
+                 body=_maybe_tear(payload, torn_body))
 
 
 def _handler_for(endpoint: PeerServeEndpoint):
@@ -667,6 +719,98 @@ def _find_shard(meta: Dict, path: str,
 
 
 # ---------------------------------------------------------------------------
+# Compile-cache prewarm.
+# ---------------------------------------------------------------------------
+
+
+def _no_prewarm() -> Dict[str, Any]:
+    return {"fetched": 0, "present": 0, "donor": -1, "bytes": 0}
+
+
+def prewarm_compile_cache(
+    cache_dir: str, donors: List[Tuple[int, str]],
+    restorer: Optional[PeerRestorer] = None,
+) -> Dict[str, Any]:
+    """Pull the compile-cache entries this process lacks from the first
+    healthy donor, before the bootstrap counts the cache, so a recovery
+    never trips the ``cache_cold`` sentinel or pays an nvcc run the job
+    already paid.  Entries land atomically (a temporary name, then a
+    rename): a concurrent build never reads a torn library.  Returns
+    ``{fetched, present, donor, bytes}``."""
+    out = _no_prewarm()
+    if not cache_dir:
+        return out
+    restorer = restorer or PeerRestorer(donors)
+    have = set()
+    if os.path.isdir(cache_dir):
+        for root, _dirs, files in os.walk(cache_dir):
+            for name in files:
+                have.add(os.path.relpath(os.path.join(root, name), cache_dir))
+    out["present"] = len(have)
+    for pid, addr in restorer.healthy_donors():
+        got = restorer._request(pid, addr, "/peer/cache_list", {})
+        if got is None:
+            continue
+        try:
+            entries = json.loads(got[1]).get("entries", [])
+        except ValueError:
+            continue
+        out["donor"] = pid
+        cache_root = os.path.abspath(cache_dir)
+        for entry in entries:
+            name = entry.get("name", "")
+            if not name or name in have:
+                continue
+            # the listing is the donor's: the serve side's name check again,
+            # so a peer cannot steer the write outside cache_dir
+            rel = os.path.normpath(name)
+            full = os.path.join(cache_dir, rel)
+            if (rel.startswith("..") or os.path.isabs(rel)
+                    or not os.path.abspath(full).startswith(
+                        cache_root + os.sep)):
+                logger.warning("cache prewarm: rejecting entry name %r "
+                               "from donor %d", name, pid)
+                continue
+            fetched = restorer._request(pid, addr, "/peer/cache",
+                                        {"name": name})
+            if fetched is None:
+                break  # the donor was demoted mid-walk: report partial
+            payload = fetched[1]
+            os.makedirs(os.path.dirname(full) or cache_dir, exist_ok=True)
+            tmp = f"{full}.tmp.{os.getpid()}"
+            with open(tmp, "wb") as f:
+                f.write(payload)
+            os.replace(tmp, full)
+            out["fetched"] += 1
+            out["bytes"] += len(payload)
+        if out["donor"] >= 0:
+            break  # one donor's listing is the job's listing
+    return out
+
+
+def prewarm_from_context(cache_dir: str) -> Dict[str, Any]:
+    """The bootstrap's hook: ask the broker for donors and prewarm
+    ``cache_dir`` from them.  A no-op without a registered peer client:
+    a boot without peer restore pays nothing."""
+    ctx = get_context()
+    client = ctx["client"]
+    if client is None or not cache_dir:
+        return _no_prewarm()
+    try:
+        assignment = client.get_peer_assignment(
+            ctx["scope"], step=-1, process_id=ctx["process_id"])
+        donors = [(int(pid), addr)
+                  for pid, addr in (assignment.donors or {}).items()]
+        if not donors:
+            return _no_prewarm()
+        with trace.span("peer_restore.prewarm"):
+            return prewarm_compile_cache(cache_dir, donors)
+    except Exception as e:  # noqa: BLE001 - prewarm must never block boot
+        logger.warning("compile-cache prewarm skipped: %s", e)
+        return _no_prewarm()
+
+
+# ---------------------------------------------------------------------------
 # The ladder.
 # ---------------------------------------------------------------------------
 
@@ -681,8 +825,10 @@ def recover(
     assignment: Dict[str, Any],
     plan: Optional[List[Dict]] = None,
     storage=None,
+    cache_dir: str = "",
     client=None,
     budget_s: Optional[float] = None,
+    clock: Callable[[], float] = time.monotonic,
 ) -> Dict[str, Any]:
     """Run the ladder and commit the recovered snapshot into ``shm``;
     returns the recovery report (also filed with ``client`` when given).
@@ -695,8 +841,11 @@ def recover(
 
     Per shard: peer shm, then the sealed manifest's ranged reads.  A
     recovery that cannot fill every shard commits nothing (the segment
-    stays as it was) and reports rung ``storage``."""
-    t0 = time.monotonic()
+    stays as it was) and reports rung ``storage``.  Then, under
+    ``DLROVER_TPU_PEER_CACHE_PREWARM``, the compile-cache entries
+    ``cache_dir`` lacks are pulled from the donors
+    (``cache_prewarmed``).  ``clock`` times ``mttr_s``."""
+    t0 = clock()
     if budget_s is None:
         budget_s = envs.get_float("DLROVER_TPU_MTTR_BUDGET_S")
     step = int(assignment.get("step", -1))
@@ -721,9 +870,9 @@ def recover(
                 template_extras = got[1].get("extras", {}) or {}
                 break
         if plan and step >= 0:
-            peer_t0 = time.monotonic()
+            peer_t0 = clock()
             leaves, missing = _fill_from_peers(restorer, plan)
-            peer_s = time.monotonic() - peer_t0
+            peer_s = clock() - peer_t0
             if missing:
                 logger.info("peer restore: %d shard(s) need the manifest "
                             "rung", len(missing))
@@ -742,7 +891,12 @@ def recover(
                 snapshot.write_snapshot(shm, step, leaves, template_extras)
                 filled = True
                 rung = RUNG_MANIFEST if storage_reads else RUNG_PEER
-    mttr_s = time.monotonic() - t0
+    prewarm = _no_prewarm()
+    if cache_dir and envs.get_bool("DLROVER_TPU_PEER_CACHE_PREWARM"):
+        with trace.span("peer_restore.prewarm"):
+            prewarm = prewarm_compile_cache(cache_dir, donors,
+                                            restorer=restorer)
+    mttr_s = clock() - t0
     gbps = restorer.bytes_peer * 8.0 / peer_s / 1e9 if peer_s > 0 else 0.0
     report = {
         "scope": scope,
@@ -756,7 +910,7 @@ def recover(
         "storage_reads": int(storage_reads),
         "torn_retries": int(restorer.torn_retries),
         "demoted_peers": list(restorer.demoted),
-        "cache_prewarmed": 0,
+        "cache_prewarmed": int(prewarm.get("fetched", 0)),
         "budget_s": float(budget_s),
         "over_budget": bool(budget_s > 0 and mttr_s > budget_s),
         "filled": filled,
@@ -913,27 +1067,36 @@ def try_engine_recover(engine, target=None, layouts=None) -> bool:
             shm=engine._shm, checkpoint_dir=engine.checkpoint_dir,
             assignment={"step": int(assignment.step),
                         "donors": dict(assignment.donors)},
-            storage=engine._storage, client=client)
+            storage=engine._storage, cache_dir=ctx.get("cache_dir", ""),
+            client=client)
     engine.last_recovery = report
     return bool(report.get("filled"))
 
 
 def engine_context(engine) -> Optional[PeerServeEndpoint]:
     """Register what the engine's peer restore needs where nothing is
-    registered yet: the default peer client (``default_client``), a serve
-    endpoint of the engine's segment, and its scope and identity.
-    Returns the endpoint it started (the engine stops it at close), or
-    None."""
+    registered yet: the default peer client (``default_client``), the
+    compile cache (the bootstrap's kernel build directory), a serve
+    endpoint of the engine's segment and of that cache, and its scope and
+    identity.  Returns the endpoint it started (the engine stops it at
+    close), or None."""
     ctx = get_context()
     updates: Dict[str, Any] = dict(scope=engine._scope,
                                    process_id=engine.process_id,
                                    num_processes=engine.num_processes)
     if ctx["client"] is None:
         updates["client"] = default_client(engine.num_processes)
+    cache_dir = ctx["cache_dir"]
+    if not cache_dir:
+        from dlrover_tpu_torch.trainer import bootstrap
+
+        info = bootstrap.compile_cache_info()
+        cache_dir = info["dir"] if info.get("enabled") else ""
+        updates["cache_dir"] = cache_dir
     own = None
     if ctx["serve"] is None:
-        own = PeerServeEndpoint(engine.process_id,
-                                scope=engine._scope).start()
+        own = PeerServeEndpoint(engine.process_id, scope=engine._scope,
+                                cache_dir=cache_dir).start()
         updates["serve"] = own
     register_context(**updates)
     return own

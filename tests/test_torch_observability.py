@@ -594,6 +594,126 @@ def test_an_unwatched_call_and_a_disabled_scope_record_nothing(
     assert jitscope.totals()["misses"] >= 2
 
 
+# -- the kernel build directory as the persistent compile cache -------------
+
+
+@pytest.fixture
+def boot_state(build_dir, monkeypatch):
+    """No boot state recorded yet, no knob, a first boot."""
+    from dlrover_tpu_torch.trainer import bootstrap
+
+    monkeypatch.setattr(bootstrap, "_cache_status", None)
+    monkeypatch.setattr(bootstrap, "_worker_ctx", bootstrap.WorkerContext())
+    monkeypatch.delenv("DLROVER_TPU_COMPILE_CACHE", raising=False)
+    return bootstrap
+
+
+def test_compile_cache_info_before_and_after_a_build(boot_state):
+    from dlrover_tpu.trainer import bootstrap as jbootstrap
+
+    bootstrap = boot_state
+    info = bootstrap.compile_cache_info()
+    assert set(info) == set(jbootstrap.compile_cache_info())
+    assert info == {"enabled": True, "dir": str(_build.BUILD_DIR),
+                    "reason": "not-initialized", "entries_at_boot": 0,
+                    "restart": False}
+    bootstrap._setup_compile_cache()  # a first boot: an empty directory
+    info = bootstrap.compile_cache_info()
+    assert (info["enabled"], info["dir"], info["entries_at_boot"],
+            info["restart"]) == (True, str(_build.BUILD_DIR), 0, False)
+    sc = jitscope.reset_scope()
+    assert (sc.warm_expected, sc.cache_enabled) == (False, True)
+    _build.build(["flash_attention", "rdma_ring"])
+    assert len(os.listdir(_build.BUILD_DIR)) == 4  # two libraries, two logs
+    bootstrap._setup_compile_cache()  # the next boot finds them
+    assert bootstrap.compile_cache_info()["entries_at_boot"] == 2
+    sc = jitscope.reset_scope()
+    assert (sc.warm_expected, sc.cache_enabled) == (True, True)
+    d = sc.digest()
+    assert (d["js_warm"], d["js_cache"]) == (1.0, 1.0)
+
+
+def test_compile_cache_info_under_a_restart_and_the_knob(
+        boot_state, tmp_path, monkeypatch):
+    bootstrap = boot_state
+    monkeypatch.setattr(bootstrap, "_worker_ctx",
+                        bootstrap.WorkerContext(restart_count=1))
+    bootstrap._setup_compile_cache()
+    info = bootstrap.compile_cache_info()
+    assert info["restart"] and info["entries_at_boot"] == 0
+    assert jitscope.reset_scope().warm_expected  # a restart expects warmth
+    knob = tmp_path / "cache_from_knob"
+    monkeypatch.setenv("DLROVER_TPU_COMPILE_CACHE", str(knob))
+    assert _build.build_dir() == knob
+    _build.build(["ring_reduce_scatter"])
+    assert _build.library_path("ring_reduce_scatter").parent == knob
+    assert _build.library_path("ring_reduce_scatter").exists()
+    assert not list(_build.BUILD_DIR.glob("*.so"))
+    bootstrap._setup_compile_cache()
+    assert bootstrap.compile_cache_info()["dir"] == str(knob)
+    assert bootstrap.compile_cache_info()["entries_at_boot"] == 1
+
+
+def test_compile_cache_off_builds_into_a_directory_of_its_own(
+        boot_state, monkeypatch):
+    bootstrap = boot_state
+    monkeypatch.setenv("DLROVER_TPU_COMPILE_CACHE", "off")
+    monkeypatch.setattr(_build, "_private_dir", None)
+    assert bootstrap.compile_cache_info()["enabled"] is False
+    bootstrap._setup_compile_cache()
+    info = bootstrap.compile_cache_info()
+    assert (info["enabled"], info["reason"]) == (False, "env-off")
+    assert jitscope.reset_scope().cache_enabled is False
+    path = _build.build(["rdma_ring"])["rdma_ring"]
+    assert path.parent != _build.BUILD_DIR and path.exists()
+    assert not _build.BUILD_DIR.exists()
+
+
+def test_persistent_cache_override_restores_on_exit_even_on_an_error(
+        build_dir, tmp_path):
+    """The override builds into its directory with an empty library memo;
+    a library loaded before stays in the memo after it, untouched."""
+    loaded = object()  # stands for a ctypes handle an earlier phase holds
+    _build._libs["flash_attention"] = loaded
+    inner = tmp_path / "override"
+    try:
+        with pytest.raises(RuntimeError, match="inside"):
+            with jitscope.persistent_cache_override(str(inner)):
+                assert _build.build_dir() == inner
+                assert "flash_attention" not in _build._libs
+                with jitscope.persistent_cache_override(str(tmp_path / "n")):
+                    assert _build.build_dir() == tmp_path / "n"
+                assert _build.build_dir() == inner
+                _build.build(["flash_attention"])
+                raise RuntimeError("inside")
+        assert _build.build_dir() == _build.BUILD_DIR
+        assert _build._libs["flash_attention"] is loaded
+        assert len(list(inner.glob("libflash_attention_*.so"))) == 1
+        assert not _build.BUILD_DIR.exists()
+    finally:
+        _build._libs.pop("flash_attention", None)
+
+
+def test_a_wiped_override_directory_is_a_persistent_cache_miss(build_dir,
+                                                                tmp_path):
+    jitscope.install()
+    cache = tmp_path / "cache"
+    events = []
+    with jitscope.persistent_cache_override(str(cache)):
+        for warm in (False, True, True):
+            if len(events) == 2:
+                for path in cache.iterdir():
+                    path.unlink()
+            jitscope.reset_scope(warm_expected=warm, cache_enabled=True)
+            step = jitscope.watch(lambda: _build.build(["flash_attention"]),
+                                  "drill.step")
+            step()
+            events.append(step.last_event)
+    assert [(e["trigger"], e["cache"]) for e in events] == [
+        ("first-trace", "miss"), ("first-trace", "hit"),
+        ("persistent-cache-miss", "miss")]
+
+
 # -- the comm probe ----------------------------------------------------------
 
 

@@ -507,11 +507,17 @@ def test_shard_route_refuses_bad_queries(fleet, query, want):
 
 
 def test_unported_cache_routes_are_not_served(fleet):
+    """An endpoint given no compile cache lists no entry and serves none
+    (the routes exist since the compile cache came; the reference's
+    endpoint with no ``cache_dir`` answers alike)."""
     f = fleet(step=5).up([0])
-    for route in ("/peer/cache_list", "/peer/cache"):
-        status, _, _ = peer_restore._http_fetch(
-            f.endpoints[0].addr, route, {"name": "x"}, 5.0)
-        assert status == 404
+    status, headers, body = peer_restore._http_fetch(
+        f.endpoints[0].addr, "/peer/cache_list", {}, 5.0)
+    assert status == 200 and json.loads(body) == {"entries": []}
+    assert peer_restore._crc_ok(headers, body)
+    status, _, _ = peer_restore._http_fetch(
+        f.endpoints[0].addr, "/peer/cache", {"name": "x"}, 5.0)
+    assert status == 404
 
 
 def test_binds_advertise_host_not_all_interfaces(fleet, monkeypatch):
@@ -877,3 +883,161 @@ def test_no_segment_is_left_behind():
     """Every test above unlinked the segments it made."""
     leftovers = [n for n in os.listdir("/dev/shm") if "_tpr" in n]
     assert leftovers == []
+
+
+# ---------------------------------------------------------------------------
+# The compile-cache prewarm: the kernel build directory's entries.
+# ---------------------------------------------------------------------------
+
+
+def _cache_dir(root, entries):
+    root.mkdir(parents=True, exist_ok=True)
+    for name, blob in entries.items():
+        path = root / name
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_bytes(blob)
+    return str(root)
+
+
+ENTRIES = {
+    "libflash_attention_0123456789abcdef.so": bytes(range(256)) * 8,
+    "libflash_attention_0123456789abcdef.so.log": b"ptxas info\n",
+    "librdma_ring_fedcba9876543210.so": bytes(reversed(range(256))) * 4,
+}
+
+
+def _serve_cache(endpoint_cls, tmp_path, entries=ENTRIES):
+    cache = _cache_dir(tmp_path / f"survivor_{endpoint_cls.__module__}",
+                       entries)
+    return endpoint_cls(0, scope="cache", cache_dir=cache).start(), cache
+
+
+@pytest.mark.parametrize("name", ["../escape", "/etc/passwd", "",
+                                  "a/../../b", "missing.so"])
+def test_cache_route_refuses_an_escaping_name_as_the_reference(
+        ref, tmp_path, name):
+    statuses = []
+    for cls in (peer_restore.PeerServeEndpoint, ref.peer.PeerServeEndpoint):
+        endpoint, _ = _serve_cache(cls, tmp_path)
+        try:
+            status, _, body = peer_restore._http_fetch(
+                endpoint.addr, "/peer/cache", {"name": name}, 5.0)
+            statuses.append((status, body))
+        finally:
+            endpoint.stop()
+    assert statuses[0] == statuses[1]
+    assert statuses[0][0] == (404 if name == "missing.so" else 400)
+
+
+def test_cache_list_and_entries_match_the_reference(ref, tmp_path):
+    entries = dict(ENTRIES, **{"sub/libnested_00000000000000aa.so": b"n"})
+    got = []
+    for cls in (peer_restore.PeerServeEndpoint, ref.peer.PeerServeEndpoint):
+        endpoint, _ = _serve_cache(cls, tmp_path, entries)
+        try:
+            status, headers, body = peer_restore._http_fetch(
+                endpoint.addr, "/peer/cache_list", {}, 5.0)
+            listing = sorted(json.loads(body)["entries"],
+                             key=lambda e: e["name"])
+            blobs = {e["name"]: peer_restore._http_fetch(
+                endpoint.addr, "/peer/cache", {"name": e["name"]}, 5.0)[2]
+                for e in listing}
+            got.append((status, peer_restore._crc_ok(headers, body),
+                        listing, blobs))
+        finally:
+            endpoint.stop()
+    assert got[0] == got[1]
+    assert got[0][3] == entries
+
+
+@pytest.mark.parametrize("server", ["port", "reference"])
+@pytest.mark.parametrize("client", ["port", "reference"])
+def test_a_prewarm_pulls_exactly_the_missing_entries(ref, tmp_path, server,
+                                                     client):
+    cls = (peer_restore.PeerServeEndpoint if server == "port"
+           else ref.peer.PeerServeEndpoint)
+    endpoint, _ = _serve_cache(cls, tmp_path)
+    have = "libflash_attention_0123456789abcdef.so"
+    dst = _cache_dir(tmp_path / "replacement", {have: ENTRIES[have]})
+    module = peer_restore if client == "port" else ref.peer
+    try:
+        out = module.prewarm_compile_cache(dst, [(0, endpoint.addr)])
+    finally:
+        endpoint.stop()
+    assert out == {"fetched": 2, "present": 1, "donor": 0,
+                   "bytes": sum(len(ENTRIES[n]) for n in ENTRIES
+                                if n != have)}
+    assert sorted(os.listdir(dst)) == sorted(ENTRIES)  # no *.tmp debris
+    for name, blob in ENTRIES.items():
+        with open(os.path.join(dst, name), "rb") as f:
+            assert f.read() == blob
+
+
+def test_a_prewarm_rejects_a_donor_listing_that_escapes(tmp_path,
+                                                        monkeypatch):
+    dst = tmp_path / "replacement"
+    dst.mkdir()
+    listing = json.dumps({"entries": [
+        {"name": "../evil.so", "nbytes": 1},
+        {"name": "/abs/evil.so", "nbytes": 1},
+        {"name": "libok_0000000000000001.so", "nbytes": 2}]}).encode()
+
+    def fake_fetch(addr, route, params, timeout_s):
+        body = listing if route == "/peer/cache_list" else b"ok"
+        return 200, _crc_headers(body), body
+
+    monkeypatch.setattr(peer_restore, "_http_fetch", fake_fetch)
+    out = peer_restore.prewarm_compile_cache(str(dst), [(4, "h:1")])
+    assert (out["fetched"], out["donor"]) == (1, 4)
+    assert os.listdir(dst) == ["libok_0000000000000001.so"]
+    assert not (tmp_path / "evil.so").exists()
+
+
+def test_recover_prewarms_its_cache_dir_under_the_knob(fleet, tmp_path,
+                                                        monkeypatch):
+    f = fleet(step=5).up([0, 2])
+    for endpoint in f.endpoints.values():
+        endpoint.cache_dir = _cache_dir(tmp_path / "survivor", ENTRIES)
+    for knob, want in (("0", 0), ("1", len(ENTRIES))):
+        monkeypatch.setenv("DLROVER_TPU_PEER_CACHE_PREWARM", knob)
+        dst = tmp_path / f"replacement{knob}"
+        report = peer_restore.recover(
+            scope=f.scope, process_id=1, num_processes=4,
+            shm=f.new_shm(1), checkpoint_dir=str(tmp_path / "none"),
+            assignment=f.assignment(), cache_dir=str(dst))
+        assert report["filled"] and report["rung"] == "peer_shm"
+        assert report["cache_prewarmed"] == want
+        assert len(os.listdir(dst)) == want if dst.exists() else want == 0
+
+
+def test_the_bootstrap_prewarms_before_it_counts(fleet, tmp_path,
+                                                 monkeypatch):
+    """Under peer restore a booting replacement pulls the libraries a
+    survivor built, so its boot counts them: a warm start, no nvcc."""
+    from dlrover_tpu_torch.observability import jitscope
+    from dlrover_tpu_torch.ops.cuda import _build
+    from dlrover_tpu_torch.trainer import bootstrap
+
+    f = fleet(step=5).up([0])
+    f.endpoints[0].cache_dir = _cache_dir(tmp_path / "survivor", ENTRIES)
+    cache = tmp_path / "kernels"
+    monkeypatch.setattr(_build, "BUILD_DIR", cache)
+    monkeypatch.setattr(bootstrap, "_cache_status", None)
+    monkeypatch.setattr(bootstrap, "_worker_ctx", bootstrap.WorkerContext())
+    monkeypatch.delenv("DLROVER_TPU_COMPILE_CACHE", raising=False)
+    monkeypatch.setenv("DLROVER_TPU_PEER_RESTORE", "1")
+    peer_restore.register_context(
+        client=peer_restore.LocalPeerClient(f.broker), scope=f.scope,
+        process_id=1, num_processes=4)
+    bootstrap._setup_compile_cache()
+    info = bootstrap.compile_cache_info()
+    assert info["entries_at_boot"] == 2  # the two libraries, not the log
+    assert sorted(os.listdir(cache)) == sorted(ENTRIES)
+    try:
+        assert jitscope.reset_scope().warm_expected
+    finally:
+        jitscope.reset_scope(warm_expected=False, cache_enabled=True)
+    monkeypatch.setenv("DLROVER_TPU_PEER_CACHE_PREWARM", "0")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "cold")
+    bootstrap._setup_compile_cache()
+    assert bootstrap.compile_cache_info()["entries_at_boot"] == 0
