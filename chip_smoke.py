@@ -168,6 +168,36 @@ use), then runs, in order, failing on the first phase that fails:
    torch.cuda's in-use bytes within 5%; build/kernels and the libraries
    loaded so far must be untouched; its numbers go to a
    {"sentinels": {...}} line;
+   [data] (agent/sharding.py, trainer/elastic/prefetch.py,
+   observability/datascope.py, master/dashboard.py): an in-process
+   LocalJobMaster over HTTP with a DashboardServer on it, and the
+   [training] model and recipe at 22 layers, fresh from seed 0, its state
+   copied on the card for the direct feed.  Two datasets, each leased by
+   an SPMDShardingClient (process 0) over the port's HTTP MasterClient, 2
+   global batches a shard (the client's default), each global batch's
+   tokens from rng(seed + its first record), staged by a
+   DevicePrefetcher(depth=2) on its side stream; the prefetcher's worker
+   leases the next shard only once every batch of the last one was
+   trained and reported (the client completes the shard it leased last).
+   The healthy leg: 8 global batches, 4 shards; the starved leg: 4 global
+   batches with the drill's data_starved plan armed (a 0.4 s DELAY at
+   each data.lease).  Each leg's losses must equal bitwise those of the
+   same batches fed straight to train_step from the copied state, every
+   step must launch [training]'s flash kernels, every shard be leased
+   once (the one more lease finds the dataset done) and completed once,
+   and datascope's scope count the fetches and consumes; the healthy
+   leg's ledger input_starved must stay under DLROVER_TPU_DATA_STARVED_MIN_S
+   a step, the starved leg's must reach 0.9 of the injected delays and
+   exceed every phase but compute.  The agent's heartbeat (this process's
+   ledger) feeds the master's store; a DataStarvationDiagnostician over it
+   must open an incident classified data naming data.lease; /data (backlog
+   0, the lease p99 at least the stall), /datasets (both finished),
+   /status, /timeseries?name=job.data. and /metrics must answer over
+   HTTP.  Beside the legs, each its own process on this host, the drill's
+   data_starved at seeds 0 and 13 and the data smoke must say ok.  Step ms
+   through the prefetcher and direct, the wait in the prefetcher a step,
+   each lease's ms, the device's idle wait and the ledger's account are
+   printed, and its numbers go to a {"data": {...}} line;
    [launcher], in a thread beside the [mesh] phase's legs of ranks (below:
    the worker's ~35 GB and the ranks' ~16 fit the card together, and the
    script keeps within its time limit): the port's standalone launcher
@@ -412,6 +442,7 @@ restores, ``launches_moe`` over the [moe] phase's steps, ``launches_pp``
 over every rank's steps of the [pp] legs, ``launches_cp`` a step by rank
 on each flash [cp] leg, ``launches_launcher`` over both workers' steps in
 the [launcher] phase (counted by each worker, read from its step lines),
+``launches_data`` over the [data] phase's prefetched steps of both legs,
 ``launches_peer_restore`` over the [peer restore]
 phase's two steps after its restores, ``launches_chaos`` over the
 [chaos] phase's three steps at full width, and ``off_diagonal`` its time,
@@ -567,6 +598,30 @@ CHAOS_REPLAYED = ("torn_shm", "node_flap", "kv_timeout", "heartbeat_loss")
 # [sentinels]: the drill's scenarios of the time-series store and the
 # sentinels ([chaos] runs the other eight)
 SENTINEL_SCENARIOS = ("slow_link", "hbm_leak", "cache_cold", "peer_restore")
+# [data]: the elastic data path feeding llama2_1b (module docstring)
+DATA_BATCHES, DATA_STARVED_BATCHES = 8, 4
+DATA_DEPTH = 2
+# tokens of a dataset's batch at record r come from rng(seed + r)
+DATA_SEEDS = {"chip_data": 0, "chip_data_starved": 1 << 20}
+DATA_DRILL_SEEDS = (0, 13)
+DATA_SCENARIOS = ("data_starved",)
+# the ledger's input_starved against the injected lease stalls
+DATA_STARVED_SHARE = 0.9
+DATA_SIDE_TIMEOUT_S = 300.0
+# healthy seconds of heartbeats before the starved leg, and after it
+DATA_BASELINE_S, DATA_TRAILING_S = 4.0, 1.2
+# the knobs of the phase: the ledger's and the store's resolutions fine
+# enough for seconds of steps, the starvation sentinel judging after
+# three buckets, and every file it writes under its own directory
+DATA_ENV = {
+    "DLROVER_TPU_GOODPUT_RES_S": "0.05",
+    "DLROVER_TPU_DATA_FLUSH_S": "0.05",
+    "DLROVER_TPU_SENTINEL_MIN_SAMPLES": "3",
+    "DLROVER_TPU_SENTINEL_CONSECUTIVE": "1",
+    "DLROVER_TPU_INCIDENT_COOLDOWN_S": "0",
+    "DLROVER_TPU_SHARD_LEASE_BATCH": "1",
+}
+
 # the forward of the step from the restored state against the first step
 # from the snapshot: the same weights, batch and kernels on one card
 RESTORED_LOSS_RTOL = 1e-6
@@ -2920,9 +2975,10 @@ def chaos_phase(fa, batch, trainer, ckpt_dir, step, want, uninterrupted,
     record = {"scenarios": {}, "full_width": {}}
 
     # (a) the drill's scenarios, their states on the card ([sentinels]
-    # runs the four of the time-series store and the sentinels)
+    # runs the four of the time-series store and the sentinels, [data]
+    # data_starved)
     for name in drill.PORTED:
-        if name in SENTINEL_SCENARIOS:
+        if name in SENTINEL_SCENARIOS or name in DATA_SCENARIOS:
             continue
         result = drill.run_scenario(name, 0, device="cuda")
         want_phase, want_point = drill.INCIDENT_EXPECTATIONS[name]
@@ -3318,6 +3374,459 @@ def sentinels_phase(digests, peer_report) -> dict:
         shutil.rmtree(workdir, ignore_errors=True)
     record["seconds"] = time.perf_counter() - phase_t0
     print(f"  the phase took {record['seconds']:.1f} s", flush=True)
+    return record
+
+
+def data_batch(seed: int, start: int, rows: int, vocab: int) -> dict:
+    """The global batch at record ``start`` of a dataset: its tokens
+    belong to the records, not to the order of fetches."""
+    import numpy as np
+
+    ids = np.random.default_rng(seed + start).integers(
+        0, vocab, size=(rows, TRAIN_S + 1))
+    return {"input_ids": ids[:, :-1].astype(np.int32),
+            "labels": ids[:, 1:].astype(np.int32)}
+
+
+class ShardFeed:
+    """The device prefetcher's source over one dataset: leases a shard
+    through the SPMD sharding client (in the prefetcher's worker thread)
+    and yields its global batches; the next shard is leased only once the
+    training loop has reported every batch of this one (``consumed``).
+    The client completes the shard it leased last, so a lease ahead of
+    that report would complete a shard that was never trained."""
+
+    def __init__(self, shards, seed: int, rows: int, vocab: int):
+        import threading
+
+        self._shards = shards
+        self._seed, self._rows, self._vocab = seed, rows, vocab
+        self._cond = threading.Condition()
+        self._yielded = self._consumed = 0
+        self._aborted = False
+        self.fetched = []  # (start, end) of each leased shard
+        self.lease_s = []  # host seconds of each lease, the last empty
+
+    def __iter__(self):
+        while True:
+            with self._cond:
+                self._cond.wait_for(lambda: self._aborted or (
+                    self._consumed == self._yielded))
+                if self._aborted:
+                    return
+            t0 = time.perf_counter()
+            shard = self._shards.fetch_shard()
+            self.lease_s.append(time.perf_counter() - t0)
+            if shard is None:
+                return
+            self.fetched.append((shard.start, shard.end))
+            for start in range(shard.start, shard.end, self._rows):
+                with self._cond:
+                    self._yielded += 1
+                yield data_batch(self._seed, start, self._rows,
+                                 self._vocab)
+
+    def consumed(self) -> None:
+        """One batch trained: report it, and free the next lease once
+        the shard's batches are all reported."""
+        self._shards.report_batch_done()
+        with self._cond:
+            self._consumed += 1
+            self._cond.notify_all()
+
+    def abort(self) -> None:
+        with self._cond:
+            self._aborted = True
+            self._cond.notify_all()
+
+
+def data_leg(name, shards, trainer, state, fa, per_step, vocab, beat):
+    """Train on every batch of the dataset ``name`` as the sharding client
+    leases it and the device prefetcher stages it; ``beat()`` after each
+    step.  Returns (state, losses, step seconds, seconds in the
+    prefetcher a step, the feed, the prefetcher's device-idle wait)."""
+    import torch
+
+    from dlrover_tpu_torch.trainer.elastic.prefetch import DevicePrefetcher
+
+    feed = ShardFeed(shards, DATA_SEEDS[name], TRAIN_B, vocab)
+    losses, step_s, wait_s = [], [], []
+    pf = DevicePrefetcher(feed, depth=DATA_DEPTH, device="cuda")
+    try:
+        it = iter(pf)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                break
+            t1 = time.perf_counter()
+            if batch["input_ids"].device != pf.device:
+                raise AssertionError(f"staged on {batch['input_ids'].device}"
+                                     f", not {pf.device}")
+            before = dict(fa.launches)
+            state, metrics = trainer.train_step(state, batch)
+            losses.append(metrics["loss"].item())
+            torch.cuda.synchronize()
+            grown = {k: fa.launches[k] - before[k] for k in per_step}
+            if grown != per_step:
+                raise AssertionError(f"[data] {name} step {len(losses)} "
+                                     f"launched {grown}, expected "
+                                     f"{per_step}")
+            feed.consumed()
+            step_s.append(time.perf_counter() - t0)
+            wait_s.append(t1 - t0)
+            beat()
+    finally:
+        feed.abort()
+        pf.close()
+    return state, losses, step_s, wait_s, feed, pf.idle_wait_s
+
+
+def direct_leg(name, trainer, state, n, vocab, beat):
+    """The same batches fed straight to ``train_step``."""
+    import torch
+
+    losses, step_s = [], []
+    for i in range(n):
+        t0 = time.perf_counter()
+        batch = data_batch(DATA_SEEDS[name], i * TRAIN_B, TRAIN_B, vocab)
+        state, metrics = trainer.train_step(state, batch)
+        losses.append(metrics["loss"].item())
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        beat()
+    return state, losses, step_s
+
+
+def data_side_runs(workdir: str) -> dict:
+    """The drill's data_starved at each of DATA_DRILL_SEEDS and the data
+    smoke, each a process of its own on this host, started now: they run
+    beside the legs (none of them touches the card)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    commands = {f"data_starved seed {s}": (
+        ["-m", "dlrover_tpu_torch.diagnosis.chaos_drill", "data_starved"],
+        {"CHAOS_DRILL_SEED": str(s)}) for s in DATA_DRILL_SEEDS}
+    commands["data_smoke"] = (
+        ["-m", "dlrover_tpu_torch.observability.data_smoke"], {})
+    runs = {}
+    for i, (label, (args, extra)) in enumerate(commands.items()):
+        out = open(os.path.join(workdir, f"side{i}.log"), "w+")
+        runs[label] = (subprocess.Popen(
+            [sys.executable, *args], cwd=here, env=dict(env, **extra),
+            stdout=out, stderr=subprocess.STDOUT), out)
+    return runs
+
+
+def data_side_results(runs) -> dict:
+    """Each side run's exit code and JSON verdict; raises unless every
+    one says ok."""
+    record = {}
+    for label, (proc, out) in runs.items():
+        try:
+            rc = proc.wait(timeout=DATA_SIDE_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = None
+        out.seek(0)
+        text = out.read()
+        out.close()
+        marker = "DATA_SMOKE " if label == "data_smoke" else "CHAOS_DRILL "
+        lines = [ln for ln in text.splitlines() if ln.startswith(marker)]
+        verdict = json.loads(lines[-1][len(marker):]) if lines else {}
+        checks = verdict.get("checks") or verdict.get(
+            "scenarios", {}).get("data_starved", {}).get("checks", {})
+        print(f"  {label}: rc {rc}, ok {verdict.get('ok')}, "
+              f"{sum(checks.values())} of {len(checks)} checks", flush=True)
+        if rc != 0 or not verdict.get("ok"):
+            raise AssertionError(f"[data] {label}: rc {rc}\n{text[-4000:]}")
+        record[label] = verdict
+    return record
+
+
+def http_json(port: int, route: str):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/{route}",
+                                timeout=10) as resp:
+        body = resp.read()
+    return body.decode() if route == "metrics" else json.loads(body)
+
+
+def ledger_delta(before: dict, after: dict) -> dict:
+    return {k: after["phases"][k] - before["phases"][k]
+            for k in after["phases"]}
+
+
+def data_phase(fa) -> dict:
+    """[data] (module docstring).  Returns its JSON record; its
+    ``launches`` are the flash launches of the prefetched steps of both
+    legs."""
+    import copy
+    import shutil
+    import tempfile
+
+    from dlrover_tpu_torch import chaos
+    from dlrover_tpu_torch.agent.elastic_agent import (
+        ElasticAgent,
+        ElasticLaunchConfig,
+    )
+    from dlrover_tpu_torch.agent.master_client import HttpMasterClient
+    from dlrover_tpu_torch.agent.sharding import SPMDShardingClient
+    from dlrover_tpu_torch.common import envs
+    from dlrover_tpu_torch.common.global_context import Context
+    from dlrover_tpu_torch.diagnosis.diagnostician import DiagnosisManager
+    from dlrover_tpu_torch.master.dashboard import DashboardServer
+    from dlrover_tpu_torch.master.job_context import JobContext
+    from dlrover_tpu_torch.master.local_master import LocalJobMaster
+    from dlrover_tpu_torch.observability import (
+        datascope,
+        flight_recorder,
+        goodput,
+    )
+    from dlrover_tpu_torch.observability.sentinel import (
+        DataStarvationDiagnostician,
+    )
+
+    phase_t0 = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="dlrover_tpu_torch_data_")
+    side = data_side_runs(workdir)
+    overrides = dict(
+        DATA_ENV,
+        DLROVER_TPU_INCIDENT_DIR=os.path.join(workdir, "incidents"),
+        DLROVER_TPU_RUNTIME_METRICS_PATH=os.path.join(
+            workdir, "runtime_metrics.json"))
+    saved_env = {k: os.environ.get(k) for k in overrides}
+    os.environ.update(overrides)
+    ctx = Context.singleton_instance()
+    saved_transport = ctx.master_service_type
+    ctx.master_service_type = "http"
+    JobContext.reset()
+    flight_recorder.recorder().reset()
+    datascope.reset_scope()
+    chaos.clear()
+    master = dash = None
+    record = {}
+    try:
+        master = LocalJobMaster(port=0, node_num=1, job_name="chip_data")
+        master.prepare()
+        dash = DashboardServer(master, port=0)
+        dash.start()
+        client = HttpMasterClient(f"127.0.0.1:{master.port}", node_id=0)
+        agent = ElasticAgent(client, ElasticLaunchConfig())
+        last_beat = [0.0]
+
+        def beat(force=False):
+            # the agent's heartbeat: this process's ledger account goes
+            # into the store's job.share.* series the sentinel reads
+            if force or time.time() - last_beat[0] >= 0.3:
+                client.report_heart_beat(
+                    digest=agent._collect_digest())  # noqa: SLF001
+                last_beat[0] = time.time()
+
+        cfg, trainer, state, _, per_step, _ = train_subject()
+        layers = cfg.num_layers
+        direct = copy.deepcopy(state)
+        ledger = goodput.reset_ledger()
+        beat(force=True)
+        legs = {}
+        for name, n, starved in (("chip_data", DATA_BATCHES, False),
+                                 ("chip_data_starved",
+                                  DATA_STARVED_BATCHES, True)):
+            print(f"  {name}: {n} global batches of {TRAIN_B} x "
+                  f"{TRAIN_S} tokens, 2 a shard"
+                  + (", data_starved plan armed on data.lease"
+                     if starved else ""), flush=True)
+            if starved:
+                # the sentinel needs a few completed healthy buckets
+                # before the spike (the legs above take longer on the card)
+                while time.time() - ledger.summary()["origin_ts"] < \
+                        DATA_BASELINE_S:
+                    time.sleep(0.3)
+                    beat(force=True)
+            datascope.reset_scope()
+            shards = SPMDShardingClient(
+                dataset_name=name, batch_size=TRAIN_B, num_epochs=1,
+                dataset_size=TRAIN_B * n, process_id=0, client=client)
+            plan = None
+            if starved:
+                plan = chaos.scenario_plan("data_starved", 0)
+                chaos.configure(plan)
+            before = ledger.summary()
+            fa.reset_launches()
+            state, losses, step_s, wait_s, feed, idle_s = data_leg(
+                name, shards, trainer, state, fa, per_step, cfg.vocab_size,
+                beat)
+            launches = dict(fa.launches)
+            account = ledger_delta(before, ledger.summary())
+            scope = datascope.scope_summary()
+            # the plan's one fault is a DELAY of delay_s at each lease
+            injected = plan.faults[0].delay_s * sum(
+                1 for r in chaos.trace() if r["kind"] == chaos.DELAY
+            ) if starved else 0.0
+            direct, want, direct_s = direct_leg(
+                name, trainer, direct, n, cfg.vocab_size, beat)
+            legs[name] = dict(
+                losses=losses, launches=launches, account=account,
+                scope=scope, injected=injected, feed=feed, idle_s=idle_s,
+                step_s=step_s, wait_s=wait_s, direct_s=direct_s, want=want)
+            print(f"    losses {losses}", flush=True)
+            print(f"    step_ms through the prefetcher "
+                  f"{[round(s * 1e3, 2) for s in step_s]}; direct "
+                  f"{[round(s * 1e3, 2) for s in direct_s]} (median of "
+                  f"steps 2..: {statistics.median(step_s[1:]) * 1e3:.2f} "
+                  f"against {statistics.median(direct_s[1:]) * 1e3:.2f})",
+                  flush=True)
+            print(f"    wait in the prefetcher a step (ms) "
+                  f"{[round(s * 1e3, 2) for s in wait_s]}; leases (ms) "
+                  f"{[round(s * 1e3, 2) for s in feed.lease_s]}; device "
+                  f"idle waiting {idle_s:.4f} s; ledger input_starved "
+                  f"{account['input_starved']:.3f} s, compute "
+                  f"{account['compute']:.3f} s, idle "
+                  f"{account[goodput.IDLE]:.3f} s; injected {injected:.3f}"
+                  f" s; datascope {scope}", flush=True)
+            if losses != want or not all(map(math.isfinite, losses)):
+                raise AssertionError(f"[data] {name}: losses {losses} "
+                                     f"against the direct feed's {want}")
+            want_launches = {k: v * n for k, v in per_step.items()}
+            if launches != want_launches:
+                raise AssertionError(f"[data] {name}: launches {launches},"
+                                     f" expected {want_launches}")
+            spans = [(s, s + 2 * TRAIN_B) for s in range(0, n * TRAIN_B,
+                                                         2 * TRAIN_B)]
+            if sorted(feed.fetched) != spans or len(feed.lease_s) != len(
+                    spans) + 1:
+                raise AssertionError(f"[data] {name}: leased "
+                                     f"{feed.fetched}, expected {spans}")
+            if scope.get("fetches") != len(spans) + 1 or scope.get(
+                    "consumes") != len(spans):
+                raise AssertionError(f"[data] {name}: datascope {scope}")
+            floor = envs.get_float("DLROVER_TPU_DATA_STARVED_MIN_S")
+            if not starved and account["input_starved"] >= floor * n:
+                raise AssertionError(f"[data] {name}: input_starved "
+                                     f"{account}")
+            if starved:
+                others = {k: v for k, v in account.items()
+                          if k not in ("compute", "input_starved")}
+                if (account["input_starved"] < DATA_STARVED_SHARE * injected
+                        or injected <= 0
+                        or account["input_starved"] <= max(others.values())):
+                    raise AssertionError(
+                        f"[data] {name}: input_starved "
+                        f"{account['input_starved']} of {injected} s "
+                        f"injected; account {account}")
+
+        # healthy trailing heartbeats close the starved bucket, then the
+        # starvation sentinel judges the store
+        t_end = time.time() + DATA_TRAILING_S
+        while time.time() < t_end:
+            time.sleep(0.3)
+            beat(force=True)
+        master.servicer.shard_telemetry.flush()
+        diagnosis = DiagnosisManager()
+        diagnosis.register(DataStarvationDiagnostician(
+            master.servicer.timeseries, res_s=1.0))
+        diagnosis.set_incident_manager(master.incident_manager)
+        actions = diagnosis.diagnose_once()
+        found = [i for i in master.incident_manager.list_incidents()
+                 if i["kind"] == "data_starvation"]
+        incident = (master.incident_manager.finalize(
+            found[0]["incident_id"], force=True) or {}) if found else {}
+        got = (incident.get("phase"),
+               (incident.get("chaos") or {}).get("point"))
+        print(f"  sentinel: {[a.action_type for a in actions]}; incident "
+              f"{incident.get('incident_id')}: phase {got[0]}, chaos "
+              f"point {got[1]}", flush=True)
+        chaos.clear()
+        if got != ("data", "data.lease"):
+            raise AssertionError(f"[data] starvation incident {incident}")
+
+        summary = master.servicer.shard_telemetry.summary()
+        pages = {route: http_json(dash.port, route) for route in (
+            "data", "datasets", "status", "timeseries?name=job.data.",
+            "metrics")}
+        data_page = pages["data"]["summary"]
+        stall_ms = 1e3 * plan.faults[0].delay_s
+        checks = {
+            # every shard leased once (and the lease that found the
+            # dataset done), completed once
+            "telemetry": summary["backlog"] == 0 and all(
+                summary["datasets"][n]["completions"] == m // 2
+                and summary["datasets"][n]["leases"] == m // 2 + 1
+                for n, m in (("chip_data", DATA_BATCHES),
+                             ("chip_data_starved", DATA_STARVED_BATCHES))),
+            "/data": data_page["completions"] == summary["completions"]
+            and data_page["backlog"] == 0,
+            "/data lease p99 >= the stall": data_page["lease_p99_ms"] >=
+            stall_ms and data_page["datasets"]["chip_data_starved"][
+                "lease_p99_ms"] >= stall_ms,
+            "/datasets": all(
+                pages["datasets"][n]["finished"]
+                and pages["datasets"][n]["completed"] == m // 2
+                for n, m in (("chip_data", DATA_BATCHES),
+                             ("chip_data_starved", DATA_STARVED_BATCHES))),
+            "/status": pages["status"]["job"] == "chip_data",
+            "/timeseries": {"job.data.backlog", "job.data.lease_p99_ms",
+                            "job.data.shards_per_s"} <= set(
+                pages["timeseries?name=job.data."]["series"]),
+            "/metrics": "dlrover_tpu_data_backlog 0" in pages["metrics"]
+            and "dlrover_tpu_data_lease_p99_ms" in pages["metrics"],
+        }
+        print(f"  telemetry {summary}", flush=True)
+        print(f"  dashboard on port {dash.port}: {checks}", flush=True)
+        if not all(checks.values()):
+            raise AssertionError(f"[data] dashboard {checks}: {pages}")
+        side_record = data_side_results(side)
+        healthy, starved = legs["chip_data"], legs["chip_data_starved"]
+        record = dict(
+            layers=layers, depth=DATA_DEPTH,
+            launches={k: healthy["launches"][k] + starved["launches"][k]
+                      for k in per_step},
+            healthy=dict(
+                step_ms=round(statistics.median(
+                    healthy["step_s"][1:]) * 1e3, 3),
+                direct_step_ms=round(statistics.median(
+                    healthy["direct_s"][1:]) * 1e3, 3),
+                wait_ms=round(statistics.median(
+                    healthy["wait_s"][1:]) * 1e3, 3),
+                lease_ms=[round(s * 1e3, 3) for s in healthy["feed"].lease_s],
+                input_starved_s=round(healthy["account"]["input_starved"], 3),
+                idle_wait_s=round(healthy["idle_s"], 4)),
+            starved=dict(
+                step_ms=[round(s * 1e3, 3) for s in starved["step_s"]],
+                injected_s=round(starved["injected"], 3),
+                input_starved_s=round(starved["account"]["input_starved"], 3),
+                idle_wait_s=round(starved["idle_s"], 4),
+                scope_starved_s=round(starved["scope"].get("starved_s", 0.0),
+                                      3)),
+            lease_p99_ms=data_page["lease_p99_ms"],
+            incident=dict(phase=got[0], point=got[1]),
+            side={k: bool(v.get("ok")) for k, v in side_record.items()},
+            seconds=round(time.perf_counter() - phase_t0, 1))
+        del trainer, state, direct
+    finally:
+        chaos.clear()
+        for proc, out in side.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+        if dash is not None:
+            dash.stop()
+        if master is not None:
+            master.stop()
+        ctx.master_service_type = saved_transport
+        for key, value in saved_env.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+        goodput.reset_ledger()
+        datascope.reset_scope()
+        shutil.rmtree(workdir, ignore_errors=True)
     return record
 
 
@@ -4444,6 +4953,12 @@ def run_phases() -> list:
     print("[sentinels]", flush=True)
     print(json.dumps({"sentinels": sentinels_phase(
         digests, peer_record["peer"])}), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("[data]", flush=True)
+    data_record = data_phase(fa)
+    print(json.dumps({"data": data_record}), flush=True)
+    print(f"  [data] took {data_record['seconds']} s", flush=True)
     # the mesh's processes need the card's memory: release what the
     # single-device phases left in this process's caching allocator
     gc.collect()
@@ -4536,6 +5051,7 @@ def run_phases() -> list:
              launches_peer_restore=peer_launches[name],
              launches_chaos=chaos_record["launches"][name],
              launches_launcher=launcher["launches"][name],
+             launches_data=data_record["launches"][name],
              launches_replica=replica_launches[name],
              launches_cp=cp_launches[name],
              off_diagonal=off_diagonal[name],

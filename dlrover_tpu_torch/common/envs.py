@@ -7,8 +7,9 @@ mesh, the rank's runtime digest: tracing, metrics, the flight
 recorder, the goodput ledger and the memory, comm and compile scopes,
 the job runtime: the launcher, the local master, its admission
 control, the agent's transport and its retry budget, fault injection
-and the incident engine, the master's time-series store, the sentinels
-and the persistent compile cache): the same names,
+and the incident engine, the master's time-series store, the sentinels,
+the persistent compile cache, the sharding client and datascope): the
+same names,
 defaults and parsing, and the reference's per-call ``default=``
 override for the sites whose default is computed.  A knob is added with
 the port of the code that reads it.  Values are read from
@@ -275,6 +276,20 @@ DEFAULTS = {
     "DLROVER_TPU_RETRY_CB_THRESHOLD": 0,
     "DLROVER_TPU_RETRY_CB_COOLDOWN_S": 30.0,
     "DLROVER_TPU_RETRY_JITTER": True,
+    # -- the elastic data path (agent/sharding.py, observability/
+    # datascope.py) --
+    # shard leases per TaskBatchRequest envelope (>1 prefetches on the
+    # client), and the long-poll chunk while no shard is dispatchable
+    "DLROVER_TPU_SHARD_LEASE_BATCH": 1,
+    "DLROVER_TPU_SHARD_WAIT_S": 10.0,
+    # datascope: the switch (off: every hook a no-op), the least seconds
+    # between shard-telemetry flushes into the store, the per-dataset
+    # sample window, and the blocking fetch wait under which nothing is
+    # charged to input_starved
+    "DLROVER_TPU_DATASCOPE": True,
+    "DLROVER_TPU_DATA_FLUSH_S": 1.0,
+    "DLROVER_TPU_DATA_WINDOW": 512,
+    "DLROVER_TPU_DATA_STARVED_MIN_S": 0.05,
 }
 
 _MISSING = object()

@@ -1,13 +1,14 @@
 """End-to-end recovery drill: elastic training under scripted chaos.
 
 Copy of ``dlrover_tpu/diagnosis/chaos_drill.py``'s harness and of the
-twelve scenarios that run on modules the port has: ``master_restart``,
+thirteen scenarios that run on modules the port has: ``master_restart``,
 ``torn_shm``, ``storage_stall``, ``storage_crc``, ``node_flap``,
-``kv_timeout``, ``heartbeat_loss``, ``torn_commit``, and the four that
+``kv_timeout``, ``heartbeat_loss``, ``torn_commit``, the four that
 drive the master's time-series store and the sentinels: ``slow_link``,
-``hbm_leak``, ``cache_cold`` and ``peer_restore``.  The drill asserts
-*that* the documented recovery invariants hold under each scripted
-failure mode, with faults manufactured deterministically by
+``hbm_leak``, ``cache_cold`` and ``peer_restore``, and ``data_starved``,
+which drives the sharding client against the master's shard telemetry.
+The drill asserts *that* the documented recovery invariants hold under
+each scripted failure mode, with faults manufactured deterministically by
 ``dlrover_tpu_torch.chaos``:
 
 * **committed-step monotonicity** — the storage tracker never moves
@@ -32,7 +33,7 @@ and values, on an explicit ``device``: the card by default (raises
 without one), ``"cpu"`` when asked for.  ``cache_cold`` and
 ``peer_restore`` build a kernel source (:data:`DRILL_KERNEL`) into
 directories of their own, so they need nvcc (on the card's machine; a
-test gives ``_build`` a stand-in compiler).  The other three scenarios
+test gives ``_build`` a stand-in compiler).  The other two scenarios
 wait for the modules they drive and raise ``NotImplementedError`` naming
 their ROADMAP item (:data:`WAITING`).
 
@@ -91,10 +92,9 @@ INCIDENT_EXPECTATIONS: Dict[str, tuple] = {
 }
 
 #: the reference's scenarios whose bodies wait, with the ROADMAP item
-#: that brings what they drive: datascope and the sharding client
-#: (data_starved), the live reshard and the hierarchical fabric tuner
+#: that brings what they drive: the live reshard and the hierarchical
+#: fabric tuner
 WAITING: Dict[str, str] = {
-    "data_starved": "ROADMAP queue 1 item 11, the rest",
     "live_reshard": "ROADMAP queue 1 item 6c",
     "fabric_reroute": "ROADMAP queue 1 item 6d",
 }
@@ -283,6 +283,7 @@ def reset_evidence() -> None:
     dominant-phase assertions judge THIS scenario."""
     from dlrover_tpu_torch.observability import (
         commscope,
+        datascope,
         flight_recorder,
         goodput,
         memscope,
@@ -291,6 +292,9 @@ def reset_evidence() -> None:
     flight_recorder.recorder().reset()
     goodput.reset_ledger()
     commscope.reset_scope()
+    # the data observatory's agent-side wait/process counters are
+    # process-global for the same reason
+    datascope.reset_scope()
     memscope.reset_scope()
 
 
@@ -1675,6 +1679,71 @@ def _scenario_peer_restore(ctx: Dict) -> Dict:
                 shm.unlink()  # closes this process's mapping first
 
 
+def _scenario_data_starved(ctx: Dict) -> Dict:
+    """Every shard lease pays an injected ``data.lease`` DELAY at the
+    master.  The real ShardingClient must still consume every shard
+    exactly once, the blocked waits must book to the ledger's
+    ``input_starved`` phase (dominating this scenario's account), and
+    the master-side datascope telemetry must show the stall in the
+    lease p99."""
+    from dlrover_tpu_torch.agent.sharding import ShardingClient
+    from dlrover_tpu_torch.observability import datascope, goodput
+
+    checks = ctx["checks"]
+    master = _MasterHandle()
+    client = _RestartableLocalClient(master, node_id=0)
+    # 6 shards of 8 records each; every lease pays the injected 0.4s
+    dataset = "drill_data"
+    sharding = ShardingClient(
+        dataset_name=dataset, batch_size=4, num_epochs=1,
+        dataset_size=48, client=client,
+        num_minibatches_per_shard=2,
+    )
+    fetched = []
+    while True:
+        shard = sharding.fetch_shard()
+        if shard is None:
+            break
+        fetched.append((shard.name, shard.start, shard.end))
+        sharding.report_shard_done()
+    _check(checks, "all_shards_consumed", len(fetched) == 6,
+           f"fetched {len(fetched)}: {fetched}")
+    _check(checks, "no_shard_repeated",
+           len(set(fetched)) == len(fetched), str(fetched))
+    delays = [r for r in chaos.trace() if r["kind"] == chaos.DELAY]
+    _check(checks, "stalls_injected", len(delays) >= 1,
+           f"trace {chaos.trace()}")
+    # agent side: the wait-vs-service split saw the starvation
+    scope = datascope.scope_summary()
+    _check(checks, "fetches_recorded",
+           scope.get("fetches", 0) >= 6, str(scope))
+    _check(checks, "starved_fetches_attributed",
+           scope.get("starved_fetches", 0) >= 1, str(scope))
+    # ledger: the blocked waits dominate this scenario's account
+    ledger = goodput.ledger().summary()
+    _check(
+        checks, "ledger_dominant_input_starved",
+        ledger["dominant"] == "input_starved"
+        and ledger["phases"]["input_starved"] > 0,
+        f"ledger {ledger}",
+    )
+    # master side: telemetry priced the stall and drained the backlog
+    telemetry = master.servicer.shard_telemetry
+    telemetry.flush()
+    summary = telemetry.summary()
+    _check(checks, "telemetry_counts_completions",
+           summary["completions"] == 6, str(summary))
+    _check(checks, "telemetry_backlog_drained",
+           summary["backlog"] == 0, str(summary))
+    _check(checks, "lease_p99_shows_stall",
+           summary["lease_p99_ms"] >= 300.0, str(summary))
+    return {
+        "ledger_phases": ledger["phases"],
+        "lease_p99_ms": summary["lease_p99_ms"],
+        "starved_s": round(scope.get("starved_s", 0.0), 3),
+    }
+
+
 _SCENARIO_BODIES: Dict[str, Callable[[Dict], Dict]] = {
     "master_restart": _scenario_master_restart,
     "torn_shm": _scenario_torn_shm,
@@ -1688,6 +1757,7 @@ _SCENARIO_BODIES: Dict[str, Callable[[Dict], Dict]] = {
     "hbm_leak": _scenario_hbm_leak,
     "cache_cold": _scenario_cache_cold,
     "peer_restore": _scenario_peer_restore,
+    "data_starved": _scenario_data_starved,
 }
 
 #: the scenarios this drill runs (``run_drill``'s default)

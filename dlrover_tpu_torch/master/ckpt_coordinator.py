@@ -39,8 +39,8 @@ Phase 2 runs under the reference's ``ckpt.phase2_commit`` trace span and
 chaos point, and records ``ckpt_phase_seconds{phase="phase2_seal"}``.  The
 servicer files each recovery report both here and in its time-series store,
 whose recent reports the MTTR sentinel judges
-(``observability/sentinel.py``).  Not ported: the dashboard's
-``/recovery`` view (ROADMAP item 11, the rest: the dashboard).
+(``observability/sentinel.py``); the dashboard's ``/recovery`` view reads
+the broker's ``snapshot()`` (``master/dashboard.py``).
 """
 
 import json

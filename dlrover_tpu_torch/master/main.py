@@ -3,8 +3,10 @@
 Copy of ``dlrover_tpu/master/main.py``, the counterpart of DLRover's
 ``dlrover/python/master/main.py:112``.  The reference picks the local or
 distributed master by platform; the port has the local master only, and
-``--platform`` other than ``local`` and ``--enable_dashboard`` raise
-``NotImplementedError`` (``ROADMAP_LAUNCHER_REST``).
+``--platform`` other than ``local`` raises ``NotImplementedError``
+(``ROADMAP_LAUNCHER_REST``).  ``--enable_dashboard`` serves the job
+dashboard (``master/dashboard.py``) on ``--dashboard_port`` (0: a free
+port, logged) for as long as the master runs.
 """
 
 import os
@@ -21,10 +23,6 @@ def run(args) -> int:
         raise NotImplementedError(
             f"--platform={args.platform}: the distributed master is not "
             f"ported yet ({ROADMAP_LAUNCHER_REST})")
-    if args.enable_dashboard:
-        raise NotImplementedError(
-            "--enable_dashboard: the dashboard is not ported yet "
-            f"({ROADMAP_LAUNCHER_REST})")
     ctx = Context.singleton_instance()
     ctx.master_service_type = args.service_type
     ctx.pre_check_enabled = bool(args.pre_check)
@@ -36,6 +34,13 @@ def run(args) -> int:
     )
     master.hold = bool(getattr(args, "hold", False))
     master.prepare()
+    dashboard = None
+    if args.enable_dashboard:
+        from dlrover_tpu_torch.master.dashboard import DashboardServer
+
+        dashboard = DashboardServer(master, args.dashboard_port)
+        dashboard.start()
+        logger.info("dashboard at http://localhost:%d/", dashboard.port)
     if args.port_file:
         with open(args.port_file, "w") as f:
             f.write(str(master.port))
@@ -43,7 +48,11 @@ def run(args) -> int:
         "master started: job=%s platform=%s port=%d",
         args.job_name, args.platform, master.port,
     )
-    return master.run()
+    try:
+        return master.run()
+    finally:
+        if dashboard is not None:
+            dashboard.stop()
 
 
 def main(argv=None) -> int:

@@ -11,10 +11,12 @@ An agent's flight dump (``IncidentDumpReport``) lands in its incident
 through the attached incident engine (the local master attaches one).  A
 heartbeat digest feeds the metric context and the time-series store
 (``self.timeseries``, ``master/timeseries.py``); a ``RecoveryReport``
-feeds the peer broker and the store.  What differs from the copy
-(ROADMAP item 11, the rest): the servicer keeps no ``datascope`` shard
-telemetry, and the brain ack answers as the reference's servicer does with
-no brain attached.
+feeds the peer broker and the store.  The task manager's shard leases,
+completions and backlog feed ``datascope``'s ``ShardTelemetry``
+(``self.shard_telemetry``), which flushes into the store and backs the
+``/metrics`` data gauges.  What differs from the copy (ROADMAP item 11,
+the rest): the brain ack answers as the reference's servicer does with no
+brain attached.
 """
 
 import time
@@ -73,11 +75,19 @@ class MasterServicer:
         from dlrover_tpu_torch.master.timeseries import TimeSeriesStore
 
         self.metric_context = JobMetricContext()
-        # the goodput/step-time history the /metrics pull gauges and the
-        # regression sentinels read (datascope's shard telemetry waits:
-        # ROADMAP item 11, the rest)
+        # the goodput/step-time history the dashboard, the /metrics pull
+        # gauges and the regression sentinels read
         self.timeseries = TimeSeriesStore()
         self.timeseries.register_pull_gauges()
+        # datascope: shard-lifecycle telemetry observed from the
+        # dispatcher's seat, flushed into the time-series store (the
+        # /data endpoint, pull gauges and data sentinels read it)
+        from dlrover_tpu_torch.observability import datascope
+
+        self.shard_telemetry = datascope.ShardTelemetry(self.timeseries)
+        if datascope.enabled():
+            self._task_manager.set_telemetry(self.shard_telemetry)
+            self.timeseries.register_data_gauges(self.shard_telemetry)
         self._start_training_time = 0.0
         self._pre_check_status = PreCheckStatus.PASS
         self._admission = AdmissionController()

@@ -39,8 +39,8 @@ Reads: :meth:`series`, :meth:`latest`, :meth:`snapshot`, pull gauges on
 the ``/metrics`` registry (:meth:`register_pull_gauges`), and
 :meth:`export_counters` — Perfetto counter-track records the incident
 engine's timeline merges, so incidents land on top of the goodput curve.
-Left out with ``datascope`` (ROADMAP item 11, the rest): the reference's
-``register_data_gauges``.
+:meth:`register_data_gauges` puts the servicer's datascope shard
+telemetry on the same registry, read live.
 
 Pure in-memory; every mutation is a few dict/deque updates under one
 lock.
@@ -737,4 +737,32 @@ class TimeSeriesStore:
             help=obs_metrics._help(
                 "dlrover_tpu_compile_cache_hit_ratio"
             ),
+        )
+
+    def register_data_gauges(self, telemetry: Any) -> None:
+        """Expose the datascope shard telemetry on ``/metrics`` as
+        collect-on-read gauges (live reads of the ``ShardTelemetry``
+        aggregate — not the flushed series, so a scrape between
+        flushes still sees current backlog)."""
+        from dlrover_tpu_torch.observability import metrics as obs_metrics
+
+        reg = obs_metrics.registry()
+
+        def _gauge(key: str):
+            def read():
+                return telemetry.gauges()[key]
+
+            return read
+
+        reg.gauge_fn(
+            "dlrover_tpu_data_backlog", _gauge("backlog"),
+            help=obs_metrics._help("dlrover_tpu_data_backlog"),
+        )
+        reg.gauge_fn(
+            "dlrover_tpu_data_shards_per_second", _gauge("shards_per_s"),
+            help=obs_metrics._help("dlrover_tpu_data_shards_per_second"),
+        )
+        reg.gauge_fn(
+            "dlrover_tpu_data_lease_p99_ms", _gauge("lease_p99_ms"),
+            help=obs_metrics._help("dlrover_tpu_data_lease_p99_ms"),
         )

@@ -13,8 +13,11 @@ higher-priority claim wins (:data:`_CLAIMS`).  Slots beyond
 Feeds: ``trace._export`` pushes finished spans (:func:`on_span`, by name
 prefix), the trainer pushes step durations (:func:`on_step`) and, in the
 port, charges the first step's kernel builds as ``compile``
-(:func:`charge_compile_window`).  :meth:`GoodputLedger.digest` gives the
-``gp_<phase>`` keys of the per-rank digest file.
+(:func:`charge_compile_window`), and the device prefetcher charges the
+loop's blocked, device-idle input waits as ``input_blocked`` (reported as
+``input_starved``).  The reference has no such claim: there the trainer's
+inter-step compute claim covers such a wait.  :meth:`GoodputLedger.digest`
+gives the ``gp_<phase>`` keys of the per-rank digest file.
 ``DLROVER_TPU_GOODPUT_LEDGER=0`` turns every feed into a flag check.
 """
 
@@ -48,6 +51,13 @@ _CLAIMS: Tuple[Tuple[str, str], ...] = (
     # window the MTTR sentinel prices — not to a checkpoint stall
     ("peer_restore", "peer_restore"),
     ("ckpt_blocking", "ckpt_stall"),
+    # the port's input wait of the same BLOCKING nature: the training
+    # loop stood in the device prefetcher's empty queue while the device
+    # had nothing left to run (trainer/elastic/prefetch.py measures the
+    # idle gap).  No step ran in those slots, so the trainer's
+    # inter-dispatch compute claim must not take them; a fetch overlapped
+    # by a running step stays the sharding client's input_starved below
+    ("input_blocked", "input_starved"),
     ("compute", "compute"),
     ("overload_rideout", "overload_rideout"),
     ("rendezvous_restart", "rendezvous_restart"),

@@ -14,10 +14,12 @@ checkpoint path its phases (:func:`observe_ckpt_phase`), the chaos engine
 its faults (:func:`record_chaos_fault`) and the incident engine its
 counts, the master's time-series store its pull gauges
 (``goodput_ledger``, ``step_p50_seconds``, ``mem_used_bytes``, ...), the
-sentinels their fires (:func:`record_sentinel_breach`) and the worker
-bootstrap a compile cache it could not enable.  Left out, with their
-callers (ROADMAP item 11, the rest): the catalog's entries of
-``datascope`` and the brain, and the catalog's markdown generator.
+sentinels their fires (:func:`record_sentinel_breach`), the worker
+bootstrap a compile cache it could not enable, and the servicer's shard
+telemetry its data gauges (``data_backlog``, ``data_shards_per_second``,
+``data_lease_p99_ms``).  Left out, with their callers (ROADMAP item 11,
+the rest): the catalog's entries of the brain, and the catalog's
+markdown generator.
 
 Deliberately dependency-free (no prometheus_client).  Cardinality is
 bounded: at most ``DLROVER_TPU_METRICS_MAX_SERIES`` label combinations
@@ -490,6 +492,23 @@ METRICS: Dict[str, Tuple[str, Tuple[str, ...], str]] = {
         "persistent-cache hit ratio of the most recent differentiated "
         "per-node window (job.compile.hit_ratio; the cache-cold "
         "sentinel reads the per-node view)",
+    ),
+    "dlrover_tpu_data_backlog": (
+        "gauge", (),
+        "data-pipeline backlog depth (todo + doing shards across all "
+        "datasets) read live from the master's shard telemetry — the "
+        "signal Brain's goodput_marginal arbiter treats as input-bound",
+    ),
+    "dlrover_tpu_data_shards_per_second": (
+        "gauge", (),
+        "shard completion throughput over the last datascope flush "
+        "window (job.data.shards_per_s)",
+    ),
+    "dlrover_tpu_data_lease_p99_ms": (
+        "gauge", (),
+        "p99 master-side shard-lease service latency (dispatch work "
+        "only — long-poll queue wait is tracked separately as "
+        "job.data.queue_p99_ms; the shard-latency sentinel's input)",
     ),
 }
 

@@ -1,2 +1,2 @@
-"""Optimizer recipe, the training harness, flash checkpoint, the worker
-bootstrap and the launcher (``elastic_run``)."""
+"""Optimizer recipe, the training harness, flash checkpoint, the elastic
+input pipeline, the worker bootstrap and the launcher (``elastic_run``)."""
