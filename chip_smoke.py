@@ -67,7 +67,8 @@ use), then runs, in order, failing on the first phase that fails:
    shm segment and the checkpoint directory are released at its end, and
    its numbers go to a {"ckpt": {...}} JSON line;
    [dist persist], on the same trainer and state cut to DIST_CKPT_LAYERS
-   (11) of its 22 layers (for the script's time limit; and
+   (3, 11 before [reshard]) of its 22 layers (for the script's time
+   limit; and
    further as above when /dev/shm needs it): a storage save with DLROVER_TPU_DIST_PERSIST=1
    (distributed.py; synchronous, into a fresh directory, removed after)
    must seal with bytes_written equal to the state's bytes; a second save
@@ -204,7 +205,9 @@ use), then runs, in order, failing on the first phase that fails:
    (trainer/elastic_run.py: its local master, elastic agent and master
    client, over HTTP) runs the worker
    dlrover_tpu_torch/examples/train_llama_ckpt.py at llama2_1b ([training]'s
-   model and recipe) through bench.recovery_drill(platform=""): the worker
+   model and recipe, cut to LAUNCHER_LAYERS (6) layers for the script's
+   time limit since [reshard]; 22 with --launcher-alone) through
+   bench.recovery_drill(platform=""): the worker
    hard-crashes at step 7 (os._exit(17)) after the memory save of step 6,
    the agent persists that snapshot on the failure and restarts the
    worker in place (NodeFailureDiagnostician: "restarting workers in
@@ -215,10 +218,11 @@ use), then runs, in order, failing on the first phase that fails:
    at step 7", "resumed from step 6", "done at step 10" and the blocking
    memory save of step 6 (llama2_1b's saves are synchronous: an async one
    would still be staging when the crash tears it); every step of both
-   workers launched 44 / 22 / 22 flash kernels and has the loss of
-   [training]'s same step bitwise (the uninterrupted run: same model,
-   seed, batch and optimizer; so a restore that lost the moments or the
-   schedule's count fails); and recovery_s (the crash to the first
+   workers launched 2 / 1 / 1 flash kernels a layer and has the loss of
+   the uninterrupted run's same step bitwise ([training]'s, or at the cut
+   depth an in-process run of its recipe: same model, seed, batch and
+   optimizer; so a restore that lost the moments or the schedule's count
+   fails); and recovery_s (the crash to the first
    finished step after the restore) is printed beside the card's name
    and power limit, named recovery_s_beside_mesh_legs here, since the
    legs share the host (--launcher-alone takes it alone);
@@ -263,8 +267,8 @@ use), then runs, in order, failing on the first phase that fails:
    depth cut: at 22 the state alone would take ~77 GB), E=8, top-2,
    capacity factor 1.25 (C=640), flash attention, moe_loss_fn, B=4,
    S=2048, the [training] optimizer and dtypes: one warm-up and 3 timed
-   steps, each with a finite loss and 8 / 8 / 8 flash launches (no
-   remat); the mean, median and shortest step and tokens/s; one more
+   steps, each with a finite loss and one flash forward, dQ and dK/dV a
+   layer (no remat); the mean, median and shortest step and tokens/s; one more
    step under torch.profiler, its device time split into the flash
    kernels, the MoE's routing, dispatch einsum, expert matmuls and
    combine einsum (each span's forward kernels and the backward of the
@@ -410,6 +414,38 @@ use), then runs, in order, failing on the first phase that fails:
    restored torch.equal, the next step's loss within 1e-6 relative, its
    flash launches a step's, its ring kernels' launches the uninterrupted
    step's (int8: encode and accumulate; none for the exact sync);
+   [reshard], after [replica] (parallel/reshard.py, reshard_smoke.py),
+   its runs started earlier as processes of their own so that the script
+   keeps within its time limit (the smoke beside the [dp leg], the drill's
+   live_reshard beside the [mesh] legs and [launcher], the reshard drill
+   and the dist-commit smoke beside [gpt], [vit] and [pp]) and collected
+   here:
+   the card's line; the live reshard smoke at full width: 4 gloo ranks of
+   llama2_1b at RESHARD_LAYERS (1) layer on the flash kernels, S=2048,
+   B=1 a rank at dp=4, the dp leg's recipe, int8_sharded over
+   ring_pallas_q; two steps, a sealed distributed checkpoint (the donor)
+   and a flash checkpoint (the restart's source); the donor leg (dp4 ->
+   dp2, ranks 2 and 3 gone: the departed moment blocks and residual rows
+   read off the manifest, 0 < bytes < the state's), the restart baseline
+   (a fresh dp2 trainer, load_state from storage), a refusal without a
+   donor, the grow back to dp4 (ranks 2 and 3 join with new trainers),
+   the planned shrink with every replica surviving (0 donor bytes), the
+   grow again and a step: each shrink torch.equal to the restart
+   baseline leaf by leaf, the next loss bitwise the restart's, the grow
+   torch.equal to the original dp4 state with the residual totals exact
+   and the bucket signature the same; the ledger's live_reshard > 0 and
+   rendezvous_restart 0 on every rank; live_reshard_s beside the
+   restart's seconds and their ratio; each leg's re-formation, exchange
+   and rebuild seconds; the launches of the flash and the int8 encode and
+   accumulate kernels over every rank (each > 0). Then the flash kernels
+   at B=1 S=2048 and the int8 ring kernels at the smoke's largest and
+   smallest bucket of each degree against their plain versions, and the
+   recovery smoke (the survivors serving the built lib*.so); the side
+   runs: the drill's live_reshard at seeds 0 and 13 (ok, incident
+   rendezvous / rdzv.join, both paths' seconds), the reshard drill's
+   storage leg (8 ranks, dp1/fsdp2/tp2/cp2 -> dp2/fsdp4 from storage,
+   restore_reshard_s, the loss across) and the dist-commit smoke with its
+   tensors on the card; a {"reshard": {...}} line;
 10. the ring kernels at the dp leg's largest and smallest bucket shapes:
    torch.equal against the plain versions (the JSON line's max_abs_err is
    the largest |kernel - plain| over every comparison), then time per
@@ -451,7 +487,8 @@ ring kernel's ``launches_load_state`` is its count over the step after
 the dp leg's ``load_state`` at 2 ranks, and ``launches_comm_probe`` the
 launches the dp leg's bucket chains added, over every rank; the flash and ring kernels'
 ``launches_replica`` over every rank's steps after the [replica] leg's
-restores.  Without a CUDA device it exits 1 and prints
+restores, and ``launches_reshard`` over every rank of [reshard]'s smoke
+(0 for the int4 ones, which its path does not run).  Without a CUDA device it exits 1 and prints
 no result.
 """
 
@@ -485,6 +522,9 @@ TRAIN_B, TRAIN_S, TIMED_STEPS = 4, 2048, 4
 # 10 steps uninterrupted (one warm-up, 9 timed), and every step of both
 # workers must have its loss bitwise
 LAUNCHER_CRASH_STEP, LAUNCHER_STEPS = 7, 10
+# the [launcher] drill's depth beside the [mesh] legs (22 alone, with
+# --launcher-alone): cut for the script's time limit
+LAUNCHER_LAYERS = 6
 TRAIN_STEPS = LAUNCHER_STEPS
 # (B, S, H, H_kv, D, causal) of the kernel-vs-plain checks: small shapes
 # (causal and not, GQA 4:2, head_dim 64 and 128); off the 128-row tiles:
@@ -589,8 +629,9 @@ CKPT_STEPS = 4
 CKPT_META_MARGIN = 64 << 20
 # the depth [dist persist] and [peer restore] checkpoint at: llama2_1b cut
 # from 22 layers to keep the script within its time limit beside the
-# [launcher] drill (their rates per byte stay comparable)
-DIST_CKPT_LAYERS = 11
+# [launcher] drill and [reshard] (11 before [reshard]; their rates per
+# byte stay comparable)
+DIST_CKPT_LAYERS = 3
 # [chaos]: the drill's scenarios replayed at this seed must give equal
 # normalized fault traces
 CHAOS_REPLAY_SEED = 13
@@ -605,6 +646,16 @@ DATA_DEPTH = 2
 DATA_SEEDS = {"chip_data": 0, "chip_data_starved": 1 << 20}
 DATA_DRILL_SEEDS = (0, 13)
 DATA_SCENARIOS = ("data_starved",)
+# [reshard]: the live reshard smoke's 4 ranks at full width and this depth
+# (the rank legs'), B=1 a rank at dp=4; the drill's live_reshard scenario
+# at these seeds; each spawn's time limit
+RESHARD_LAYERS = 1
+RESHARD_SCENARIOS = ("live_reshard",)
+RESHARD_SEEDS = (0, 13)
+RESHARD_TIMEOUT_S = 600.0
+# the kernels the phase's path runs: flash attention and the int8 ring's
+RESHARD_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "q8_encode",
+                   "q8_accum")
 # the ledger's input_starved against the injected lease stalls
 DATA_STARVED_SHARE = 0.9
 DATA_SIDE_TIMEOUT_S = 300.0
@@ -1034,10 +1085,11 @@ def time_kernels(fa, gen, S=TRAIN_S, causal=True):
     return timings
 
 
-def train_subject():
+def train_subject(layers=None):
     """[training]'s model, trainer, state and batch, from seed 0: the
-    llama2_1b preset with flash attention, the bf16-moment optimizer, bf16
-    grads on fp32 masters; and the flash launches a step must make."""
+    llama2_1b preset (at ``layers``, else its 22) with flash attention,
+    the bf16-moment optimizer, bf16 grads on fp32 masters; and the flash
+    launches a step must make."""
     import numpy as np
     import torch
 
@@ -1045,7 +1097,8 @@ def train_subject():
     from dlrover_tpu_torch.trainer.optim import create_optimizer
     from dlrover_tpu_torch.trainer.train import Trainer
 
-    cfg = LlamaConfig.llama2_1b(max_seq_len=TRAIN_S, attention_impl="flash")
+    cfg = LlamaConfig.llama2_1b(max_seq_len=TRAIN_S, attention_impl="flash",
+                                **({"num_layers": layers} if layers else {}))
     model = LlamaForCausalLM(cfg, device="cuda", seed=0)
     trainer = Trainer(
         model,
@@ -2978,7 +3031,8 @@ def chaos_phase(fa, batch, trainer, ckpt_dir, step, want, uninterrupted,
     # runs the four of the time-series store and the sentinels, [data]
     # data_starved)
     for name in drill.PORTED:
-        if name in SENTINEL_SCENARIOS or name in DATA_SCENARIOS:
+        if name in (SENTINEL_SCENARIOS + DATA_SCENARIOS
+                    + RESHARD_SCENARIOS):
             continue
         result = drill.run_scenario(name, 0, device="cuda")
         want_phase, want_point = drill.INCIDENT_EXPECTATIONS[name]
@@ -3499,44 +3553,57 @@ def direct_leg(name, trainer, state, n, vocab, beat):
     return state, losses, step_s
 
 
+def _side_process(workdir: str, name: str, args: list, extra: dict):
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    out = open(os.path.join(workdir, f"{name}.log"), "w+")
+    return (subprocess.Popen([sys.executable, *args], cwd=here,
+                             env=dict(env, **extra), stdout=out,
+                             stderr=subprocess.STDOUT),
+            out, time.perf_counter())
+
+
+def side_result(run, marker: str, timeout_s: float = RESHARD_TIMEOUT_S):
+    """A side process's exit code, seconds since it started, result line
+    (its JSON after ``marker``) and log, once it ends (killed after
+    ``timeout_s``)."""
+    proc, out, t0 = run
+    try:
+        rc = proc.wait(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = None
+    seconds = time.perf_counter() - t0
+    out.seek(0)
+    text = out.read()
+    out.close()
+    lines = [ln for ln in text.splitlines() if ln.startswith(marker)]
+    verdict = json.loads(lines[-1][len(marker):]) if lines else {}
+    return rc, seconds, verdict, text
+
+
 def data_side_runs(workdir: str) -> dict:
     """The drill's data_starved at each of DATA_DRILL_SEEDS and the data
     smoke, each a process of its own on this host, started now: they run
     beside the legs (none of them touches the card)."""
-    here = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ)
-    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
     commands = {f"data_starved seed {s}": (
         ["-m", "dlrover_tpu_torch.diagnosis.chaos_drill", "data_starved"],
         {"CHAOS_DRILL_SEED": str(s)}) for s in DATA_DRILL_SEEDS}
     commands["data_smoke"] = (
         ["-m", "dlrover_tpu_torch.observability.data_smoke"], {})
-    runs = {}
-    for i, (label, (args, extra)) in enumerate(commands.items()):
-        out = open(os.path.join(workdir, f"side{i}.log"), "w+")
-        runs[label] = (subprocess.Popen(
-            [sys.executable, *args], cwd=here, env=dict(env, **extra),
-            stdout=out, stderr=subprocess.STDOUT), out)
-    return runs
+    return {label: _side_process(workdir, f"side{i}", args, extra)
+            for i, (label, (args, extra)) in enumerate(commands.items())}
 
 
 def data_side_results(runs) -> dict:
     """Each side run's exit code and JSON verdict; raises unless every
     one says ok."""
     record = {}
-    for label, (proc, out) in runs.items():
-        try:
-            rc = proc.wait(timeout=DATA_SIDE_TIMEOUT_S)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait()
-            rc = None
-        out.seek(0)
-        text = out.read()
-        out.close()
+    for label, run in runs.items():
         marker = "DATA_SMOKE " if label == "data_smoke" else "CHAOS_DRILL "
-        lines = [ln for ln in text.splitlines() if ln.startswith(marker)]
-        verdict = json.loads(lines[-1][len(marker):]) if lines else {}
+        rc, _, verdict, text = side_result(run, marker, DATA_SIDE_TIMEOUT_S)
         checks = verdict.get("checks") or verdict.get(
             "scenarios", {}).get("data_starved", {}).get("checks", {})
         print(f"  {label}: rc {rc}, ok {verdict.get('ok')}, "
@@ -3809,7 +3876,7 @@ def data_phase(fa) -> dict:
         del trainer, state, direct
     finally:
         chaos.clear()
-        for proc, out in side.values():
+        for proc, out, _ in side.values():
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
@@ -3908,6 +3975,229 @@ def ring_accum_inputs(fmt: str, nblk: int, block: int, seed: int = 1):
 
 def max_abs(got, want) -> float:
     return (got.double() - want.double()).abs().max().item()
+
+
+def reshard_spec() -> dict:
+    """The live reshard smoke's run at full width (reshard_smoke's spec):
+    llama2_1b at RESHARD_LAYERS layers on the flash kernels, S=TRAIN_S,
+    a global batch of DP_WORLD rows (B=1 a rank at dp=4, 2 at dp=2), the
+    dp leg's recipe (bf16 grads on fp32 masters, bf16 moments) and
+    int8_sharded over ring_pallas_q."""
+    import numpy as np
+    import torch
+
+    ids = np.random.default_rng(21).integers(0, 32000,
+                                             size=(DP_WORLD, TRAIN_S + 1))
+    return dict(
+        preset="llama2_1b",
+        model=dict(num_layers=RESHARD_LAYERS, attention_impl="flash",
+                   max_seq_len=TRAIN_S),
+        state_dict=None, seed=0,
+        batch={"input_ids": ids[:, :-1].astype(np.int32),
+               "labels": ids[:, 1:].astype(np.int32)},
+        optimizer=dict(peak_lr=3e-4, warmup_steps=10, total_steps=10_000,
+                       grad_clip_norm=None, moment_dtype=torch.bfloat16),
+        grads_dtype=torch.bfloat16,
+        policy=dict(mode="int8_sharded", bucket_mb=DP_BUCKET_MB,
+                    clip_norm=1.0, transport="ring_pallas_q"),
+        count_launches=True)
+
+
+#: [reshard]'s side runs: (marker of their result line, module, args, env)
+RESHARD_SIDE = dict(
+    **{f"live_reshard seed {seed}": (
+        "CHAOS_DRILL ", "dlrover_tpu_torch.diagnosis.chaos_drill",
+        ["--device", "cuda", "live_reshard"], {"CHAOS_DRILL_SEED": str(seed)})
+       for seed in RESHARD_SEEDS},
+    **{"reshard drill": (
+        "RESHARD_DRILL ", "dlrover_tpu_torch.trainer.flash_checkpoint."
+        "reshard_drill", ["--device", "cuda", "--storage-only"], {}),
+       "dist-commit smoke": (
+        "DIST_COMMIT_SMOKE ", "dlrover_tpu_torch.trainer.flash_checkpoint."
+        "dist_commit_smoke", ["--device", "cuda"], {})})
+
+
+def reshard_side_runs(workdir: str, labels) -> dict:
+    """The side runs of RESHARD_SIDE named ``labels`` (the drill's
+    live_reshard at each of RESHARD_SEEDS, the reshard drill's storage leg,
+    the dist-commit smoke), each a process of its own started now: they
+    run beside the phases that follow (their ranks are tiny), and
+    [reshard] collects them."""
+    return {label: _side_process(
+        workdir, f"reshard_side{list(RESHARD_SIDE).index(label)}",
+        ["-m", RESHARD_SIDE[label][1], *RESHARD_SIDE[label][2]],
+        RESHARD_SIDE[label][3]) for label in labels}
+
+
+def reshard_smoke_start(workdir: str):
+    """The live reshard smoke at full width (reshard_smoke_main), a
+    process of its own started now: its 4 ranks run beside the [dp leg]'s,
+    and [reshard] collects it."""
+    return _side_process(
+        workdir, "reshard_smoke",
+        ["-c", "import sys, chip_smoke; "
+               "sys.exit(chip_smoke.reshard_smoke_main())"], {})
+
+
+def reshard_smoke_main() -> int:
+    """The [reshard] smoke's process: reshard_smoke.run_smoke on the card
+    at reshard_spec(); prints RESHARD_SMOKE {json} and exits 0 iff every
+    check passed."""
+    from dlrover_tpu_torch.parallel import reshard_smoke
+
+    result = reshard_smoke.run_smoke("cuda", spec=reshard_spec(),
+                                     timeout_s=RESHARD_TIMEOUT_S)
+    print("RESHARD_SMOKE " + json.dumps(result), flush=True)
+    return 0 if result["ok"] else 1
+
+
+def reshard_side_results(runs) -> dict:
+    """Each side run's exit code, seconds and result line; raises unless
+    every one is ok."""
+    record = {}
+    for label, run in runs.items():
+        rc, seconds, verdict, text = side_result(run, RESHARD_SIDE[label][0])
+        if label.startswith("live_reshard"):
+            verdict = verdict.get("scenarios", {}).get("live_reshard", {})
+            ok = verdict.get("ok") and rc == 0 and verdict.get(
+                "incident") == list(INCIDENT_LIVE_RESHARD)
+        elif label == "reshard drill":
+            ok = rc == 0 and bool(verdict) and "error" not in verdict.get(
+                "grad_sync_reshard", {})
+        else:
+            ok = rc == 0 and verdict.get("ok")
+        print(f"  {label}: rc {rc}, ok {bool(ok)}, {seconds:.1f} s: "
+              f"{json.dumps(verdict)[:900]}", flush=True)
+        if not ok:
+            raise AssertionError(f"[reshard] {label}: rc {rc}\n"
+                                 f"{text[-4000:]}")
+        record[label] = dict(verdict, seconds=seconds)
+    return record
+
+
+#: the incident the drill's live_reshard must open (phase, chaos point)
+INCIDENT_LIVE_RESHARD = ("rendezvous", "rdzv.join")
+
+
+def reshard_start(workdir: str) -> None:
+    """Check that /dev/shm holds the [reshard] smoke's checkpoints: each
+    rank's flash checkpoint (the restart path's source) and the restart
+    baseline's segments."""
+    from dlrover_tpu_torch.models.llama import LlamaConfig
+
+    params = llama_param_count(LlamaConfig.llama2_1b(
+        num_layers=RESHARD_LAYERS))
+    check_shm(DP_WORLD * DP_CKPT_BYTES_PER_PARAM * params + CKPT_META_MARGIN,
+              "the reshard smoke's checkpoint")
+
+
+def reshard_phase(fa, smoke_run, side, workdir: str) -> dict:
+    """[reshard] (module docstring): collects the smoke's process
+    (``smoke_run``, started beside the [dp leg]) and the side runs
+    (``side``, started beside earlier phases), checks the path's kernels
+    against their plain versions and runs the recovery smoke.  Returns its
+    JSON record; its ``launches`` are the flash and int8 ring launches
+    over every rank of the smoke's run."""
+    import shutil
+
+    import torch
+
+    from dlrover_tpu_torch.observability import recovery_smoke
+    from dlrover_tpu_torch.ops.cuda import ring_reduce_scatter as rrs
+
+    phase_t0 = time.perf_counter()
+    record: dict = {"card": card_line()}
+    print(f"  card: {record['card']}", flush=True)
+    try:
+        # (a) the live reshard smoke at full width (beside the [dp leg])
+        print(f"  the smoke: {DP_WORLD} gloo ranks share the card: "
+              f"llama2_1b at full width, {RESHARD_LAYERS} layer, flash, "
+              f"S={TRAIN_S}, B=1 a rank at dp=4, int8_sharded over "
+              f"ring_pallas_q; dp4 -> dp2 (survivors 0, 1 and the donor "
+              f"manifest) -> dp4 (2 joiners) -> dp2 (every replica "
+              f"surviving) -> dp4; it ran beside the [dp leg]", flush=True)
+        rc, record["smoke_s"], smoke, text = side_result(
+            smoke_run, "RESHARD_SMOKE ")
+        failed = sorted(k for k, v in smoke.get("checks", {}).items()
+                        if not v)
+        print(f"  rc {rc}, checks: {len(smoke.get('checks', {}))} over the "
+              f"ranks, failed {failed}; {record['smoke_s']:.1f} s since it "
+              f"started", flush=True)
+        if rc != 0 or not smoke.get("ok"):
+            raise AssertionError(f"reshard smoke: rc {rc}, failed {failed}"
+                                 f"\n{text[-4000:]}")
+        print(f"  set-up (s, slowest rank): {smoke['setup_s']}", flush=True)
+        print(f"  donor leg: {smoke['donor_bytes_read']} B read off the "
+              f"sealed manifest in {smoke['donor_shards_fetched']} partial "
+              f"reads; every leg torch.equal (the live shrink and the donor "
+              f"leg to the restart baseline, the grow to the original dp4 "
+              f"state)", flush=True)
+        for name, parts in smoke["legs_s"].items():
+            print(f"  leg {name} (s, survivors): {parts}", flush=True)
+        print(f"  next loss after the live shrink "
+              f"{smoke['loss_live_next']!r}, after the restart "
+              f"{smoke['loss_restart_next']!r}: bitwise equal; final step "
+              f"loss {smoke['final_loss']!r}", flush=True)
+        print(f"  live_reshard_s {smoke['live_reshard_s']:.3f} (dp4 -> dp2, "
+              f"every replica surviving), restart (a fresh dp2 trainer and "
+              f"load_state from storage) {smoke['restart_s']:.3f} s: speedup "
+              f"{smoke['reshard_speedup_vs_restart']:.2f}x; the ledger's "
+              f"live_reshard {smoke['ledger_live_reshard_s']:.3f} s, "
+              f"rendezvous_restart 0; {record['card']}", flush=True)
+        launches = {name: sum((r or {}).get(name, 0)
+                              for r in smoke["launches"])
+                    for name in RESHARD_KERNELS}
+        print(f"  launches over every rank of the run: {launches}",
+              flush=True)
+        missing = [name for name, n in launches.items() if n <= 0]
+        if missing:
+            raise AssertionError(f"[reshard] never launched {missing}")
+
+        # (b) each kernel of the path against its plain version at the
+        # phase's shapes: the flash kernels at B=1 S=TRAIN_S, the int8
+        # ring kernels at the largest and smallest bucket of each degree
+        gen = torch.Generator(device="cuda").manual_seed(21)
+        record["flash_errors"] = check_kernels(fa, gen, 1, TRAIN_S, 16, 16,
+                                               128, True)
+        ring_errors: dict = {}
+        block = 256
+        shapes = sorted({(int(world), -(-w // block), block)
+                         for world, widths in smoke["bucket_widths"].items()
+                         for w in (max(widths), min(widths))})
+        check_ring_kernels(rrs, shapes, ring_errors)
+        record["ring_errors"] = {k: ring_errors[k]
+                                 for k in ("q8_encode", "q8_accum")}
+
+        # (c) the recovery smoke: the survivors serve the built kernels
+        recovery = recovery_smoke.run_smoke("cuda")
+        print(f"  recovery smoke: ok {recovery['ok']}, "
+              f"{recovery['checks']}; the survivors served "
+              f"{recovery['cache_entries']}, mttr_s "
+              f"{recovery['recovery_mttr_s']}", flush=True)
+        if not recovery["ok"]:
+            raise AssertionError(f"recovery smoke: {recovery}")
+        record["recovery_cache_entries"] = recovery["cache_entries"]
+
+        # (d) the side runs: the drill's live_reshard at each seed, the
+        # reshard drill, the dist-commit smoke on the card
+        print("  side runs (they ran beside [mesh], [launcher], [gpt], [vit] "
+              "and [pp]):", flush=True)
+        record["side"] = reshard_side_results(side)
+    finally:
+        for proc, out, _ in [smoke_run, *side.values()]:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+        shutil.rmtree(workdir, ignore_errors=True)
+        reap_adopted()
+    record.update(smoke={k: smoke[k] for k in (
+        "donor_bytes_read", "donor_shards_fetched", "live_reshard_s",
+        "restart_s", "reshard_speedup_vs_restart", "ledger_live_reshard_s",
+        "legs_s", "setup_s", "loss_live_next", "final_loss", "wall_s")},
+        launches=launches, seconds=time.perf_counter() - phase_t0)
+    print(f"  [reshard] took {record['seconds']:.1f} s", flush=True)
+    return record
 
 
 def check_ring_kernels(rrs, shapes, errors):
@@ -4707,8 +4997,31 @@ def recovery_timeline(lines, crash_ts: float) -> str:
     return "; ".join(f"{name} +{s:.2f} s" for name, s in marks)
 
 
+def launcher_reference(layers: int):
+    """The uninterrupted run the [launcher] drill's steps are held to at
+    ``layers`` (the script's cut depth): [training]'s recipe, LAUNCHER_STEPS
+    steps; returns (per-step flash launches, the state's bytes, the plain
+    record)."""
+    import torch
+
+    from dlrover_tpu_torch.trainer.flash_checkpoint.bench import state_nbytes
+
+    _, trainer, state, batch, per_step, _ = train_subject(layers)
+    losses = []
+    for _ in range(LAUNCHER_STEPS):
+        state, metrics = trainer.train_step(state, batch)
+        losses.append(metrics["loss"].item())
+    state_bytes = state_nbytes(state)
+    del trainer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  the uninterrupted run at {layers} layers: losses {losses}",
+          flush=True)
+    return per_step, state_bytes, {"loss": losses}
+
+
 def launcher_phase(per_step: dict, state_bytes: int, plain: dict,
-                   beside=None):
+                   beside=None, layers: int = 0):
     """[launcher]: the recovery drill through the port's launcher at
     llama2_1b, run in a thread while this one runs ``beside()`` (a later
     phase whose memory fits beside the worker's, so that the script keeps
@@ -4716,7 +5029,7 @@ def launcher_phase(per_step: dict, state_bytes: int, plain: dict,
     is held bitwise to ``plain``'s, [training]'s uninterrupted run.
     Returns the drill's flash launches over both workers' steps and
     recovery_s (named for the load it was taken under), and what
-    ``beside`` returned."""
+    ``beside`` returned.  ``layers`` cuts the worker's depth (0: 22)."""
     import ast
     import tempfile
 
@@ -4730,11 +5043,11 @@ def launcher_phase(per_step: dict, state_bytes: int, plain: dict,
     t0 = time.perf_counter()
     try:
         with ThreadPoolExecutor(1) as pool:
+            extra_env = {"DLROVER_TPU_MASTER_SERVICE_TYPE": "http"}
             drill = pool.submit(
                 bench.recovery_drill, timeout=900.0, platform="",
-                preset="llama2_1b",
-                extra_env={"DLROVER_TPU_MASTER_SERVICE_TYPE": "http"},
-                log_path=log_path)
+                preset=f"llama2_1b:{layers}" if layers else "llama2_1b",
+                extra_env=extra_env, log_path=log_path)
             try:
                 beside_result = beside() if beside else None
             finally:
@@ -4963,16 +5276,28 @@ def run_phases() -> list:
     # single-device phases left in this process's caching allocator
     gc.collect()
     torch.cuda.empty_cache()
+    import tempfile
+
+    reshard_dir = tempfile.mkdtemp(prefix="dlrover_tpu_torch_reshard_")
     print(f"[mesh] (this process holds "
           f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB)", flush=True)
     mesh_launches, legs = mesh_phase(plain)
+    # the side runs go beside the phases below: the drill's live_reshard
+    # beside the [mesh] legs and the [launcher] drill, the rest beside
+    # [gpt], [vit] and [pp]
+    reshard_side = reshard_side_runs(
+        reshard_dir, [f"live_reshard seed {s}" for s in RESHARD_SEEDS])
+    print(f"[reshard] side runs started: {sorted(reshard_side)} (beside the "
+          "[mesh] legs and [launcher]; [reshard] collects them)", flush=True)
     # the launcher's worker takes ~35 GB of the card, the legs' ranks ~16
     # at once (a world-1 worker's ~35 beside it would leave too little):
     # its drill runs beside the legs
-    print("[launcher] (its drill runs beside the [mesh] legs)", flush=True)
+    print(f"[launcher] (its drill runs beside the [mesh] legs, at "
+          f"{LAUNCHER_LAYERS} layers)", flush=True)
     t0 = time.perf_counter()
-    launcher, ckpt_launches = launcher_phase(per_step, state_bytes, plain,
-                                             beside=legs)
+    launcher, ckpt_launches = launcher_phase(
+        *launcher_reference(LAUNCHER_LAYERS), beside=legs,
+        layers=LAUNCHER_LAYERS)
     print(json.dumps({"launcher": launcher}), flush=True)
     print(f"  [launcher] and the [mesh] legs took "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -4985,6 +5310,11 @@ def run_phases() -> list:
     cp_launches = ep_cp_phase()
     print(f"  [ep] and [cp] took {time.perf_counter() - t0:.1f} s",
           flush=True)
+    side = reshard_side_runs(reshard_dir, ["reshard drill",
+                                           "dist-commit smoke"])
+    reshard_side.update(side)
+    print(f"[reshard] side runs started: {sorted(side)} (beside [gpt], [vit] "
+          "and [pp]; [reshard] collects them)", flush=True)
     for name, phase in (("gpt", gpt_phase), ("vit", vit_phase)):
         print(f"[{name}]", flush=True)
         t0 = time.perf_counter()
@@ -5020,6 +5350,10 @@ def run_phases() -> list:
     torch.cuda.empty_cache()
     print("[peer window across processes]", flush=True)
     peer_window_leg()
+    reshard_start(reshard_dir)
+    reshard_smoke_run = reshard_smoke_start(reshard_dir)
+    print("[reshard] the smoke started (its ranks run beside the [dp leg]'s;"
+          " [reshard] collects it)", flush=True)
     print(f"[dp leg: {DP_WORLD} ranks on one card] (this process holds "
           f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB)", flush=True)
     t0 = time.perf_counter()
@@ -5028,6 +5362,13 @@ def run_phases() -> list:
     print(f"[replica: {REPLICA_WORLD} ranks on one card, in the spawn of the "
           "dp leg's load_state]", flush=True)
     replica_launches = check_replica(resumed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("[reshard]", flush=True)
+    reshard_record = reshard_phase(fa, reshard_smoke_run, reshard_side,
+                                   reshard_dir)
+    reshard_launches = reshard_record["launches"]
+    print(json.dumps({"reshard": reshard_record}), flush=True)
 
     block = 256
     largest, smallest = max(widths), min(widths)
@@ -5054,6 +5395,7 @@ def run_phases() -> list:
              launches_data=data_record["launches"][name],
              launches_replica=replica_launches[name],
              launches_cp=cp_launches[name],
+             launches_reshard=reshard_launches[name],
              off_diagonal=off_diagonal[name],
              sass=sass[SASS_KERNEL[name]], **timings[name])
         for name in REPLACES
@@ -5063,6 +5405,7 @@ def run_phases() -> list:
              launches_comm_probe=probe_launches[name],
              launches_load_state=resume_launches[name],
              launches_replica=replica_launches[name],
+             launches_reshard=reshard_launches.get(name, 0),
              max_abs_err=ring_errors[name], atol=0.0,
              **ring_timings[name])
         for name in RING_REPLACES

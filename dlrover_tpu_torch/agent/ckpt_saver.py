@@ -17,11 +17,11 @@ distributed persist instead (``distributed.DistributedPersister``, one per
 written out of shm, the phase-1 report fires only after the
 torn-generation re-check, and the step counts as persisted only once the
 coordinator sealed it — no done files, no rename.  Its coordinator is
-process 0's over the world's store; a saver with no world (an agent
-process) refuses a ``dist`` event of several processes with
-``NotImplementedError``: the saver does not yet find the master's commit
-RPC by itself (``distributed.MasterCommitClient`` is injected through
-``distributed.set_commit_client``; ROADMAP queue 1 item 11).
+the one ``distributed.get_commit_client`` finds: the master's, over its
+commit RPC, in an agent process (which always has a master) and in any
+process with a master configured; else process 0's over the world's
+store.  A ``dist`` event of several processes with neither raises
+``NotImplementedError``.
 
 Save-on-failure: when the agent detects worker death it calls
 ``save_shm_on_failure`` which persists any shm snapshot newer than the

@@ -16,11 +16,12 @@ crashed worker: the engine of a worker launched by this agent finds the
 saver's queue and takes the agent side.
 
 What differs from the copy: the worker's ``PYTHONPATH`` root is this
-package's; the peer serve endpoint exports no compile cache (the port
-compiles no step, ROADMAP item 7, the rest); and a ``brain_scale_plan`` with ``live_reshard``
-or a ``brain_demote`` logs a warning and the loop goes on (the port has
-neither the live reshard, ROADMAP item 6c, nor the hierarchy demotion,
-item 6d).
+package's; the peer serve endpoint exports the kernel build directory as
+the compile cache (the reference exports its XLA cache); and a
+``brain_demote`` logs a warning and the loop goes on (the port has no
+hierarchy demotion yet, ROADMAP item 6d).  A ``brain_scale_plan`` with
+``live_reshard`` stages the target axes through
+``parallel/reshard.stage_reshard_request``, as the reference's does.
 """
 
 import os
@@ -371,8 +372,11 @@ class ElasticAgent:
 
     def _start_peer_serve(self) -> None:
         """Peer-restore serve endpoint: every agent exports its host's
-        shm snapshot so a replacement host can pull the lost shards
-        peer-to-peer instead of from storage.  Off unless
+        shm snapshot + compile cache (the kernel build directory,
+        ``bootstrap.compile_cache_info``; none when
+        ``DLROVER_TPU_COMPILE_CACHE`` is ``off``) so a replacement host
+        can pull the lost shards and the built kernels peer-to-peer
+        instead of from storage and nvcc.  Off unless
         ``DLROVER_TPU_PEER_RESTORE`` is set."""
         if not envs.get_bool("DLROVER_TPU_PEER_RESTORE"):
             return
@@ -382,11 +386,16 @@ class ElasticAgent:
                 register_context,
             )
 
+            from dlrover_tpu_torch.trainer import bootstrap
+
+            info = bootstrap.compile_cache_info()
+            cache_dir = info["dir"] if info.get("enabled") else ""
             self._peer_serve = PeerServeEndpoint(
-                self._client.node_id).start()
+                self._client.node_id, cache_dir=cache_dir,
+            ).start()
             register_context(
                 client=self._client, serve=self._peer_serve,
-                process_id=self._client.node_id,
+                cache_dir=cache_dir, process_id=self._client.node_id,
             )
         except Exception as e:  # noqa: BLE001 - the fast path is an
             # optimization; the storage restore still works without it
@@ -779,18 +788,26 @@ class ElasticAgent:
         acks.clear()
 
     def _handle_live_reshard(self, action: dict, extra: dict) -> None:
-        """A live ``brain_scale_plan`` delivery.  The reference stages the
-        target mesh axes on the training process for an in-place
-        reshard; the port has no live reshard yet (ROADMAP item 6c), so
-        it logs a warning, as the reference does when staging fails."""
-        axes = extra.get("mesh_axes") or {
-            "dp": int(extra.get("target_nodes", 0))
-        }
-        logger.warning(
-            "live scale plan handling failed: no live reshard to stage "
-            "%s on (ROADMAP item 6c); reason %r", axes,
-            action.get("reason", ""),
-        )
+        """A live ``brain_scale_plan`` delivery: stage the target mesh
+        axes on the training process (in-process target, or the
+        staged-file handshake the trainer polls on its digest
+        cadence) for an in-place reshard instead of a restart."""
+        try:
+            from dlrover_tpu_torch.parallel import reshard
+
+            axes = extra.get("mesh_axes") or {
+                "dp": int(extra.get("target_nodes", 0))
+            }
+            outcome = reshard.stage_reshard_request(
+                axes, reason=action.get("reason", "")
+            )
+            logger.info(
+                "live brain scale plan -> %s: %s",
+                axes, outcome or "no trainer to reshard",
+            )
+        except Exception as e:  # noqa: BLE001 - a broken reshard path
+            # must not take the agent loop down
+            logger.warning("live scale plan handling failed: %s", e)
 
     def _handle_brain_demote(self, action: dict) -> None:
         """A ``brain_demote`` delivery.  The reference hands it to the

@@ -8,8 +8,8 @@ means a scenario can also be armed on a real job through
 ``DLROVER_TPU_CHAOS_SPEC`` (the plans serialize to JSON).
 
 Scenario catalog (copy of ``dlrover_tpu/chaos/scenarios.py``; the
-port's drill runs the first nine but ``live_reshard``, the rest wait for
-the modules they drive, see ``diagnosis/chaos_drill.py``):
+port's drill runs every scenario but ``fabric_reroute``, which waits for
+the modules it drives, see ``diagnosis/chaos_drill.py``):
 
 =====================  =====================================================
 ``master_restart``     master process dies mid-save; agents ride the retry

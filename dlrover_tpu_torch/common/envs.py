@@ -8,7 +8,8 @@ recorder, the goodput ledger and the memory, comm and compile scopes,
 the job runtime: the launcher, the local master, its admission
 control, the agent's transport and its retry budget, fault injection
 and the incident engine, the master's time-series store, the sentinels,
-the persistent compile cache, the sharding client and datascope): the
+the persistent compile cache, the sharding client and datascope, the
+live reshard): the
 same names,
 defaults and parsing, and the reference's per-call ``default=``
 override for the sites whose default is computed.  A knob is added with
@@ -167,6 +168,12 @@ DEFAULTS = {
     "DLROVER_TPU_MEM_SCOPE": True,
     "DLROVER_TPU_MEM_CPU_LIMIT_B": 0.0,
     "DLROVER_TPU_MEM_FIT_MARGIN": 0.08,
+    # -- live reshard (parallel/reshard.py) --
+    # refuse a plan the memory scope's measured fit report says does not
+    # fit; the sealed distributed-checkpoint dir that donates the shards
+    # no survivor holds ('' = survivors only)
+    "DLROVER_TPU_RESHARD_FIT_GATE": True,
+    "DLROVER_TPU_RESHARD_DONOR_DIR": "",
     # compile scope: the switch, events kept, the dispatch-stall bound
     # (0 = no stall detection)
     "DLROVER_TPU_JITSCOPE": True,

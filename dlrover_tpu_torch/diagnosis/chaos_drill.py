@@ -1,8 +1,10 @@
 """End-to-end recovery drill: elastic training under scripted chaos.
 
 Copy of ``dlrover_tpu/diagnosis/chaos_drill.py``'s harness and of the
-thirteen scenarios that run on modules the port has: ``master_restart``,
+fourteen scenarios that run on modules the port has: ``master_restart``,
 ``torn_shm``, ``storage_stall``, ``storage_crc``, ``node_flap``,
+``live_reshard`` (the job's 4 rank processes shrink dp4 -> dp2 in place,
+against a restart path of new rank processes restoring from storage),
 ``kv_timeout``, ``heartbeat_loss``, ``torn_commit``, the four that
 drive the master's time-series store and the sentinels: ``slow_link``,
 ``hbm_leak``, ``cache_cold`` and ``peer_restore``, and ``data_starved``,
@@ -33,9 +35,9 @@ and values, on an explicit ``device``: the card by default (raises
 without one), ``"cpu"`` when asked for.  ``cache_cold`` and
 ``peer_restore`` build a kernel source (:data:`DRILL_KERNEL`) into
 directories of their own, so they need nvcc (on the card's machine; a
-test gives ``_build`` a stand-in compiler).  The other two scenarios
-wait for the modules they drive and raise ``NotImplementedError`` naming
-their ROADMAP item (:data:`WAITING`).
+test gives ``_build`` a stand-in compiler).  The last scenario,
+``fabric_reroute``, waits for the modules it drives and raises
+``NotImplementedError`` naming its ROADMAP item (:data:`WAITING`).
 
 Run standalone::
 
@@ -47,6 +49,7 @@ scenario passed (``CHAOS_DRILL_SEED`` picks the seed).
 
 import contextlib
 import json
+import math
 import os
 import shutil
 import sys
@@ -92,10 +95,8 @@ INCIDENT_EXPECTATIONS: Dict[str, tuple] = {
 }
 
 #: the reference's scenarios whose bodies wait, with the ROADMAP item
-#: that brings what they drive: the live reshard and the hierarchical
-#: fabric tuner
+#: that brings what they drive: the hierarchical fabric tuner
 WAITING: Dict[str, str] = {
-    "live_reshard": "ROADMAP queue 1 item 6c",
     "fabric_reroute": "ROADMAP queue 1 item 6d",
 }
 
@@ -643,6 +644,212 @@ def _scenario_node_flap(ctx: Dict) -> Dict:
         f"ledger {ledger}",
     )
     return {"joins": joins, "ledger_phases": ledger["phases"]}
+
+
+#: the live_reshard scenario's job: the reference's tiny Llama (4 kv
+#: heads), a global batch of 8 rows of 32 tokens, AdamW at lr 1e-2, the
+#: int8_sharded sync over dp4
+_RESHARD_WORLD, _RESHARD_SHRUNK = 4, 2
+
+
+def _reshard_job(root: str) -> Dict[str, Any]:
+    import numpy as np
+
+    ids = np.random.default_rng(11).integers(0, 256, size=(8, 33))
+    return dict(
+        preset="tiny", model=dict(num_kv_heads=4), state_dict=None, seed=0,
+        batch={"input_ids": ids[:, :-1].astype(np.int32),
+               "labels": ids[:, 1:].astype(np.int32)},
+        root=root, scope=_scope())
+
+
+def _reshard_trainer(job: Dict[str, Any], device, mesh):
+    from dlrover_tpu_torch.parallel import dp_workers
+    from dlrover_tpu_torch.trainer import optim
+    from dlrover_tpu_torch.trainer.train import Trainer
+
+    model = dp_workers.make_model(job, device)
+    return Trainer(model, optim.adamw(lambda count: 1e-2), device=device,
+                   grad_sync="int8_sharded", mesh=mesh)
+
+
+def _host_leaves(state) -> Dict[str, Any]:
+    from dlrover_tpu_torch.common.pytree import flatten_with_path
+
+    return {p: (v.detach().cpu().numpy().copy() if torch.is_tensor(v)
+                else v) for p, v in flatten_with_path(state)}
+
+
+def _leaves_equal(a: Dict[str, Any], b: Dict[str, Any]) -> bool:
+    import numpy as np
+
+    return a.keys() == b.keys() and all(
+        np.array_equal(a[k], b[k]) if hasattr(a[k], "shape")
+        else a[k] == b[k] for k in a)
+
+
+def live_reshard_rank(group, job: Dict[str, Any]) -> Dict[str, Any]:
+    """A rank of the running job: one quantized step at dp4 and a flash
+    checkpoint on disk (what the restart path reloads), then the live
+    shrink to dp2 in place, priced by this rank's own ledger, and one
+    step on the new mesh."""
+    from dlrover_tpu_torch.observability import goodput
+    from dlrover_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from dlrover_tpu_torch.trainer.flash_checkpoint import (
+        Checkpointer,
+        StorageType,
+    )
+
+    device = group.device
+    trainer = _reshard_trainer(
+        job, device, build_mesh(MeshConfig(dp=_RESHARD_WORLD), device=device))
+    rows = trainer.rows_of_global_batch(job["batch"])
+    state = trainer.create_state()
+    state, _ = trainer.train_step(state, trainer.shard_batch(rows))
+    ckpt = Checkpointer(job["root"], scope=job["scope"], device=device)
+    ckpt.save_checkpoint(1, state, StorageType.DISK, trainer=trainer)
+    saved = ckpt.wait_latest_checkpoint(timeout=120)
+    # process 0 commits the step once every process persisted its part
+    group.all_reduce(torch.zeros(1, device=device))
+    ckpt.engine.unlink_memory()
+    ckpt.close()
+    with _env(DLROVER_TPU_GOODPUT_RES_S="0.005"):
+        goodput.reset_ledger()
+        state_live, report = trainer.live_reshard(
+            state, {"dp": _RESHARD_SHRUNK}, reason="chaos drill scale plan")
+        phases = goodput.ledger().summary()["phases"]
+    out = {"saved": saved, "phases": phases, "report": report}
+    if state_live is not None:
+        out["state"] = _host_leaves(state_live)
+        rows = trainer.rows_of_global_batch(job["batch"])
+        _, metrics = trainer.train_step(state_live, trainer.shard_batch(rows))
+        out["loss"] = metrics["loss"].item()
+    trainer.close()
+    return out
+
+
+def restart_rank(group, job: Dict[str, Any]) -> Dict[str, Any]:
+    """A respawned worker of the restart path: a cold process rebuilds the
+    trainer at the shrunken mesh and restores the checkpoint from storage
+    (``Trainer.load_state``, a scope of its own: no shm)."""
+    from dlrover_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from dlrover_tpu_torch.trainer.flash_checkpoint import Checkpointer
+
+    device = group.device
+    trainer = _reshard_trainer(
+        job, device,
+        build_mesh(MeshConfig(dp=_RESHARD_SHRUNK), device=device))
+    ckpt = Checkpointer(job["root"], scope=_scope(), device=device)
+    try:
+        state, step = trainer.load_state(ckpt)
+    finally:
+        ckpt.engine.unlink_memory()
+        ckpt.close()
+    trainer.close()
+    return {"step": step,
+            "state": _host_leaves(state) if state is not None else None}
+
+
+def _scenario_live_reshard(ctx: Dict) -> Dict:
+    """The SAME dp4 -> dp2 shrink measured both ways.
+
+    The BASELINE leg is the restart path as it runs when a scale plan
+    sheds nodes: the flapping rendezvous window the world re-forms
+    through, then a cold worker respawn (new rank processes: interpreter
+    boot, torch and model import, trainer rebuild, full checkpoint
+    restore from storage), the whole window priced into the ledger as
+    ``rendezvous_restart`` seconds.  The LIVE leg is the identical
+    transition done in place by the running job's 4 rank processes
+    (``Trainer.live_reshard``): bit-exact against the restart restore,
+    ZERO rendezvous seconds in its ranks' ledgers, and at least an order
+    of magnitude cheaper.  The job runs first, so its checkpoint is what
+    the restart path reloads; each leg is priced by its own ledger."""
+    from dlrover_tpu_torch.master.rdzv_manager import (
+        ElasticTrainingRendezvousManager,
+    )
+    from dlrover_tpu_torch.observability import goodput, trace
+    from dlrover_tpu_torch.parallel import process_group
+
+    checks = ctx["checks"]
+    device = ctx["device"]
+    job = _reshard_job(os.path.join(ctx["workdir"], "ckpt"))
+    ranks = process_group.spawn(live_reshard_rank, _RESHARD_WORLD, (job,),
+                                device=device.type, timeout_s=300)
+    _check(checks, "baseline_saved", all(r["saved"] for r in ranks))
+
+    # -- BASELINE: the restart path, measured ---------------------------
+    with _env(DLROVER_TPU_GOODPUT_RES_S="0.005"):
+        goodput.reset_ledger()
+        rdzv = ElasticTrainingRendezvousManager()
+        # the re-formed world after shedding 2 of 4 nodes: max_nodes is
+        # still the old world, so the round never seals at max; the
+        # survivors pay the elasticity window (2 s here, 30 s by default)
+        rdzv.update_rdzv_params(
+            min_nodes=2, max_nodes=4, waiting_timeout=2.0, node_unit=1
+        )
+        with trace.span("rdzv.join"):
+            rdzv.join_rendezvous(node_id=0, node_rank=0)
+            deadline = time.time() + 20
+            while (time.time() < deadline
+                   and rdzv.num_nodes_waiting() < 2):
+                rdzv.join_rendezvous(node_id=1, node_rank=1)
+                time.sleep(0.05)
+            _, _, world = rdzv.wait_comm_world(node_id=1, timeout=15)
+        _check(checks, "restart_world_sealed", bool(world), str(world))
+        restored: List[Dict] = []
+        with trace.span("rdzv.respawn_restore"):
+            try:
+                restored = process_group.spawn(
+                    restart_rank, _RESHARD_SHRUNK, (job,),
+                    device=device.type, timeout_s=300)
+            except (RuntimeError, TimeoutError) as e:
+                logger.error("respawned restore failed: %s", e)
+        restart_phases = goodput.ledger().summary()["phases"]
+        restart_s = restart_phases.get("rendezvous_restart", 0.0)
+    _check(checks, "respawn_restored",
+           len(restored) == _RESHARD_SHRUNK
+           and all(r["step"] == 1 for r in restored),
+           str([r.get("step") for r in restored]))
+    _check(checks, "restart_path_priced", restart_s > 0.0,
+           str(restart_phases))
+    # the correctness reference: the respawned ranks' restored states
+    _check(checks, "restart_baseline_step",
+           bool(restored) and all(r["state"] is not None
+                                  and r["state"]["step"] == 1
+                                  for r in restored),
+           str([r.get("step") for r in restored]))
+
+    # -- LIVE: the same transition, in place, by the job's ranks --------
+    live_phases = {
+        phase: max(r["phases"].get(phase, 0.0) for r in ranks)
+        for phase in ranks[0]["phases"]}
+    live_s = live_phases.get("live_reshard", 0.0)
+    _check(checks, "live_path_priced", live_s > 0.0, str(live_phases))
+    _check(checks, "live_zero_rendezvous",
+           live_phases.get("rendezvous_restart", 0.0) == 0.0,
+           str(live_phases))
+    _check(checks, "live_zero_donor_bytes",
+           all(r["report"].get("donor_bytes_read", 0) == 0
+               for r in ranks), str([r["report"] for r in ranks]))
+    stayers = [r for r in ranks if "state" in r]
+    _check(checks, "live_bit_exact_vs_restart",
+           len(stayers) == len(restored) == _RESHARD_SHRUNK and all(
+               _leaves_equal(live["state"], rest["state"])
+               for live, rest in zip(stayers, restored)))
+    _check(checks, "live_10x_cheaper_than_restart",
+           live_s > 0 and restart_s >= 10.0 * live_s,
+           f"restart={restart_s:.3f}s live={live_s:.3f}s")
+    # continuation: training resumes on the resharded mesh
+    _check(checks, "post_reshard_step_finite",
+           bool(stayers) and all(math.isfinite(r["loss"]) for r in stayers))
+    return {
+        "restart_s": round(restart_s, 3),
+        "live_reshard_s": round(live_s, 3),
+        "reshard_speedup_vs_restart": round(restart_s / live_s, 1)
+        if live_s else None,
+        "restart_phases": restart_phases,
+        "live_phases": live_phases,
+    }
 
 
 def _scenario_kv_timeout(ctx: Dict) -> Dict:
@@ -1750,6 +1957,7 @@ _SCENARIO_BODIES: Dict[str, Callable[[Dict], Dict]] = {
     "storage_stall": _scenario_storage_stall,
     "storage_crc": _scenario_storage_crc,
     "node_flap": _scenario_node_flap,
+    "live_reshard": _scenario_live_reshard,
     "kv_timeout": _scenario_kv_timeout,
     "heartbeat_loss": _scenario_heartbeat_loss,
     "torn_commit": _scenario_torn_commit,
@@ -1844,6 +2052,10 @@ def run_drill(
     return out
 
 
+#: a scenario's measured numbers that the CLI's line carries
+_MEASURED = ("restart_s", "live_reshard_s", "reshard_speedup_vs_restart")
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     device: Optional[str] = None
@@ -1870,6 +2082,12 @@ def main(argv: Optional[List[str]] = None) -> int:
             "checks": r["checks"],
             "faults_fired": r["faults_fired"],
             "wall_s": r["wall_s"],
+            # the incident's (phase, chaos point), and what a scenario
+            # measured (live_reshard: both paths' seconds)
+            "incident": [(r.get("incident") or {}).get("phase"),
+                         ((r.get("incident") or {}).get("chaos") or {}).get(
+                             "point")],
+            **{k: r[k] for k in _MEASURED if k in r},
             **({"error": r["error"]} if "error" in r else {}),
         }
         for name, r in result["scenarios"].items()

@@ -20,7 +20,8 @@ The optional second argument picks the preset:
   of every worker process (``dp``);
 - ``llama2_1b``: the main path's model and recipe (``chip_smoke.py``'s
   ``[training]``): flash attention, remat, B=4, S=2048, bf16 gradients on
-  fp32 masters, AdamW with bf16 moments.  Its snapshot is ~10 GB, and its
+  fp32 masters, AdamW with bf16 moments; ``llama2_1b:N`` cuts its depth
+  to N of its 22 layers.  Its snapshot is ~10 GB (at 22), and its
   memory saves are synchronous: an asynchronous one would still be
   staging when the crash one step later tears it.  Each step line also
   carries the step's flash kernel launches.
@@ -39,8 +40,9 @@ import time
 PRESETS = ("tiny", "llama2_1b")
 
 
-def _subject(preset: str, device):
-    """(model, optimizer, trainer kwargs, global batch) of a preset."""
+def _subject(preset: str, device, layers: int = 0):
+    """(model, optimizer, trainer kwargs, global batch) of a preset, at
+    ``layers`` layers when not 0."""
     import numpy as np
     import torch
 
@@ -53,7 +55,9 @@ def _subject(preset: str, device):
         optimizer, kwargs = optim.adamw(lambda count: 1e-2), {}
     else:
         rows, seq = 4, 2048
-        cfg = LlamaConfig.llama2_1b(max_seq_len=seq, attention_impl="flash")
+        cfg = LlamaConfig.llama2_1b(max_seq_len=seq, attention_impl="flash",
+                                    **({"num_layers": layers} if layers
+                                       else {}))
         optimizer = optim.create_optimizer(
             peak_lr=3e-4, warmup_steps=10, total_steps=10_000,
             moment_dtype=torch.bfloat16)
@@ -75,6 +79,7 @@ def main() -> int:
     ctx = bootstrap.init()
     ckpt_dir = sys.argv[1] if len(sys.argv) > 1 else "/tmp/dlrover_tpu_ckpt"
     preset = sys.argv[2] if len(sys.argv) > 2 else "tiny"
+    preset, _, layers = preset.partition(":")
     if preset not in PRESETS:
         raise ValueError(f"preset {preset!r} not in {PRESETS}")
 
@@ -93,7 +98,8 @@ def main() -> int:
 
     device = ("cpu" if envs.get_str("DLROVER_TPU_PLATFORM") == "cpu"
               else torch.device("cuda", torch.cuda.current_device()))
-    model, optimizer, kwargs, global_batch = _subject(preset, device)
+    model, optimizer, kwargs, global_batch = _subject(preset, device,
+                                                       int(layers or 0))
     mesh = build_mesh(MeshConfig(dp=-1), device=device)
     trainer = Trainer(model, optimizer, mesh=mesh, device=device, **kwargs)
     # every process feeds its rows of the global batch

@@ -205,7 +205,9 @@ def _rank_main(fn, rank: int, world: int, backend: str, device: str,
         try:
             value = fn(DpGroup(dev), *args)
         finally:
-            dist.destroy_process_group()
+            # a rank a live reshard left out has no group any more
+            if dist.is_initialized():
+                dist.destroy_process_group()
         results.put((rank, True, value))
     except BaseException:  # reported to the parent, then re-raised
         results.put((rank, False, traceback.format_exc()))

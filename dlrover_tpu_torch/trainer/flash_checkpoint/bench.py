@@ -8,15 +8,17 @@ persisted, and the restores from shm and from storage.  ``chip_smoke.py``
 calls ``run`` on its ``llama2_1b`` trainer.  ``peer_recovery_bench`` is the
 reference's measurement of the peer restore (four local hosts, one dead).
 ``recovery_drill`` is the reference's worker-kill drill through the port's
-launcher (``trainer/elastic_run.py``).  The reference's reshard and staging
-drills belong to ROADMAP queue 1 items 6c and 11 (the rest); they are not
-ported here.
+launcher (``trainer/elastic_run.py``).  ``reshard_drill_subprocess`` runs
+the reshard drill (``reshard_drill.py``: the storage restore across meshes
+and the live reshard against the restart path).  The reference's staging
+drill belongs to ROADMAP queue 1 item 11d; it is not ported here.
 
 Every time is a host clock around work that ends in a device synchronize
 (``utils/timing.hard_block``), so it includes the card's queued work.
 """
 
 import contextlib
+import json
 import os
 import shutil
 import signal
@@ -282,6 +284,44 @@ def peer_recovery_bench(size_mb: float = 8.0) -> dict:
             with contextlib.suppress(Exception):
                 shm.unlink()
         shutil.rmtree(workdir, ignore_errors=True)
+
+
+def reshard_drill_subprocess(timeout: float = 600.0,
+                             device: str = "cuda") -> dict:
+    """Save on one mesh, restore onto another over 8 rank processes, and
+    carry the int8_sharded state across dp4 -> dp2 by restart and live
+    (``reshard_drill``): the storage restore's seconds
+    (``restore_reshard_s``), the live transition's ledger price
+    (``live_reshard_s``) and its edge over the restart path
+    (``reshard_speedup_vs_restart``, from the same ledger account)."""
+    env = _subprocess_env()
+    try:
+        result = subprocess.run(
+            [sys.executable, "-m",
+             "dlrover_tpu_torch.trainer.flash_checkpoint.reshard_drill",
+             "--device", device],
+            capture_output=True, text=True, timeout=timeout, env=env,
+            cwd=REPO,
+        )
+        for line in (result.stdout + result.stderr).splitlines():
+            if line.startswith("RESHARD_DRILL "):
+                data = json.loads(line[len("RESHARD_DRILL "):])
+                out = {
+                    "restore_reshard_s": data["restore_reshard_s"],
+                    "reshard_meshes": f"{data['mesh_a']} -> {data['mesh_b']}",
+                }
+                for key in ("live_reshard_s", "reshard_speedup_vs_restart"):
+                    if data.get(key) is not None:
+                        out[key] = data[key]
+                return out
+        return {
+            "reshard_error": (
+                f"rc={result.returncode}: "
+                + (result.stdout + result.stderr)[-300:]
+            )
+        }
+    except (subprocess.TimeoutExpired, OSError) as e:
+        return {"reshard_error": str(e)[:300]}
 
 
 def _subprocess_env() -> Dict[str, str]:

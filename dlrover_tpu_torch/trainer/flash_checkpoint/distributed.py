@@ -49,12 +49,15 @@ sealed commits wherever their leaf paths agree::
 The chaos point ``ckpt.phase1_report`` (a DROP is a host dying after its
 shard bytes landed and before its report), the trace spans
 ``ckpt.phase1_report``, ``ckpt.dist_save`` and ``ckpt.dist_restore`` and
-the ``ckpt_phase_seconds`` phases are the reference's.  A commit over the
-master's RPC takes ``MasterCommitClient`` injected explicitly.  Not
-ported: the discovery of the master client (``ROADMAP_MASTER_RPC``: a
-commit of several processes with no world and no injected client, as a
-saver in an agent process would make, raises ``NotImplementedError``)
-and the object-store ranged reads (item 7).  Leaves read back as torch tensors of the stored dtype (bf16
+the ``ckpt_phase_seconds`` phases are the reference's.  ``get_commit_client``
+finds the commit path as the reference's does: the master's RPC
+(``MasterCommitClient`` over ``MasterClient.singleton_instance()``) when a
+master is configured, as it is in every process the agent starts and in
+the agent itself; else the world's store; else one process's own
+coordinator.  A commit of several processes with no master and no world
+has no coordinator that could seal it and raises
+``NotImplementedError``.  Not ported: the object-store ranged reads
+(item 7).  Leaves read back as torch tensors of the stored dtype (bf16
 included), where the reference returns numpy arrays.
 """
 
@@ -548,8 +551,9 @@ class LocalCommitClient:
 class MasterCommitClient:
     """Commit path over the master RPC client (the production shape:
     phase-1 manifests and seal polls ride the existing report/get
-    demux to the master's coordinator).  Injected explicitly
-    (``client=`` or ``set_commit_client``)."""
+    demux to the master's coordinator).  ``get_commit_client`` picks it
+    when a master is configured; ``client=`` or ``set_commit_client``
+    inject one."""
 
     def __init__(self, master_client):
         self.client = master_client
@@ -573,6 +577,20 @@ class MasterCommitClient:
 
     def wait_commit(self, ckpt_dir: str, step: int, timeout: float) -> bool:
         return self.client.wait_ckpt_commit(ckpt_dir, step, timeout)
+
+
+#: a value no key of the commit or broker stores holds (JSON never does)
+_ABSENT = "\x00absent"
+
+
+def store_read(store, key: str) -> Optional[bytes]:
+    """``key``'s value, or None when it is absent, in one atomic store
+    operation: a compare-and-set that never matches leaves the key as it
+    is and returns its value, or the expected one when there is no key.
+    A ``check`` then ``get`` would block until the store's timeout when
+    another process deletes the key in between."""
+    value = store.compare_set(key, _ABSENT, _ABSENT)
+    return None if value == _ABSENT.encode() else value
 
 
 class StoreCommitClient:
@@ -652,9 +670,10 @@ class StoreCommitClient:
     def commit_status(self, ckpt_dir: str, step: int) -> Dict:
         status = {"step": int(step), "committed_step": -1, "sealed": False,
                   "reported": 0, "expected": 0, "reason": ""}
-        key = f"status/{ckpt_dir}/{int(step)}"
-        if self.store.check([key]):
-            status.update(json.loads(self.store.get(key)))
+        # process 0 deletes a status key once its step is committed
+        value = store_read(self.store, f"status/{ckpt_dir}/{int(step)}")
+        if value is not None:
+            status.update(json.loads(value))
         committed = f"committed/{ckpt_dir}"
         if self.store.check([committed]):
             status["committed_step"] = max(
@@ -727,9 +746,6 @@ class StoreCommitClient:
             self._thread.join(timeout=5.0)
 
 
-# the refused path's ROADMAP item
-ROADMAP_MASTER_RPC = "ROADMAP queue 1 item 11"
-
 _client_override = None
 _local_client: Optional[LocalCommitClient] = None
 _store_client: Optional[Tuple[Any, StoreCommitClient]] = None
@@ -743,26 +759,39 @@ def set_commit_client(client) -> None:
     _client_override = client
 
 
-def get_commit_client(num_processes: int = 1):
-    """The commit path for this process: an injected override, else the
-    store client of the ``torch.distributed`` world when one of more than
-    one rank is initialised (one per world: a new world gets a new
-    client), else a process-local coordinator (one process — commit
-    semantics intact, coordination in-process).
+def master_client():
+    """The process's master RPC client when a master is configured
+    (``MasterClient.singleton_instance()``), else None."""
+    from dlrover_tpu_torch.agent.master_client import MasterClient
 
-    A commit of ``num_processes > 1`` with neither an override nor a
-    world raises ``NotImplementedError``: its coordinator is the master's
-    (``ROADMAP_MASTER_RPC``), which the port does not have, and a private
-    one would never see the other processes' reports."""
+    return MasterClient.singleton_instance()
+
+
+def get_commit_client(num_processes: int = 1):
+    """The commit path for this process, in the reference's order: an
+    injected override; else the master's RPC (``MasterCommitClient``)
+    when a master is configured; else the store client of the
+    ``torch.distributed`` world when one of more than one rank is
+    initialised (one per world: a new world gets a new client); else a
+    process-local coordinator (one process — commit semantics intact,
+    coordination in-process).
+
+    A commit of ``num_processes > 1`` with none of these raises
+    ``NotImplementedError``: a private coordinator would never see the
+    other processes' reports, so nothing could seal it."""
     global _local_client, _store_client
     if _client_override is not None:
         return _client_override
+    mc = master_client()
+    if mc is not None:
+        return MasterCommitClient(mc)
     rank, size = world()
     if size <= 1 and int(num_processes) > 1:
         raise NotImplementedError(
             f"a distributed commit of {int(num_processes)} processes with "
-            "no torch.distributed world: the master's commit RPC is not "
-            f"ported yet ({ROADMAP_MASTER_RPC})")
+            "no master and no torch.distributed world: no coordinator "
+            "could seal it (configure the master's address, "
+            "DLROVER_TPU_MASTER_ADDR, or initialise the world)")
     with _client_mu:
         if size > 1:
             group = tdist.distributed_c10d._get_default_group()

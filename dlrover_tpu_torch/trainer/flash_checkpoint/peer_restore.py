@@ -43,11 +43,11 @@ and a multi-minute full restore").
   ``prewarm_from_context`` before it counts its cache.
 
 The broker (``master/ckpt_coordinator.py`` ``PeerRestoreBroker``) lives in
-the reference's master, which outlives every worker.  The port has no
-master; its stand-ins for the master's three calls
-(``report_peer_announce``, ``get_peer_assignment``, ``report_recovery``)
-are ``LocalPeerClient`` (a broker in this process: one process, the bench)
-and ``StorePeerClient`` (the world's c10d store).  The store client keeps
+the master, which outlives every worker; ``default_client`` takes the
+master's client (its ``report_peer_announce``, ``get_peer_assignment`` and
+``report_recovery``) when a master is configured.  Without one, its
+stand-ins are ``LocalPeerClient`` (a broker in this process: one process,
+the bench) and ``StorePeerClient`` (the world's c10d store).  The store client keeps
 each announcement as a key of the store (``announce/<scope>/<process>``)
 and each report as one more (``recovery/<n>``); an assignment is the
 broker's rule applied to the keys found, by whichever process asks, so no
@@ -89,7 +89,7 @@ from dlrover_tpu_torch.common.multi_process import SharedMemoryBuffer
 from dlrover_tpu_torch.common.pytree import flatten_with_path
 from dlrover_tpu_torch.master.ckpt_coordinator import PeerRestoreBroker
 from dlrover_tpu_torch.observability import trace
-from dlrover_tpu_torch.trainer.flash_checkpoint import snapshot
+from dlrover_tpu_torch.trainer.flash_checkpoint import distributed, snapshot
 
 #: ladder rungs, strictest first (a report's ``rung`` is the deepest one
 #: the recovery needed)
@@ -235,9 +235,9 @@ class StorePeerClient:
         return self.process_id if process_id is None else int(process_id)
 
     def _get(self, key: str) -> Optional[Dict]:
-        if not self.store.check([key]):
-            return None
-        return json.loads(self.store.get(key))
+        # an announcement's key is deleted when its process is evicted
+        value = distributed.store_read(self.store, key)
+        return None if value is None else json.loads(value)
 
     def report_peer_announce(self, scope: str, step: int, addr: str,
                              num_processes: int = 1,
@@ -288,12 +288,18 @@ _client_mu = threading.Lock()
 
 
 def default_client(num_processes: int = 1):
-    """The peer client of this process: the store client of the
-    ``torch.distributed`` world when one of more than one rank is
-    initialised (one per world), else a process-local broker.  Several
-    processes with no world raise: their broker is the master's, which
-    the port does not have (ROADMAP queue 1 item 11)."""
+    """The peer client of this process, picked as the commit path is
+    (``distributed.get_commit_client``): the master's broker (the
+    ``MasterClient``'s ``report_peer_announce``, ``get_peer_assignment``
+    and ``report_recovery``) when a master is configured; else the store
+    client of the ``torch.distributed`` world when one of more than one
+    rank is initialised (one per world); else a process-local broker.
+    Several processes with neither a master nor a world raise: a private
+    broker would never see the other processes' announcements."""
     global _local_client, _store_client
+    mc = distributed.master_client()
+    if mc is not None:
+        return mc
     if tdist.is_available() and tdist.is_initialized():
         rank, size = tdist.get_rank(), tdist.get_world_size()
     else:
@@ -301,8 +307,9 @@ def default_client(num_processes: int = 1):
     if size <= 1 and int(num_processes) > 1:
         raise NotImplementedError(
             f"peer restore across {int(num_processes)} processes with no "
-            "torch.distributed world: the master's broker RPC is not "
-            "ported yet (ROADMAP queue 1 item 11)")
+            "master and no torch.distributed world: no broker could see "
+            "the other processes' announcements (configure the master's "
+            "address, DLROVER_TPU_MASTER_ADDR, or initialise the world)")
     with _client_mu:
         if size > 1:
             group = tdist.distributed_c10d._get_default_group()
@@ -972,8 +979,6 @@ def _fill_from_manifest(
     no peer served.  Fills each missing entry's slot in place; returns
     ``(manifest extras, read stats)``, or ``(None, {})`` when no sealed
     manifest exists for the step."""
-    from dlrover_tpu_torch.trainer.flash_checkpoint import distributed
-
     manifest = distributed.read_manifest(checkpoint_dir, step, storage)
     if manifest is None:
         return None, {}

@@ -98,7 +98,12 @@ all-reduces each leaf's partial sum over the axes that shard it
 placements on the mesh; ``full_params`` gathers the whole leaves;
 ``state_layout`` places each local tensor in its global leaf for the flash
 checkpoint, and ``load_state`` restores a state across a change of the dp
-degree (the reference's).
+degree (the reference's).  ``live_reshard`` makes that change in place on a
+pure data-parallel mesh (``parallel/reshard.py``): the survivors keep their
+tensors, the world re-forms, joiners (``join_live_reshard``) take their
+state over it, and the result equals ``load_state``'s bit for bit; a
+request the agent stages (``stage_live_reshard``, or the staging file the
+trainer polls on its digest cadence) applies at the next step boundary.
 
 The trainer takes the Llama, the MoE Llama, GPT (its default LM loss) and
 ViT (``models/vit.vit_loss_fn``) on dp, fsdp and tp; GPT and ViT refuse
@@ -112,6 +117,7 @@ import json
 import logging
 import math
 import os
+import threading
 import time
 import weakref
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
@@ -250,6 +256,9 @@ class Trainer:
         self.accum_dtype = accum_dtype
         self._loss_fn = loss_fn or self._default_loss
         self.grad_sync = GradSyncPolicy.parse(grad_sync)
+        # the policy as requested: a live reshard re-resolves it against
+        # the new world (a dp=1 demotion must not outlive the shrink)
+        self._grad_sync_requested = self.grad_sync
         self.mesh = mesh
         # the mesh's layout: leaf name -> groups that hold its other
         # shards, and its placements over MESH_AXIS_NAMES
@@ -276,6 +285,18 @@ class Trainer:
         self._step_clock = get_step_clock()
         self._last_step_ts: Optional[float] = None
         self._init_telemetry()
+        # the live-reshard handshake: a request staged from the agent or
+        # the sentinel thread, applied at the next step boundary; the
+        # trainer registers as the process target and baselines the
+        # staging file, so a stale request cannot reshard a fresh trainer
+        self._reshard_mu = threading.Lock()
+        self._pending_reshard: Optional[Dict] = None
+        self._reshard_seq: Optional[int] = None
+        if mesh is not None:
+            from dlrover_tpu_torch.parallel import reshard
+
+            reshard.register_reshard_target(self)
+            self._reshard_seq = reshard.staged_seq()
 
     # -- the mesh ----------------------------------------------------------
 
@@ -701,16 +722,25 @@ class Trainer:
         ``torch.profiler`` spans, ``trainer.forward_backward``,
         ``trainer.grad_sync`` (with a dp group) and ``trainer.update``:
         context managers that record only while a profiler runs.  The
-        telemetry hooks run around it (module docstring)."""
+        telemetry hooks run around it (module docstring).  A staged live
+        reshard applies first, at this step boundary
+        (``stage_live_reshard``): the step then runs on the new mesh and
+        on the state it returns."""
+        if self._pending_reshard is not None:
+            with self._reshard_mu:
+                pending, self._pending_reshard = self._pending_reshard, None
+            state = self._apply_pending_reshard(pending, state)
         if not self._steps_begun:
-            return self._first_step(state, batch)
-        result = self._step_fn(state, batch)
-        dur = self._tick()
-        t0 = time.perf_counter()
-        self._digest_steps += 1
-        self._note_step_time(self._digest_steps, dur)
-        self._maybe_probe_comm(self._digest_steps)
-        self.telemetry_s += time.perf_counter() - t0
+            result = self._first_step(state, batch)
+        else:
+            result = self._step_fn(state, batch)
+            dur = self._tick()
+            t0 = time.perf_counter()
+            self._digest_steps += 1
+            self._note_step_time(self._digest_steps, dur)
+            self.telemetry_s += time.perf_counter() - t0
+        self._world_steps += 1
+        self._world_cadence(self._world_steps - 1)
         return result
 
     def _step(self, state: TrainState, batch) -> Tuple[TrainState, Dict]:
@@ -769,19 +799,13 @@ class Trainer:
         self._comm_probe = None
         self._comm_bucket_scope = None
         self._digest_steps = 0
+        # steps since this trainer's world formed: every rank of a world
+        # counts the same (rebind_mesh restarts it; a joiner starts at 0)
+        self._world_steps = 0
         self._steps_begun = False
         self.telemetry_s = 0.0
         self._step_fn = self._step
-        try:
-            from dlrover_tpu_torch.observability import commscope
-
-            if commscope.probe_every() > 0:
-                self._comm_probe = (
-                    commscope.MeshProbe.for_mesh(self.mesh)
-                    if self.mesh is not None
-                    else commscope.MeshProbe.for_group("dp", self.dp_group))
-        except Exception as e:  # noqa: BLE001 - telemetry must not break
-            logger.debug("comm probe unavailable: %s", e)  # construction
+        self._comm_probe = self._make_comm_probe()
         try:
             from dlrover_tpu_torch.observability import jitscope
 
@@ -793,6 +817,21 @@ class Trainer:
                     static={"donate": True, "accum": self.grad_accum_steps})
         except Exception as e:  # noqa: BLE001 - telemetry must not break
             logger.debug("jitscope watch unavailable: %s", e)  # the step
+
+    def _make_comm_probe(self):
+        """The comm probe over the mesh's active axes or the dp group, or
+        None (``DLROVER_TPU_COMM_PROBE_EVERY`` is 0, or it failed)."""
+        try:
+            from dlrover_tpu_torch.observability import commscope
+
+            if commscope.probe_every() > 0:
+                return (commscope.MeshProbe.for_mesh(self.mesh)
+                        if self.mesh is not None
+                        else commscope.MeshProbe.for_group("dp",
+                                                           self.dp_group))
+        except Exception as e:  # noqa: BLE001 - telemetry must not break
+            logger.debug("comm probe unavailable: %s", e)  # construction
+        return None
 
     def _first_step(self, state: TrainState, batch):
         """The first step, where the reference has its first dispatch:
@@ -933,8 +972,6 @@ class Trainer:
             every = envs.get_int("DLROVER_TPU_DIGEST_EVERY")
             if every <= 0 or step % every != 0:
                 return
-            # the staged DCN-demotion poll goes here: ROADMAP item 6d
-            # the staged live-reshard poll goes here: ROADMAP item 6c
             digest = flight_recorder.recorder().step_digest()
             if not digest:
                 return
@@ -957,6 +994,169 @@ class Trainer:
             os.replace(tmp, path)
         except Exception as e:  # noqa: BLE001 - telemetry must not break
             logger.debug("step digest drop failed: %s", e)  # a step
+
+    def _world_cadence(self, step: int) -> None:
+        """The collectives that ride the step cadence: the comm probe and
+        the staged-reshard poll.  ``step`` is the world's step count less
+        the first step, which every rank of a world reaches at the same
+        step (a joiner and the survivors of a grow too), so the ranks enter
+        these collectives together."""
+        if step <= 0:
+            return
+        t0 = time.perf_counter()
+        self._maybe_probe_comm(step)
+        self._maybe_poll_reshard(step)
+        self.telemetry_s += time.perf_counter() - t0
+
+    def _maybe_poll_reshard(self, step: int) -> None:
+        """On the digest cadence, stage any live reshard the agent wrote to
+        the staging file: a brain-ordered transition applies within
+        ``DLROVER_TPU_DIGEST_EVERY`` steps plus one step boundary.  Only a
+        pure data-parallel mesh polls (the port re-lays the dp axis of such
+        a mesh only); over several ranks the sequence is the world's
+        minimum, an all-reduce outside any telemetry guard, so an error
+        fails every rank's step alike."""
+        every = envs.get_int("DLROVER_TPU_DIGEST_EVERY")
+        if every <= 0 or step % every != 0 or self.mesh is None:
+            return
+        if any(s > 1 for a, s in mesh_shape(self.mesh).items() if a != "dp"):
+            return
+        # the staged DCN-demotion poll goes here too: ROADMAP item 6d
+        from dlrover_tpu_torch.parallel import reshard
+
+        several = dist.is_initialized() and dist.get_world_size() > 1
+        self._reshard_seq = reshard.poll_staged_reshard(
+            self, self._reshard_seq,
+            agree=self._agree_min if several else None)
+
+    def _agree_min(self, value: int) -> int:
+        """The smallest ``value`` over the world's ranks (collective)."""
+        if not dist.is_initialized() or dist.get_world_size() <= 1:
+            return int(value)
+        t = DpGroup(self.device).all_reduce(
+            torch.tensor([int(value)], dtype=torch.int64,
+                         device=self.device), op=dist.ReduceOp.MIN)
+        return int(t.item())
+
+    # -- live elastic resharding ---------------------------------------------
+
+    def rebind_mesh(self, new_mesh) -> None:
+        """Re-form this trainer around ``new_mesh`` without its process
+        restarting (the live reshard): restores the originally requested
+        grad-sync policy, re-resolves the mesh's groups and the sync's
+        world, and rebuilds every mesh-derived artifact: the leaf and
+        bucket layouts (through the same deterministic
+        ``BucketLayout.signature()`` path a fresh start takes), the comm
+        probe, the compute-copy source and the step-time baseline (the
+        reshard gap is not charged as a step).  The world's step count
+        restarts, so the new world's ranks keep the step cadence's
+        collectives in step, and the trainer becomes the process's
+        live-reshard target.  The model keeps its parameters;
+        ``create_state`` gives the state's new layout."""
+        self.mesh = new_mesh
+        self._shard_groups = {}
+        self.placements = {}
+        self._data_groups = ()
+        self._cp = None
+        self._fsdp = False
+        self.grad_sync = self._grad_sync_requested
+        self.dp_group = (self._configure_mesh() if new_mesh is not None
+                         else None)
+        self._sync_world = 1
+        self._grad_layout = None
+        self._bucket_layout = None
+        self._peer_window = None
+        self._configure_grad_sync()
+        self._copy_source = None
+        self._comm_probe = self._make_comm_probe()
+        self._comm_bucket_scope = None
+        self._world_steps = 0
+        self._step_clock.reset()
+        self._last_step_ts = None
+        if new_mesh is not None:
+            from dlrover_tpu_torch.parallel import reshard
+
+            reshard.register_reshard_target(self)
+
+    def stage_live_reshard(self, axes, reason: str = "") -> None:
+        """Stage a live mesh transition (safe from the agent or sentinel
+        thread); the training thread applies it at the next step
+        boundary, never mid-step."""
+        axes = {str(a): int(s) for a, s in dict(axes or {}).items()}
+        if not axes:
+            return
+        with self._reshard_mu:
+            self._pending_reshard = {"axes": axes,
+                                     "reason": str(reason or "")}
+        logger.info("live reshard to %s staged: applies at the next step "
+                    "boundary (%s)", axes, reason or "unspecified")
+
+    def live_reshard(self, state: TrainState, new_axes, *, survivors=None,
+                     donor=None, reason: str = ""):
+        """Synchronous in-place transition of a survivor
+        (``parallel/reshard.py``): plan (gated by the measured fit
+        report), pull the survivors' state over the world, read from the
+        sealed donor manifest only the shards no survivor holds, re-form
+        the world and rebind this trainer to the new mesh.  Collective
+        over the survivors of ``survivors`` (default: every old rank) and
+        the joiners (``join_live_reshard``).  Returns ``(new_state,
+        report)``; a rank the new world has no room for gets ``(None,
+        report)`` and has left the world.  Raises
+        ``reshard.ReshardRefused`` when the plan cannot be honoured,
+        before any world changes: the caller falls back to the restart
+        path."""
+        from dlrover_tpu_torch.parallel import reshard
+
+        plan = reshard.plan_reshard(self.mesh_axes() or {}, new_axes,
+                                    survivors=survivors, reason=reason)
+        if donor is None:
+            donor = reshard.donor_engine()
+        return reshard.execute_reshard(self, state, plan, donor=donor)
+
+    def join_live_reshard(self, new_axes, rank: int, *, donor=None,
+                          reason: str = ""):
+        """A joiner's side of a live grow: this trainer (its model and
+        optimizer; no mesh, no state) enters the re-formed world as new
+        rank ``rank`` and takes the state from the survivors.  Returns
+        ``(state, report)``."""
+        from dlrover_tpu_torch.parallel import reshard
+
+        return reshard.join_reshard(self, new_axes, rank, donor=donor,
+                                    reason=reason)
+
+    def _apply_pending_reshard(self, pending, state: TrainState):
+        """Apply one staged request at the step boundary: reshard onto the
+        new mesh.  A refusal (a grow among them: nothing staged starts its
+        joiners) logs and keeps the old mesh and state; a rank
+        the new world has no room for raises ``reshard.LeftWorld`` (its
+        process is done)."""
+        from dlrover_tpu_torch.parallel import reshard
+
+        axes = dict((pending or {}).get("axes") or {})
+        if not axes:
+            return state
+        try:
+            if (reshard.replica_world(axes)
+                    > reshard.replica_world(self.mesh_axes() or {})):
+                # every old rank survives a staged request, and nothing
+                # staged starts the joiners a grow needs
+                raise reshard.ReshardRefused(
+                    f"a staged grow to {axes} has no joiners to start; "
+                    "a grow is Trainer.live_reshard with joiners in "
+                    "join_live_reshard")
+            new_state, report = self.live_reshard(
+                state, axes, reason=str(pending.get("reason", "")))
+        except reshard.ReshardRefused as e:
+            logger.warning("staged live reshard to %s refused; continuing "
+                           "on the current mesh: %s", axes, e)
+            return state
+        if new_state is None:
+            raise reshard.LeftWorld(
+                f"this rank left the world at the live reshard to {axes}")
+        logger.info("live reshard applied at the step boundary: %s -> %s "
+                    "(%d donor bytes)", report["old_axes"],
+                    report["new_axes"], report["donor_bytes_read"])
+        return new_state
 
     def _clip(self, grads, grad_norm):
         """``GradSyncPolicy.clip_norm``: scale by min(1, clip / norm)."""

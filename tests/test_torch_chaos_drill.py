@@ -1,12 +1,14 @@
 """The port's chaos drill against the JAX package's, on the CPU.
 
-Each of the thirteen ported scenarios is ``ok`` with its states on the
+Each of the fourteen ported scenarios is ``ok`` with its states on the
 CPU, and at seeds 0 and 13 its normalized fault trace, its check names,
 its fault count and its incident's phase and chaos point equal the
 reference drill's (``data_starved`` included: the sharding client against
-the master's shard telemetry, its ledger and its incident).  The two
-waiting scenarios raise ``NotImplementedError``
-naming their ROADMAP item, an unknown name raises ``KeyError``, the
+the master's shard telemetry, its ledger and its incident; and
+``live_reshard``: 4 rank processes shrink dp4 -> dp2 in place against a
+restart path of new rank processes).  The waiting scenario
+(``fabric_reroute``) raises ``NotImplementedError``
+naming its ROADMAP item, an unknown name raises ``KeyError``, the
 engine is disarmed after every scenario, and the CLI runs (and refuses
 to run without a card unless asked for the CPU).
 
@@ -41,7 +43,7 @@ REPLAYED = ("torn_shm", "node_flap", "kv_timeout", "heartbeat_loss",
             "slow_link", "hbm_leak", "cache_cold", "peer_restore",
             "data_starved")
 #: the reference drill's scenarios whose checks compare wall-clock times
-REF_WALL_CLOCK = ("slow_link", "peer_restore")
+REF_WALL_CLOCK = ("slow_link", "peer_restore", "live_reshard")
 
 
 class ModelClock:
@@ -123,9 +125,9 @@ def runs(tmp_path_factory):
 def test_the_eight_scenarios_are_ported():
     assert PORTED == sorted([
         "master_restart", "torn_shm", "storage_stall", "storage_crc",
-        "node_flap", "kv_timeout", "heartbeat_loss", "torn_commit",
-        "slow_link", "hbm_leak", "cache_cold", "peer_restore",
-        "data_starved"])
+        "node_flap", "live_reshard", "kv_timeout", "heartbeat_loss",
+        "torn_commit", "slow_link", "hbm_leak", "cache_cold",
+        "peer_restore", "data_starved"])
     assert drill.INCIDENT_EXPECTATIONS == jdrill.INCIDENT_EXPECTATIONS
     assert set(PORTED) | set(drill.WAITING) == set(jdrill._SCENARIO_BODIES)
 
@@ -173,9 +175,9 @@ def test_waiting_scenarios_name_their_item(name):
     with pytest.raises(NotImplementedError, match=item):
         drill.run_scenario(name, 0, device="cpu")
     assert not chaos.is_active()
-    want = {"live_reshard": "6c", "fabric_reroute": "6d"}[name]
+    want = {"fabric_reroute": "6d"}[name]
     assert want in item
-    assert sorted(drill.WAITING) == ["fabric_reroute", "live_reshard"]
+    assert sorted(drill.WAITING) == ["fabric_reroute"]
 
 
 def test_unknown_scenario_raises_key_error():

@@ -890,15 +890,14 @@ def test_a_torn_snapshot_is_never_reported(tmp_path, monkeypatch):
 
 
 def test_several_processes_with_no_world_are_refused(tmp_path):
-    """With no world and no injected client, a commit of more than one
-    process has no coordinator that could seal it (the master's commit
-    RPC is not ported): the persister, the engine's save and the saver's
-    ``dist`` event, as an agent process would get it, refuse it before
-    anything is written."""
+    """With no master, no world and no injected client, a commit of more
+    than one process has no coordinator that could seal it: the
+    persister, the engine's save and the saver's ``dist`` event refuse it
+    before anything is written."""
     from dlrover_tpu_torch.agent.ckpt_saver import AsyncCheckpointSaver
 
     ckpt_dir = str(tmp_path / "ckpt")
-    item = "ROADMAP queue 1 item 11"
+    item = "no master and no torch.distributed world"
     with pytest.raises(NotImplementedError, match=item):
         dist.DistributedPersister(ckpt_dir, 1, 2)
     with pytest.raises(NotImplementedError, match=item):

@@ -731,17 +731,35 @@ def test_collect_digest_agrees(tmp_path, monkeypatch):
     assert p_digest["ranks"] == 3.0 and p_digest["last_step"] == 40.0
 
 
-def test_brain_verbs_without_their_items_warn(monkeypatch):
-    """``brain_scale_plan`` with ``live_reshard`` and ``brain_demote``
-    log a warning naming items 6c and 6d, and return (the agent loop goes
-    on), as the reference's handlers do when their staging fails."""
+def test_brain_verbs_without_their_items_warn(monkeypatch, tmp_path):
+    """``brain_scale_plan`` with ``live_reshard`` stages the target axes
+    through ``reshard.stage_reshard_request``: with no trainer in the
+    agent's process, into the staging file the training processes poll,
+    which ``reshard.staged_request()`` returns, as the reference agent
+    stages it.  ``brain_demote`` still logs a warning naming item 6d, its
+    ROADMAP item, and returns (the agent loop goes on)."""
+    from dlrover_tpu.parallel import reshard as j_reshard
+    from dlrover_tpu_torch.parallel import reshard
+
+    monkeypatch.setenv("DLROVER_TPU_RUNTIME_METRICS_PATH",
+                       str(tmp_path / "runtime_metrics.json"))
+    reshard.register_reshard_target(None)
+    j_reshard.register_reshard_target(None)
     warnings = []
     monkeypatch.setattr(p_agent.logger, "warning",
                         lambda msg, *args: warnings.append(msg % args))
-    (agent,) = _agents({})[1:]
+    j_ag, agent = _agents({})
     agent._handle_live_reshard({"reason": "grow"},
                                {"live_reshard": True, "target_nodes": 4})
+    req = reshard.staged_request()
+    assert (req["seq"], req["axes"], req["reason"]) == (1, {"dp": 4}, "grow")
+    # the reference agent stages the next request into the same file
+    j_ag._handle_live_reshard({"reason": "shrink"},
+                              {"live_reshard": True,
+                               "mesh_axes": {"dp": 2}})
+    req = reshard.staged_request()
+    assert (req["seq"], req["axes"], req["reason"]) == (2, {"dp": 2},
+                                                        "shrink")
     agent._handle_brain_demote({"reason": "slow dcn"})
-    assert len(warnings) == 2
-    assert "6c" in warnings[0] and "{'dp': 4}" in warnings[0]
-    assert "6d" in warnings[1] and "slow dcn" in warnings[1]
+    assert len(warnings) == 1
+    assert "6d" in warnings[0] and "slow dcn" in warnings[0]
